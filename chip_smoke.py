@@ -25,7 +25,33 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      analysis(certify=True) / the linearizable checker on the card give
      certificates the port's validator accepts;
   6. replays the main path's kernel launches to time the kernel and its
-     plain version on them, and prints one `{"kernels": [...]}` line.
+     plain version on them;
+  7. holds the scc and bank_reduce kernels against their plain PyTorch
+     versions on the card: seeded graphs (many large components, edge-mask
+     subsets, a 3,000-node decreasing chain that hits SWEEP_CAP, one above
+     DEVICE_MIN_EDGES; the small graphs that hit a cap also with caps of
+     n, the launch scc() makes after a cap hit) and seeded balance
+     matrices (one row past 2^31); zero mismatches allowed in labels, ok,
+     rounds, sweeps, sums, flags;
+  8. drives the Elle path at full size through the checkers, with the scc
+     launch count set to 0 just before each check and read just after:
+     list_append_history(100_000, seed=11) through append_checker must be
+     valid with >= 1 launch, its twin with one read damaged at 85% must be
+     invalid with G0 and 5 launches, rw_register_history(100_000, seed=17)
+     through wr_checker must be valid; every certificate must validate,
+     and every SCC of these checks must be solved by one launch of the
+     kernel (no host path, no cap hit, no degradation);
+  9. cross-checks the Elle path on 20,000 txns, both families, valid and
+     corrupted: the device engine on the card equals the device engine on
+     the CPU (the plain kernel) and the host engine;
+ 10. drives the bank path: bank_history(500_000, n_accounts=32, seed=11)
+     through check_fast on the card must be valid with the bank_reduce
+     kernel launched, and a twin with one balance raised by 1 at 85% must
+     give the numpy fold's first error;
+ 11. replays the Elle and bank main paths' launches to time both kernels,
+     their plain versions and (bank) the PyTorch reduction, prints the scc
+     rounds, sweeps and live edges per round of each launch (the bytes of
+     its bound are counted from them), and one `{"kernels": [...]}` line.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -42,12 +68,17 @@ import time
 
 import torch
 
+import numpy as np
+
 from jepsen_tpu_torch import telemetry
-from jepsen_tpu_torch.checker import linearizable, models
-from jepsen_tpu_torch.gpu import certify, synth, wgl
+from jepsen_tpu_torch.checker import cycle, linearizable, models
+from jepsen_tpu_torch.gpu import certify, elle, synth, wgl
 from jepsen_tpu_torch.gpu.encode import encode
+from jepsen_tpu_torch.gpu.kernels import bank_reduce as kbank
 from jepsen_tpu_torch.gpu.kernels import build
+from jepsen_tpu_torch.gpu.kernels import scc as kscc
 from jepsen_tpu_torch.gpu.kernels import wgl_search as ws
+from jepsen_tpu_torch.workloads import bank
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth,
 # and the float32 CUDA-core rate, used as the rate of the kernel's 32-bit
@@ -140,9 +171,490 @@ def _launch_bound(packed, rs, kw, out) -> tuple[float, float, float]:
     return nbytes, ops, bound_ms
 
 
+def _norm(x):
+    """A result tree with every op replaced by its to_dict()."""
+    if hasattr(x, "to_dict") and not isinstance(x, dict):
+        return {"op": _norm(x.to_dict())}
+    if isinstance(x, dict):
+        return {k: _norm(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_norm(v) for v in x]
+    return x
+
+
+def _clustered_graph(seed, n, cluster, inner, cross):
+    """Many large SCCs: random edges inside clusters of `cluster` nodes
+    plus forward edges between clusters."""
+    rng = np.random.default_rng(seed)
+    blk = rng.integers(0, n // cluster, inner)
+    src = blk * cluster + rng.integers(0, cluster, inner)
+    dst = blk * cluster + rng.integers(0, cluster, inner)
+    cs = rng.integers(0, n - 2 * cluster, cross)
+    cd = cs + rng.integers(1, 2 * cluster, cross)
+    return np.concatenate([src, cs]), np.concatenate([dst, cd])
+
+
+def _scc_cases():
+    """(name, n, src, dst, edge_on) seeded graphs for kernel vs plain."""
+    rng = np.random.default_rng(5)
+    out = []
+    for seed, (n, cluster, inner, cross) in enumerate(
+            [(3000, 60, 6000, 1500), (100_000, 300, 500_000, 100_000)]):
+        src, dst = _clustered_graph(seed, n, cluster, inner, cross)
+        ty = rng.integers(0, 5, len(src))
+        for k in (1, 2, 3, 4, 5):
+            out.append((f"clustered-n{n}-classes{k}", n, src, dst, ty < k))
+    chain = 3000
+    out.append(("decreasing-chain-3000", chain,
+                np.arange(chain - 1, 0, -1), np.arange(chain - 2, -1, -1),
+                np.ones(chain - 1, dtype=bool)))
+    out.append(("decreasing-chain-100", 100, np.arange(99, 0, -1),
+                np.arange(98, -1, -1), np.ones(99, dtype=bool)))
+    out.append(("cycle-600", 600, np.arange(600), (np.arange(600) + 1) % 600,
+                np.ones(600, dtype=bool)))
+    n = 2000
+    src, dst = rng.integers(0, n, 4000), rng.integers(0, n, 4000)
+    out.append(("random-n2000", n, src, dst, rng.random(4000) < 0.8))
+    return out
+
+
+def _scc_tensors(src, dst, on, dev):
+    return (torch.from_numpy(np.asarray(src, np.int32)).to(dev),
+            torch.from_numpy(np.asarray(dst, np.int32)).to(dev),
+            torch.from_numpy(np.asarray(on, bool)).to(dev))
+
+
+def _bank_cases():
+    rng = np.random.default_rng(9)
+    mats = {"random-1000x32": rng.integers(-100, 100, (1000, 32)),
+            "random-250000x32": rng.integers(0, 50, (250_000, 32)),
+            "random-77x100": rng.integers(-2 ** 40, 2 ** 40, (77, 100))}
+    past = rng.integers(0, 10, (5000, 16))
+    past[17, :2] = [2 ** 31 - 1, 5]
+    past[18, :3] = [2 ** 31 - 1, 2 ** 31 - 1, 2 ** 31 - 1]
+    mats["past-int32-5000x16"] = past
+    return {k: np.ascontiguousarray(v, dtype=np.int64)
+            for k, v in mats.items()}
+
+
+def kernels_against_plain(dev, on_card: bool) -> int:
+    """Phase 7: scc and bank_reduce against their plain versions."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    total = 0
+    for name, n, src, dst, on in _scc_cases():
+        args = _scc_tensors(src, dst, on, dev)
+        sync()
+        t0 = time.perf_counter()
+        got = kscc.scc_labels(*args, n)
+        sync()
+        t_kernel = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = kscc.scc_labels_reference(*args, n)
+        sync()
+        t_plain = time.perf_counter() - t0
+        mism = int((got != want).sum())
+        total += mism
+        tail = want[n:].tolist()
+        emit({"phase": "kernel-vs-plain", "kernel": "scc", "case": name,
+              "nodes": n, "edges": len(src), "live_edges": int(on.sum()),
+              "ok": tail[0], "rounds": tail[1], "sweeps": tail[2],
+              "components": int(np.unique(want[:n].cpu().numpy()).size),
+              "mismatches": mism, "kernel_s": t_kernel, "plain_s": t_plain})
+        if (name.startswith(("decreasing-chain", "cycle"))
+                and tail[0] != 0):
+            raise AssertionError(f"{name} did not hit a cap: {tail}")
+        if tail[0] == 0 and n <= 600:
+            # the launch scc() makes after a cap hit, with caps of n,
+            # against the plain version on the CPU
+            got = kscc.scc_labels_to_convergence(*args, n)
+            want = kscc.scc_labels_to_convergence(
+                *(a.cpu() for a in args), n)
+            mism = int((got.cpu() != want).sum())
+            total += mism
+            tail = want[n:].tolist()
+            emit({"phase": "kernel-vs-plain", "kernel": "scc",
+                  "case": f"{name}-to-convergence", "ok": tail[0],
+                  "rounds": tail[1], "sweeps": tail[2],
+                  "mismatches": mism})
+            if tail[0] != 1:
+                raise AssertionError(f"{name} to convergence: {tail}")
+    for name, mat in _bank_cases().items():
+        m = torch.from_numpy(mat).to(dev)
+        got = kbank.bank_reduce(m)
+        want = kbank.bank_reduce_reference(m)
+        sync()
+        mism = [int((a != b).sum()) for a, b in zip(got, want)]
+        exact = bool((got[0].cpu().numpy() == mat.sum(axis=1)).all())
+        total += sum(mism) + (not exact)
+        emit({"phase": "kernel-vs-plain", "kernel": "bank_reduce",
+              "case": name, "shape": list(mat.shape), "mismatches": mism,
+              "equals_numpy_int64": exact})
+    return total
+
+
+def _device_kernels(fn) -> list | str:
+    """[(kernel name, device us)] of every kernel that one call of fn
+    ran, in launch order, from torch.profiler's CUDA trace; the error's
+    text when the profiler fails or records no kernel on this machine."""
+    try:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        return out or "the profiler recorded no device kernels"
+    except Exception as e:  # noqa: BLE001 — a measurement, not the check
+        return f"profiler failed: {e!r}"[:300]
+
+
+def _span_s(name: str) -> float:
+    return sum(sp["t1"] - sp["t0"] for sp in telemetry.get().spans()
+               if sp["name"] == name) / 1e9
+
+
+def _recording(module, name, store):
+    """Replaces module.name with a wrapper that keeps each call's
+    arguments and result; returns the original."""
+    original = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out = original(*args, **kw)
+        store.append((args, kw, out))
+        return out
+
+    setattr(module, name, wrapper)
+    return original
+
+
+def elle_main_path(dev, on_card: bool, n_txns: int) -> tuple[list, dict]:
+    """Phase 8: the Elle checkers at full size. Returns the recorded scc
+    launches (check name, args, out) and the launches per check."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    la = synth.list_append_history(n_txns, seed=11)
+    twin, bad_idx = synth.corrupt_list_append_history(la, at_frac=0.85)
+    rw = synth.rw_register_history(n_txns, seed=17)
+    opts = {"device": dev}
+    checks = [("list-append", la, cycle.append_checker(opts), True),
+              ("list-append-corrupted", twin, cycle.append_checker(opts),
+               False),
+              ("rw-register", rw, cycle.wr_checker(opts), True)]
+    recorded, per_check = [], {}
+    calls: list = []
+    original = _recording(kscc, "scc_labels", calls)
+    try:
+        for name, h, chk, valid in checks:
+            calls.clear()
+            kscc.launches = 0
+            telemetry.reset()
+            t0 = time.perf_counter()
+            res = chk.check({}, h)
+            sync()
+            t1 = time.perf_counter()
+            launches = kscc.launches
+            counters = telemetry.get().counters()
+            family = name.removesuffix("-corrupted")
+            spans = {"host_encode_s": _span_s(f"elle:{family}"),
+                     "cycle_search_s": _span_s("elle:cycles"),
+                     "scc_device_s": _span_s("scc:device"),
+                     "certify_s": _span_s("certify.attach")}
+            certify.validate(h, res["certificate"])
+            t2 = time.perf_counter()
+            if res["valid?"] is not valid:
+                raise AssertionError(f"{name}: valid? {res['valid?']} "
+                                     f"{res['anomaly-types']}")
+            if on_card and launches < 1:
+                raise AssertionError(f"{name}: no scc kernel launch")
+            if "degradation" in res:
+                raise AssertionError(f"{name}: {res['degradation']}")
+            if n_txns == 100_000:
+                # every graph of the full-size checks is past
+                # DEVICE_MIN_EDGES: each one must be solved by one launch
+                # of the kernel, none by the host or a second launch
+                off = {k: counters.get(k, 0) for k in
+                       ("scc.path.host", "scc.device-nonconverged")}
+                if any(off.values()):
+                    raise AssertionError(f"{name}: off the card {off}")
+                if on_card and counters.get("scc.path.device") != launches:
+                    raise AssertionError(
+                        f"{name}: {launches} launches for "
+                        f"{counters.get('scc.path.device')} device solves")
+            if name == "list-append-corrupted" and n_txns == 100_000:
+                # the full-size twin's known shape (smaller rehearsal
+                # sizes damage another read)
+                if "G0" not in res["anomaly-types"]:
+                    raise AssertionError(f"twin: {res['anomaly-types']}")
+                if on_card and launches != 5:
+                    raise AssertionError(f"twin: {launches} launches")
+            per_check[name] = launches
+            recorded += [(name, a, o) for a, _kw, o in calls]
+            emit({"phase": "elle", "check": name, "txns": res["txn-count"],
+                  "edges": res["edge-count"], "valid": res["valid?"],
+                  "anomaly_types": res["anomaly-types"],
+                  "damaged_op": bad_idx if name.endswith("corrupted")
+                  else None,
+                  "scc_launches": launches,
+                  "scc_device_path": counters.get("scc.path.device", 0),
+                  "scc_host_path": counters.get("scc.path.host", 0),
+                  "scc_nonconverged": counters.get(
+                      "scc.device-nonconverged", 0),
+                  "certificate": ("cycle" if "cycle" in res["certificate"]
+                                  else "topo-order"),
+                  "check_s": t1 - t0, **spans, "validate_s": t2 - t1,
+                  "txns_per_s": res["txn-count"] / (t1 - t0)})
+    finally:
+        kscc.scc_labels = original
+    return recorded, per_check
+
+
+def elle_cross_check(dev, n_txns: int) -> None:
+    """Phase 9: card against CPU against the host engine."""
+    la = synth.list_append_history(n_txns, seed=11)
+    rw = synth.rw_register_history(n_txns, seed=17)
+    cases = [("list-append", la, elle.check_list_append),
+             ("list-append-corrupted",
+              synth.corrupt_list_append_history(la, 0.85)[0],
+              elle.check_list_append),
+             ("rw-register", rw, elle.check_rw_register),
+             ("rw-register-corrupted",
+              synth.corrupt_rw_register_history(rw, 0.85)[0],
+              elle.check_rw_register)]
+    for name, h, check in cases:
+        t0 = time.perf_counter()
+        card = _norm(check(h, {"engine": "device", "device": dev}))
+        t1 = time.perf_counter()
+        cpu = _norm(check(h, {"engine": "device", "device": "cpu"}))
+        t2 = time.perf_counter()
+        host = _norm(check(h, {"engine": "host"}))
+        t3 = time.perf_counter()
+        if card != cpu:
+            raise AssertionError(f"{name}: card {card} != cpu {cpu}")
+        # the host engine alone attributes edges per key (search keys and
+        # per-key-edges), as in the reference; everything else is equal
+        for k in ("keys", "per-key-edges"):
+            host["search"].pop(k, None)
+        if card != host:
+            raise AssertionError(f"{name}: card {card} != host {host}")
+        if card["valid?"] is name.endswith("corrupted"):
+            raise AssertionError(f"{name} judged {card['valid?']}")
+        emit({"phase": "elle-cross-check", "check": name,
+              "txns": card["txn-count"], "edges": card["edge-count"],
+              "anomaly_types": card["anomaly-types"], "identical": True,
+              "card_s": t1 - t0, "cpu_plain_s": t2 - t1,
+              "host_engine_s": t3 - t2})
+
+
+def _raise_balance(hist, at_frac: float):
+    ops = list(hist)
+    for i in range(int(len(ops) * at_frac), len(ops)):
+        o = ops[i]
+        if o.type == "ok" and o.f == "read":
+            ops[i] = o.copy(value={**o.value, 0: o.value[0] + 1})
+            return type(hist)(ops, assign_indices=False), i
+    raise ValueError("no ok read to corrupt")
+
+
+def _numpy_fold_first_error(hist, total: int):
+    """The first error of the plain numpy fold over the balance matrix."""
+    reads = [o for o in hist
+             if o.type == "ok" and o.f == "read" and o.value is not None]
+    mat = np.array([list(o.value.values()) for o in reads], dtype=np.int64)
+    sums = mat.sum(axis=1)
+    bad = np.flatnonzero((sums != total) | (mat < 0).any(axis=1))
+    if not bad.size:
+        return None
+    i = int(bad[0])
+    if sums[i] != total:
+        return {"type": "wrong-total", "expected": total,
+                "found": int(sums[i]), "op": reads[i]}
+    return {"type": "negative-value",
+            "found": [int(b) for b in mat[i] if b < 0], "op": reads[i]}
+
+
+def bank_path(dev, on_card: bool, n_txns: int) -> tuple[list, int]:
+    """Phase 10: the bank checker on the card. Returns the recorded
+    bank_reduce launches and the launch count of the valid check."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    accounts = 32
+    total = accounts * 10
+    h = synth.bank_history(n_txns, n_accounts=accounts, seed=11)
+    twin, bad_idx = _raise_balance(h, 0.85)
+    calls: list = []
+    original = _recording(kbank, "bank_reduce", calls)
+    try:
+        kbank.launches = 0
+        t0 = time.perf_counter()
+        res = bank.check_fast(h, total, device=dev)
+        sync()
+        t1 = time.perf_counter()
+        launches = kbank.launches
+        main = list(calls)
+        bres = bank.check_fast(twin, total, device=dev)
+        sync()
+    finally:
+        kbank.bank_reduce = original
+    if res["valid?"] is not True:
+        raise AssertionError(f"bank history not valid: {res}")
+    if on_card and launches < 1:
+        raise AssertionError("the bank path launched no kernel")
+    want = _numpy_fold_first_error(twin, total)
+    if bres["valid?"] is not False or _norm(bres["first-error"]) != \
+            _norm(want):
+        raise AssertionError(f"bank twin: {bres} != numpy fold {want}")
+    emit({"phase": "bank", "txns": n_txns, "accounts": accounts,
+          "reads": res["read-count"], "valid": res["valid?"],
+          "bank_reduce_launches": launches, "check_s": t1 - t0,
+          "corrupted_op": bad_idx, "corrupted_first_error": {
+              k: v for k, v in bres["first-error"].items() if k != "op"},
+          "corrupted_error_count": bres["error-count"],
+          "equals_numpy_fold": True})
+    return main, launches
+
+
+def _scc_bound(src, dst, on, n: int, out) -> tuple[int, float, list]:
+    """(bytes, bound ms, per-round work) of one scc launch, from the
+    live edges of each of its rounds (the plain version's count, which
+    must agree with the kernel's rounds and sweeps). Per round: the live
+    mask is rebuilt (edge_on and the new mask over every edge, src, dst
+    and two active flags for each edge of the subset) and the colours
+    set (active read, c written); each forward sweep reads the mask over
+    every edge, src, dst, the source's colour and the target's prop for
+    each live edge, and reads and writes each node's value; the
+    same-colour mask is cut (the mask, and src, dst and both colours of
+    each live edge) and the membership set; each backward sweep is a
+    forward sweep over the same-colour edges; the retire pass reads
+    active and m and writes the labels and active. Over the memory rate:
+    the operations, a compare per edge and node touched, are far below
+    the 32-bit rate."""
+    E, E_on = src.numel(), int(on.sum())
+    work = kscc.scc_rounds(src, dst, on, n)
+    tail = out[n:].tolist()
+    if len(work) != tail[1] or sum(f + b for *_x, f, b in work) != tail[2]:
+        raise AssertionError(f"scc work {work} disagrees with the "
+                             f"kernel's rounds and sweeps {tail}")
+    nbytes = 0
+    for live, same, fwd, bwd in work:
+        nbytes += 2 * E + 10 * E_on + 5 * n
+        nbytes += fwd * (E + 16 * live + 8 * n)
+        nbytes += E + 16 * live + 9 * n
+        nbytes += bwd * (E + 16 * same + 8 * n)
+        nbytes += 10 * n
+    return nbytes, 1e3 * nbytes / PEAK_BYTES_PER_S, work
+
+
+def scc_timing(recorded, per_check, on_card: bool) -> dict:
+    """Phase 11, scc: each main-path launch replayed on the kernel (CUDA
+    events) and the plain version, against the plain outputs."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    per_launch, max_err = [], 0
+    for check, (src, dst, on, n), out in recorded:
+        tail = out[n:].tolist()
+        nbytes, bound_ms, work = _scc_bound(src, dst, on, n, out)
+        kernel_ms = (_event_ms(lambda: kscc.scc_labels(src, dst, on, n),
+                               reps=20) if on_card else None)
+        sync()
+        t0 = time.perf_counter()
+        want = kscc.scc_labels_reference(src, dst, on, n)
+        sync()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        max_err = max(max_err, int((out.long() - want.long()).abs().max()))
+        per_launch.append({"check": check, "nodes": n,
+                           "edges": src.numel(),
+                           "live_edges": int(on.sum()), "ok": tail[0],
+                           "rounds": tail[1], "sweeps": tail[2],
+                           "live_edges_per_round": [w[0] for w in work],
+                           "sweeps_per_round": [[w[2], w[3]]
+                                                for w in work],
+                           "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bytes": nbytes})
+    if on_card:
+        prof = _device_kernels(lambda: [kscc.scc_labels(*a)
+                                        for _c, a, _o in recorded])
+        dev_us = ([us for name, us in prof if "scc_kernel" in name]
+                  if isinstance(prof, list) else [])
+        for x, us in zip(per_launch, dev_us):
+            x["device_ms"] = us / 1e3
+        if len(dev_us) != len(per_launch):
+            emit({"phase": "scc-profile", "note": prof if isinstance(
+                prof, str) else f"{len(dev_us)} scc kernels traced"})
+    emit({"phase": "scc-launches", "launches": per_launch})
+    if max_err:
+        raise AssertionError(f"scc main-path launches differ from the "
+                             f"plain version by up to {max_err}")
+    ms = sum(x["kernel_ms"] for x in per_launch) if on_card else None
+    return {
+        "name": "scc",
+        "route": "cuda",
+        "source": "jepsen_tpu_torch/gpu/kernels/csrc/scc.cu",
+        "replaces": "jepsen_tpu/tpu/scc.py:64",
+        "launches": sum(per_check.values()),
+        "launches_per_check": per_check,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "ms_per_launch": ms / len(per_launch) if on_card else None,
+        "device_ms": (sum(x["device_ms"] for x in per_launch)
+                      if per_launch and "device_ms" in per_launch[-1]
+                      else None),
+        "plain_ms": sum(x["plain_ms"] for x in per_launch),
+        "bound_ms": sum(x["bound_ms"] for x in per_launch),
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def bank_timing(recorded, launches: int, on_card: bool) -> dict:
+    """Phase 11, bank_reduce: the main path's launch replayed on the
+    kernel, the plain version and the PyTorch reduction (the same two
+    calls, timed as the library yardstick), all with CUDA events."""
+    (mat,), _kw, out = recorded[0]
+    want = kbank.bank_reduce_reference(mat)
+    max_err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(out, want))
+    rows, cols = mat.shape
+    nbytes = rows * cols * 8 + rows * 9
+    if on_card:
+        kernel_ms = _event_ms(lambda: kbank.bank_reduce(mat), reps=20)
+        plain_ms = _event_ms(lambda: kbank.bank_reduce_reference(mat),
+                             reps=20)
+        library_ms = _event_ms(lambda: (mat.sum(1), (mat < 0).any(1)),
+                               reps=20)
+        prof = _device_kernels(lambda: kbank.bank_reduce(mat))
+        lib_prof = _device_kernels(lambda: (mat.sum(1), (mat < 0).any(1)))
+    else:
+        kernel_ms = library_ms = None
+        prof = lib_prof = "not on the card"
+        t0 = time.perf_counter()
+        kbank.bank_reduce_reference(mat)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+    if max_err:
+        raise AssertionError(f"bank_reduce differs from the plain version "
+                             f"by {max_err}")
+    return {
+        "name": "bank_reduce",
+        "route": "cuda",
+        "source": "jepsen_tpu_torch/gpu/kernels/csrc/bank_reduce.cu",
+        "replaces": "jepsen_tpu/workloads/bank.py:98",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+        "device_ms": (sum(us for _n, us in prof) / 1e3
+                      if isinstance(prof, list) else prof),
+        "library_device_ms": (sum(us for _n, us in lib_prof) / 1e3
+                              if isinstance(lib_prof, list) else lib_prof),
+        "shape": [rows, cols],
+    }
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
-        n_cross: int = 20_000) -> dict:
+        n_cross: int = 20_000, n_elle: int = 100_000,
+        n_elle_cross: int = 20_000, n_bank: int = 500_000) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
 
@@ -311,6 +823,18 @@ def run(dev: torch.device, n_headline: int = 500_000,
     ops = sum(x["operations"] for x in per_launch)
     kernel_ms = (sum(x["kernel_ms"] for x in per_launch)
                  if on_card else None)
+
+    # 7. scc and bank_reduce against their plain versions
+    mism = kernels_against_plain(dev, on_card)
+    if mism:
+        raise AssertionError(f"scc/bank_reduce disagree with their plain "
+                             f"versions in {mism} values")
+    # 8-10. the Elle and bank paths; 11. their kernels on their launches
+    scc_recorded, scc_per_check = elle_main_path(dev, on_card, n_elle)
+    elle_cross_check(dev, n_elle_cross)
+    bank_recorded, bank_launches = bank_path(dev, on_card, n_bank)
+    scc_entry = scc_timing(scc_recorded, scc_per_check, on_card)
+    bank_entry = bank_timing(bank_recorded, bank_launches, on_card)
     return {
         "kernels": [{
             "name": "wgl_search",
@@ -327,7 +851,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
                          >= ops / PEAK_OPS_PER_S else "operations"),
             "library_ms": None,
             "main_path_launches": per_launch,
-        }],
+        }, scc_entry, bank_entry],
         "headline_runs": runs,
     }
 

@@ -1,5 +1,6 @@
 """Checkers: the linearizability checker of jepsen_tpu/checker, on the
-port's device search.
+port's device search, and the pieces the port's cycle and bank checkers
+share (`_Fn`, `op_indices`, `anomaly_classes`).
 
 Capability reference: jepsen/src/jepsen/checker.clj:202-233
 (linearizable). The batch form (`check_batch`), the checkpoint and
@@ -16,6 +17,40 @@ class Checker:
     def check(self, test, history: History, opts: dict | None = None) -> dict:
         """Returns at least {'valid?': True|False|'unknown'}."""
         raise NotImplementedError
+
+
+class _Fn(Checker):
+    def __init__(self, fn):
+        self.fn = fn
+
+    def check(self, test, hist, opts=None):
+        return self.fn(test, hist, opts or {})
+
+
+def op_indices(hist: History | None, *ops) -> list[int]:
+    """Participating op (invocation) indices for a group of ops —
+    anomaly provenance. Completion ops resolve to their invocation when
+    the history is given."""
+    idxs = set()
+    for o in ops:
+        if o is None:
+            continue
+        idx = getattr(o, "index", None)
+        if idx is None and isinstance(o, dict):
+            idx = o.get("index")
+        if not isinstance(idx, int) or idx < 0:
+            continue
+        ty = getattr(o, "type", None) or (
+            o.get("type") if isinstance(o, dict) else None)
+        if hist is not None and ty is not None and ty != "invoke":
+            try:
+                inv = hist.invocation(o)
+                if inv is not None:
+                    idx = inv.index
+            except (KeyError, TypeError, AttributeError):
+                pass
+        idxs.add(idx)
+    return sorted(idxs)
 
 
 def anomaly_classes(result: dict, **classes) -> dict:

@@ -1,7 +1,6 @@
-"""Verdict certificates: self-proving checker results (the wgl half of
-jepsen_tpu/tpu/certify.py, copied for the port; the elle half comes with
-the port's elle checker, and until then validate() refuses an elle
-certificate).
+"""Verdict certificates: self-proving checker results
+(jepsen_tpu/tpu/certify.py, copied for the port: the wgl and elle
+halves, without the JEPSEN_TPU_CERTIFY switch).
 
 A device-kernel verdict is only as trustworthy as the kernel. This
 module makes wgl/elle verdicts carry a machine-checkable proof, so any
@@ -438,6 +437,309 @@ def _validate_wgl(hist, cert) -> None:
 
 
 # ---------------------------------------------------------------------------
+# elle validation
+# ---------------------------------------------------------------------------
+
+def _collect_txns(hist) -> dict[int, dict]:
+    """invocation-index -> txn entry, paired in one pass:
+    {"inv_pos", "ret_pos", "type", "process", "mops"} — :ok txns carry
+    the completion's mops (read results), everything else the
+    invocation's."""
+    if not isinstance(hist, History):
+        hist = History(hist)
+    out: dict[int, dict] = {}
+    open_inv: dict[Any, tuple[int, Any]] = {}
+    for pos, o in enumerate(hist):
+        if not h.is_client_op(o):
+            continue
+        if o.type == h.INVOKE:
+            open_inv[o.process] = (pos, o)
+        elif o.type in (h.OK, h.FAIL, h.INFO):
+            got = open_inv.pop(o.process, None)
+            if got is None:
+                continue
+            inv_pos, inv = got
+            mops = o.value if (o.type == h.OK and o.value is not None
+                               ) else inv.value
+            out[inv.index] = {"inv_pos": inv_pos, "ret_pos": pos,
+                              "type": o.type, "process": inv.process,
+                              "mops": _jv(mops or [])}
+    for inv_pos, inv in open_inv.values():
+        out[inv.index] = {"inv_pos": inv_pos, "ret_pos": BIG,
+                          "type": h.INFO, "process": inv.process,
+                          "mops": _jv(inv.value or [])}
+    return out
+
+
+def _writes(t: dict, family: str) -> list[tuple]:
+    wf = "append" if family == "list-append" else "w"
+    return [(m[1], m[2]) for m in t["mops"]
+            if isinstance(m, list) and len(m) >= 3 and m[0] == wf]
+
+
+def _reads(t: dict) -> list[tuple]:
+    return [(m[1], m[2]) for m in t["mops"]
+            if isinstance(m, list) and len(m) >= 3 and m[0] == "r"
+            and m[2] is not None]
+
+
+def _fkey(k, v):
+    return (json.dumps(k, sort_keys=True, default=repr),
+            json.dumps(v, sort_keys=True, default=repr))
+
+
+def _writer_map(txns: dict, family: str) -> dict:
+    """(key, value) -> [writer inv indices] over non-:fail txns."""
+    out: dict = {}
+    for i, t in txns.items():
+        if t["type"] == h.FAIL:
+            continue
+        for k, v in _writes(t, family):
+            out.setdefault(_fkey(k, v), []).append(i)
+    return out
+
+
+def _observed(t: dict, k, v, family: str) -> bool:
+    """Did committed txn t read value v on key k?"""
+    for rk, rv in _reads(t):
+        if rk != k:
+            continue
+        if family == "list-append":
+            if isinstance(rv, list) and v in rv:
+                return True
+        elif rv == v:
+            return True
+    return False
+
+
+def _adjacent_in_read(t: dict, k, u, v) -> bool:
+    for rk, rv in _reads(t):
+        if rk != k or not isinstance(rv, list):
+            continue
+        for a, b in zip(rv, rv[1:]):
+            if a == u and b == v:
+                return True
+    return False
+
+
+def _read_then_wrote(t: dict, k, u, v) -> bool:
+    """Register succession proof: t read u on k, then wrote v on k."""
+    saw = False
+    for m in t["mops"]:
+        if not isinstance(m, list) or len(m) < 3 or m[1] != k:
+            continue
+        if m[0] == "r" and m[2] == u:
+            saw = True
+        elif m[0] == "w" and m[2] == v and saw:
+            return True
+    return False
+
+
+def _justify_edge(edge: dict, txns: dict, family: str,
+                  where: str) -> None:
+    ty = edge.get("type")
+    a = txns.get(edge.get("from"))
+    b = txns.get(edge.get("to"))
+    if a is None or b is None:
+        raise CertificateError(f"{where}: edge references unknown "
+                               f"txn(s) {edge.get('from')!r} -> "
+                               f"{edge.get('to')!r}")
+    k, v, u = edge.get("key"), edge.get("value"), edge.get("prev-value")
+    if ty == "realtime":
+        if not (a["ret_pos"] < b["inv_pos"]):
+            raise CertificateError(
+                f"{where}: realtime edge forged — txn "
+                f"{edge['from']} did not complete before "
+                f"{edge['to']} invoked")
+        return
+    if ty == "process":
+        if not (a["process"] == b["process"]
+                and a["inv_pos"] < b["inv_pos"]):
+            raise CertificateError(f"{where}: process edge forged")
+        return
+    if ty == "wr":
+        if not any(wk == k and wv == v for wk, wv in
+                   _writes(a, family)):
+            raise CertificateError(
+                f"{where}: wr edge forged — txn {edge['from']} never "
+                f"wrote {v!r} to {k!r}")
+        if b["type"] != h.OK or not _observed(b, k, v, family):
+            raise CertificateError(
+                f"{where}: wr edge forged — txn {edge['to']} never "
+                f"observed {v!r} on {k!r}")
+        return
+    if ty == "ww":
+        if not any(wk == k and wv == u for wk, wv in
+                   _writes(a, family)):
+            raise CertificateError(f"{where}: ww edge forged — "
+                                   f"{edge['from']} never wrote "
+                                   f"{u!r} to {k!r}")
+        if not any(wk == k and wv == v for wk, wv in
+                   _writes(b, family)):
+            raise CertificateError(f"{where}: ww edge forged — "
+                                   f"{edge['to']} never wrote "
+                                   f"{v!r} to {k!r}")
+        if family == "list-append":
+            via = txns.get(edge.get("via-read"))
+            if via is None or via["type"] != h.OK or \
+                    not _adjacent_in_read(via, k, u, v):
+                raise CertificateError(
+                    f"{where}: ww edge unjustified — no committed "
+                    f"read observes {u!r} immediately before {v!r} "
+                    f"on {k!r}")
+        elif not _read_then_wrote(b, k, u, v):
+            raise CertificateError(
+                f"{where}: ww edge unjustified — {edge['to']} did "
+                f"not read {u!r} then write {v!r} on {k!r}")
+        return
+    if ty == "rw":
+        if b["type"] == h.FAIL or not any(
+                wk == k and wv == v for wk, wv in _writes(b, family)):
+            raise CertificateError(f"{where}: rw edge forged — "
+                                   f"{edge['to']} never wrote "
+                                   f"{v!r} to {k!r}")
+        if a["type"] != h.OK:
+            raise CertificateError(f"{where}: rw edge forged — reader "
+                                   f"{edge['from']} did not commit")
+        if family == "list-append":
+            if u is None:
+                # empty-read anti-dependency: the reader observed []
+                if not any(rk == k and rv == [] for rk, rv in
+                           _reads(a)):
+                    raise CertificateError(
+                        f"{where}: rw empty-read edge forged — "
+                        f"{edge['from']} never read [] on {k!r}")
+                return
+            if not any(rk == k and isinstance(rv, list) and rv
+                       and rv[-1] == u for rk, rv in _reads(a)):
+                raise CertificateError(
+                    f"{where}: rw edge forged — {edge['from']} never "
+                    f"read {u!r} as the last element of {k!r}")
+            via = txns.get(edge.get("via-read"))
+            if via is None or via["type"] != h.OK or \
+                    not _adjacent_in_read(via, k, u, v):
+                raise CertificateError(
+                    f"{where}: rw edge unjustified — no committed "
+                    f"read proves {v!r} directly follows {u!r} on "
+                    f"{k!r}")
+        else:
+            if not any(rk == k and rv == u for rk, rv in _reads(a)):
+                raise CertificateError(
+                    f"{where}: rw edge forged — {edge['from']} never "
+                    f"read {u!r} on {k!r}")
+            if not _read_then_wrote(b, k, u, v):
+                raise CertificateError(
+                    f"{where}: rw edge unjustified — {edge['to']} "
+                    f"did not read {u!r} then write {v!r} on {k!r}")
+        return
+    raise CertificateError(f"{where}: unknown edge type {ty!r}")
+
+
+def _validate_elle(hist, cert) -> None:
+    family = cert.get("family")
+    if family not in ("list-append", "rw-register"):
+        raise CertificateError(f"unknown elle family {family!r}")
+    txns = _collect_txns(hist)
+    verdict = cert.get("verdict")
+    if verdict == "invalid":
+        cycle = cert.get("cycle")
+        if cycle:
+            if len(cycle) < 2:
+                raise CertificateError("cycle shorter than two edges")
+            for j, edge in enumerate(cycle):
+                nxt = cycle[(j + 1) % len(cycle)]
+                if edge.get("to") != nxt.get("from"):
+                    raise CertificateError(
+                        f"cycle edge {j} does not chain: {edge!r} -> "
+                        f"{nxt!r}")
+                _justify_edge(edge, txns, family, f"cycle edge {j}")
+            return
+        anom = cert.get("anomaly")
+        if isinstance(anom, dict):
+            _validate_elle_anomaly(anom, txns, family)
+            return
+        raise CertificateError("invalid verdict with neither cycle "
+                               "nor anomaly evidence")
+    if verdict == "valid":
+        order = cert.get("topo-order")
+        if not isinstance(order, list):
+            raise CertificateError("valid verdict without a "
+                                   "topo-order")
+        committed = {i for i, t in txns.items() if t["type"] == h.OK}
+        if set(order) != committed or len(order) != len(committed):
+            raise CertificateError(
+                "topo-order is not a permutation of the committed "
+                f"txns ({len(order)} vs {len(committed)})")
+        pos = {i: j for j, i in enumerate(order)}
+        # realtime: running max over invocation positions
+        max_inv = -1
+        last_by_proc: dict = {}
+        for i in order:
+            t = txns[i]
+            if t["ret_pos"] < max_inv:
+                raise CertificateError(
+                    f"topo-order violates realtime order at txn {i}")
+            max_inv = max(max_inv, t["inv_pos"])
+            prev = last_by_proc.get(t["process"])
+            if prev is not None and t["inv_pos"] < prev:
+                raise CertificateError(
+                    f"topo-order violates session order at txn {i}")
+            last_by_proc[t["process"]] = t["inv_pos"]
+        # read-from precedence: a committed read of v must follow v's
+        # committed writer (writers re-derived in one pass)
+        writers = _writer_map(txns, family)
+        for i in order:
+            for k, rv in _reads(txns[i]):
+                vals = (rv if family == "list-append"
+                        and isinstance(rv, list) else [rv])
+                for v in vals:
+                    ws = writers.get(_fkey(k, v), [])
+                    ws = [w for w in ws if w in pos and w != i]
+                    if len(ws) == 1 and pos[ws[0]] > pos[i]:
+                        raise CertificateError(
+                            f"topo-order violates read-from: txn {i} "
+                            f"reads {v!r} on {k!r} before its writer "
+                            f"{ws[0]}")
+        return
+    raise CertificateError(f"unknown elle verdict {verdict!r}")
+
+
+def _validate_elle_anomaly(anom: dict, txns: dict, family: str
+                           ) -> None:
+    cls = anom.get("class")
+    k, v = anom.get("key"), anom.get("value")
+    if cls == "G1a":
+        w = txns.get(anom.get("writer"))
+        r = txns.get(anom.get("reader"))
+        if w is None or w["type"] != h.FAIL or not any(
+                wk == k and wv == v for wk, wv in _writes(w, family)):
+            raise CertificateError(
+                f"G1a forged — txn {anom.get('writer')!r} is not an "
+                f"aborted writer of {v!r} on {k!r}")
+        if r is None or r["type"] != h.OK or not _observed(
+                r, k, v, family):
+            raise CertificateError(
+                f"G1a forged — txn {anom.get('reader')!r} never "
+                f"observed {v!r} on {k!r}")
+        return
+    if cls == "duplicate":
+        ws = anom.get("writers") or []
+        if len(set(ws)) < 2:
+            raise CertificateError("duplicate anomaly needs two "
+                                   "distinct writers")
+        for wi in ws:
+            w = txns.get(wi)
+            if w is None or w["type"] == h.FAIL or not any(
+                    wk == k and wv == v
+                    for wk, wv in _writes(w, family)):
+                raise CertificateError(
+                    f"duplicate forged — txn {wi!r} is not a "
+                    f"surviving writer of {v!r} on {k!r}")
+        return
+    raise CertificateError(f"unjustifiable anomaly class {cls!r}")
+
+
+# ---------------------------------------------------------------------------
 # Public validation API
 # ---------------------------------------------------------------------------
 
@@ -497,9 +799,7 @@ def validate(hist, cert, digest: dict | None = None) -> None:
     if cert["kind"] == "wgl":
         _validate_wgl(hist, cert)
     else:
-        raise NotImplementedError(
-            "the port validates wgl certificates only; elle "
-            "certificates come with its elle checker")
+        _validate_elle(hist, cert)
 
 
 def iter_certificates(results, path: str = "", depth: int = 0
@@ -797,3 +1097,271 @@ def attach_wgl(model, hist, enc, result) -> dict:
                     else "certify.extracted")
     return result
 
+
+# ---------------------------------------------------------------------------
+# elle extraction
+# ---------------------------------------------------------------------------
+
+def _resolve_op_index(hist: History, o) -> int | None:
+    idx = getattr(o, "index", None)
+    if idx is None and isinstance(o, dict):
+        idx = o.get("index")
+    if not isinstance(idx, int) or idx < 0:
+        return None
+    ty = getattr(o, "type", None) or (o.get("type")
+                                      if isinstance(o, dict) else None)
+    if ty is not None and ty != h.INVOKE:
+        try:
+            inv = hist.invocation(o)
+            if inv is not None:
+                idx = inv.index
+        except (KeyError, TypeError, AttributeError):
+            pass
+    return idx
+
+
+def _adjacency_index(txns: dict, family: str) -> dict:
+    """(key, u, v) -> committed read txn observing u immediately
+    before v — the via-read justification for list-append ww/rw
+    edges. One pass over read volume."""
+    out: dict = {}
+    if family != "list-append":
+        return out
+    for i, t in txns.items():
+        if t["type"] != h.OK:
+            continue
+        for k, rv in _reads(t):
+            if not isinstance(rv, list):
+                continue
+            for a, b in zip(rv, rv[1:]):
+                out.setdefault(_fkey(k, (a, b)), i)
+    return out
+
+
+def _justification(a_i, b_i, ty, txns, family, adj) -> dict | None:
+    """Edge fields proving dependency a -> b, derived from the raw
+    mops; None when no justification exists (extraction then goes
+    absent rather than emitting an unprovable edge)."""
+    edge = {"from": a_i, "to": b_i, "type": ty}
+    a, b = txns[a_i], txns[b_i]
+    if ty in ("realtime", "process"):
+        return edge
+    if ty == "wr":
+        for k, v in _writes(a, family):
+            if _observed(b, k, v, family):
+                edge.update(key=k, value=v)
+                return edge
+        return None
+    if ty == "ww":
+        for k, u in _writes(a, family):
+            for k2, v in _writes(b, family):
+                if k2 != k:
+                    continue
+                if family == "list-append":
+                    via = adj.get(_fkey(k, (u, v)))
+                    if via is not None:
+                        edge.update(key=k, value=v, **{
+                            "prev-value": u, "via-read": via})
+                        return edge
+                elif _read_then_wrote(b, k, u, v):
+                    edge.update(key=k, value=v, **{"prev-value": u})
+                    return edge
+        return None
+    if ty == "rw":
+        if family == "list-append":
+            for k, rv in _reads(a):
+                if not isinstance(rv, list):
+                    continue
+                if not rv:
+                    for k2, v in _writes(b, family):
+                        if k2 == k:
+                            edge.update(key=k, value=v,
+                                        **{"prev-value": None})
+                            return edge
+                    continue
+                u = rv[-1]
+                for k2, v in _writes(b, family):
+                    if k2 != k:
+                        continue
+                    via = adj.get(_fkey(k, (u, v)))
+                    if via is not None:
+                        edge.update(key=k, value=v, **{
+                            "prev-value": u, "via-read": via})
+                        return edge
+            return None
+        for k, u in _reads(a):
+            for k2, v in _writes(b, family):
+                if k2 == k and _read_then_wrote(b, k, u, v):
+                    edge.update(key=k, value=v, **{"prev-value": u})
+                    return edge
+        return None
+    return None
+
+
+def _first_cycle(result: dict):
+    for name in sorted(result.get("anomalies") or {}):
+        for rec in result["anomalies"][name] or []:
+            if isinstance(rec, dict) and rec.get("steps") \
+                    and rec.get("cycle"):
+                return rec
+    return None
+
+
+def _realtime_order_ok(order: list[int], txns: dict) -> bool:
+    max_inv = -1
+    for i in order:
+        if txns[i]["ret_pos"] < max_inv:
+            return False
+        max_inv = max(max_inv, txns[i]["inv_pos"])
+    return True
+
+
+def _topo_order(txns: dict, family: str) -> list[int] | None:
+    """A committed-txn order consistent with session, realtime, and
+    read-from constraints — derived directly from the raw history (the
+    independently-checkable edge subset), so it never depends on the
+    engine's ww/rw version-order inference. Completion order satisfies
+    session + realtime by construction; read-from violations are
+    repaired by a Kahn pass over the wr edges when needed."""
+    committed = sorted((i for i, t in txns.items()
+                        if t["type"] == h.OK),
+                       key=lambda i: txns[i]["ret_pos"])
+    pos = {i: j for j, i in enumerate(committed)}
+    writers = _writer_map(txns, family)
+    wr_edges: list[tuple[int, int]] = []
+    bad = False
+    for i in committed:
+        for k, rv in _reads(txns[i]):
+            vals = (rv if family == "list-append"
+                    and isinstance(rv, list) else [rv])
+            for v in vals:
+                ws = [w for w in writers.get(_fkey(k, v), [])
+                      if w in pos and w != i]
+                if len(ws) == 1:
+                    wr_edges.append((ws[0], i))
+                    if pos[ws[0]] > pos[i]:
+                        bad = True
+    if not bad:
+        return committed
+    # Kahn over wr + session + realtime-as-tiebreak: realtime and
+    # session constraints are kept by ordering the ready set by
+    # completion position; a genuine conflict (cycle) yields None.
+    import heapq
+
+    adj: dict[int, list[int]] = {}
+    indeg = {i: 0 for i in committed}
+    last_by_proc: dict = {}
+    for i in sorted(committed, key=lambda x: txns[x]["inv_pos"]):
+        p = txns[i]["process"]
+        prev = last_by_proc.get(p)
+        if prev is not None:
+            adj.setdefault(prev, []).append(i)
+            indeg[i] += 1
+        last_by_proc[p] = i
+    for a, b in wr_edges:
+        adj.setdefault(a, []).append(b)
+        indeg[b] += 1
+    ready = [(txns[i]["ret_pos"], i) for i in committed
+             if indeg[i] == 0]
+    heapq.heapify(ready)
+    out: list[int] = []
+    while ready:
+        _r, i = heapq.heappop(ready)
+        out.append(i)
+        for j in adj.get(i, []):
+            indeg[j] -= 1
+            if indeg[j] == 0:
+                heapq.heappush(ready, (txns[j]["ret_pos"], j))
+    if len(out) != len(committed) or not _realtime_order_ok(out, txns):
+        return None
+    return out
+
+
+def elle_certificate(hist, result, family: str) -> dict:
+    """Builds the certificate for an elle check result (either
+    engine): a justified cycle (or G1a/duplicate evidence) for invalid
+    verdicts, a constraint-checked serialization order for valid ones.
+    Never raises — unprovable results go absent."""
+    try:
+        return _elle_certificate(hist, result, family)
+    except CertificateError as e:
+        return absent(str(e))
+    except Exception as e:  # noqa: BLE001 — extraction is best-effort
+        logger.exception("elle certificate extraction failed")
+        return absent(f"extraction-failed: {e!r}")
+
+
+def _elle_certificate(hist, result, family: str) -> dict:
+    if not isinstance(hist, History):
+        hist = History(hist)
+    verdict = result.get("valid?")
+    if verdict not in (True, False):
+        return absent("verdict is indeterminate")
+    cert: dict = {"v": VERSION, "kind": "elle", "family": family,
+                  "verdict": "valid" if verdict else "invalid",
+                  "history": history_digest(hist)}
+    txns = _collect_txns(hist)
+    if verdict:
+        order = _topo_order(txns, family)
+        if order is None:
+            return absent("no session/realtime/read-from-consistent "
+                          "serialization order found")
+        cert["topo-order"] = order
+        return cert
+    cyc = _first_cycle(result)
+    if cyc is not None:
+        adj = _adjacency_index(txns, family)
+        ops = cyc["cycle"]
+        idxs = [_resolve_op_index(hist, o) for o in ops]
+        if any(i is None or i not in txns for i in idxs):
+            return absent("cycle ops do not resolve to txns")
+        edges = []
+        for j, step in enumerate(cyc["steps"]):
+            a_i = idxs[j]
+            b_i = idxs[(j + 1) % len(idxs)]
+            edge = _justification(a_i, b_i, step.get("type"), txns,
+                                  family, adj)
+            if edge is None:
+                return absent(
+                    f"no mop justification for {step.get('type')} "
+                    f"edge {a_i} -> {b_i}")
+            edges.append(edge)
+        cert["cycle"] = edges
+        return cert
+    # non-cycle anomalies: the justifiable classes
+    anomalies = result.get("anomalies") or {}
+    for rec in anomalies.get("G1a") or []:
+        w_i = _resolve_op_index(hist, rec.get("writer"))
+        r_i = _resolve_op_index(hist, rec.get("op"))
+        if w_i in txns and r_i in txns:
+            cert["anomaly"] = {"class": "G1a",
+                               "key": _jv(rec.get("key")),
+                               "value": _jv(rec.get("value")),
+                               "writer": w_i, "reader": r_i}
+            return cert
+    dup_cls = ("duplicate-appends" if family == "list-append"
+               else "duplicate-writes")
+    for rec in anomalies.get(dup_cls) or []:
+        k, v = _jv(rec.get("key")), _jv(rec.get("value"))
+        ws = [i for i, t in txns.items() if t["type"] != h.FAIL
+              and any(wk == k and wv == v
+                      for wk, wv in _writes(t, family))]
+        if len(ws) >= 2:
+            cert["anomaly"] = {"class": "duplicate", "key": k,
+                               "value": v, "writers": ws[:2]}
+            return cert
+    return absent("no justifiable cycle or anomaly evidence in the "
+                  f"result (classes: {sorted(anomalies)})")
+
+
+def attach_elle(hist, result, family: str) -> dict:
+    """Attaches a certificate to an elle check result (the checker
+    wrappers opt in via opts['certify']; raw bench calls don't)."""
+    if not isinstance(result, dict):
+        return result
+    with telemetry.span("certify.attach"):
+        cert = elle_certificate(hist, result, family)
+    result["certificate"] = cert
+    telemetry.count("certify.absent" if "absent" in cert
+                    else "certify.extracted")
+    return result

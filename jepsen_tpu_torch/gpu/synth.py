@@ -1,6 +1,7 @@
 """Synthetic histories for benchmarks and compile checks: the CAS
-register generators of jepsen_tpu/tpu/synth.py, copied so the port's
-seeded inputs match the JAX package's op for op.
+register, list-append, bank and rw-register generators of
+jepsen_tpu/tpu/synth.py, copied so the port's seeded inputs match the JAX
+package's op for op.
 
 Valid-by-construction concurrent register histories: each op's effect is
 applied to the true register at a random instant inside its
@@ -107,3 +108,195 @@ def corrupt_register_history(hist: History, at_frac: float = 0.85,
             events[i] = e.copy(value=bogus)
             return History(events, assign_indices=False), i
     raise ValueError("no ok read at/after at_frac to corrupt")
+
+
+def list_append_history(n_txns: int, n_procs: int = 5, n_keys: int = 6,
+                        max_len: int = 4, rotate: int = 40,
+                        seed: int = 0) -> History:
+    """A valid concurrent list-append history: appends apply to a true
+    store at completion, reads return its current state; keys rotate
+    every `rotate` txns so read lists stay bounded (as elle's generator
+    does). BASELINE config 3 fodder."""
+    rng = random.Random(seed)
+    store: dict = {}
+    epoch = 0
+    events: list = []
+    open_t: dict[int, list] = {}
+    t_count = 0
+    nv = 1
+    while t_count < n_txns or open_t:
+        idle = n_procs - len(open_t)
+        if t_count < n_txns and idle and (rng.random() < 0.6
+                                          or not open_t):
+            p = rng.choice([q for q in range(n_procs)
+                            if q not in open_t])
+            txn = []
+            for _ in range(rng.randint(1, max_len)):
+                k = f"k{rng.randrange(n_keys)}e{epoch}"
+                if rng.random() < 0.5:
+                    txn.append(["append", k, nv])
+                    nv += 1
+                else:
+                    txn.append(["r", k, None])
+            events.append(("invoke", p, txn))
+            open_t[p] = txn
+            t_count += 1
+            if t_count % rotate == 0:
+                epoch += 1
+        else:
+            p = rng.choice(list(open_t))
+            txn = open_t.pop(p)
+            res = []
+            for f, k, v in txn:
+                if f == "append":
+                    store.setdefault(k, []).append(v)
+                    res.append(["append", k, v])
+                else:
+                    res.append(["r", k, list(store.get(k, []))])
+            events.append(("ok", p, res))
+    ops = [op(index=i, time=i, type=t, process=p, f="txn", value=m)
+           for i, (t, p, m) in enumerate(events)]
+    return History(ops, assign_indices=False)
+
+
+def bank_history(n_txns: int, n_procs: int = 5, n_accounts: int = 8,
+                 initial: int = 10, max_transfer: int = 5,
+                 read_p: float = 0.5, seed: int = 0) -> History:
+    """A valid concurrent bank history: transfers apply atomically to
+    true balances at completion, reads snapshot them. Total balance is
+    conserved by construction. BASELINE config 4 fodder."""
+    rng = random.Random(seed)
+    balances = {a: initial for a in range(n_accounts)}
+    events: list = []
+    open_t: dict[int, tuple] = {}
+    t_count = 0
+    while t_count < n_txns or open_t:
+        idle = n_procs - len(open_t)
+        if t_count < n_txns and idle and (rng.random() < 0.6
+                                          or not open_t):
+            p = rng.choice([q for q in range(n_procs)
+                            if q not in open_t])
+            if rng.random() < read_p:
+                o = ("read", None)
+            else:
+                frm, to = rng.sample(range(n_accounts), 2)
+                o = ("transfer", {"from": frm, "to": to,
+                                  "amount": rng.randint(1, max_transfer)})
+            events.append(("invoke", p, o[0], o[1]))
+            open_t[p] = o
+            t_count += 1
+        else:
+            p = rng.choice(list(open_t))
+            f, v = open_t.pop(p)
+            if f == "transfer":
+                amt = v["amount"]
+                if balances[v["from"]] >= amt:
+                    balances[v["from"]] -= amt
+                    balances[v["to"]] += amt
+                    events.append(("ok", p, f, v))
+                else:
+                    events.append(("fail", p, f, v))
+            else:
+                events.append(("ok", p, f, dict(balances)))
+    ops = [op(index=i, time=i, type=t, process=p, f=f, value=v)
+           for i, (t, p, f, v) in enumerate(events)]
+    return History(ops, assign_indices=False)
+
+
+def rw_register_history(n_txns: int, n_procs: int = 5,
+                        n_keys: int = 32, max_len: int = 4,
+                        seed: int = 0) -> History:
+    """A valid concurrent rw-register txn history: writes apply to true
+    registers at completion, reads snapshot them, every written value
+    unique (elle's rw-register generator guarantee). BASELINE config 3
+    fodder alongside list_append_history."""
+    rng = random.Random(seed)
+    regs: dict = {}
+    events: list = []
+    open_t: dict[int, list] = {}
+    nv = 1
+    t_count = 0
+    while t_count < n_txns or open_t:
+        idle = n_procs - len(open_t)
+        if t_count < n_txns and idle and (rng.random() < 0.6
+                                          or not open_t):
+            p = rng.choice([q for q in range(n_procs)
+                            if q not in open_t])
+            txn = []
+            for _ in range(rng.randint(1, max_len)):
+                k = f"k{rng.randrange(n_keys)}"
+                if rng.random() < 0.5:
+                    txn.append(["w", k, nv])
+                    nv += 1
+                else:
+                    txn.append(["r", k, None])
+            events.append(("invoke", p, txn))
+            open_t[p] = txn
+            t_count += 1
+        else:
+            p = rng.choice(list(open_t))
+            txn = open_t.pop(p)
+            res = []
+            for f, k, v in txn:
+                if f == "w":
+                    regs[k] = v
+                    res.append(["w", k, v])
+                else:
+                    res.append(["r", k, regs.get(k)])
+            events.append(("ok", p, res))
+    ops = [op(index=i, time=i, type=t, process=p, f="txn", value=m)
+           for i, (t, p, m) in enumerate(events)]
+    return History(ops, assign_indices=False)
+
+
+def corrupt_list_append_history(hist: History, at_frac: float = 0.85
+                                ) -> tuple[History, int]:
+    """A copy of a list-append history with one committed read damaged:
+    the first ok txn at or after `at_frac` of the events that holds a
+    read of two or more elements has the last two elements of that read
+    swapped. The read then contradicts the version order, which the elle
+    checkers report as incompatible-order and as a cycle. Returns (the
+    history, the index of the damaged op)."""
+    events = list(hist)
+    for i in range(int(len(events) * at_frac), len(events)):
+        e = events[i]
+        if e.type != "ok" or e.f != "txn":
+            continue
+        mops = [list(m) for m in e.value]
+        for m in mops:
+            if m[0] == "r" and m[2] is not None and len(m[2]) >= 2:
+                m[2] = list(m[2])
+                m[2][-2], m[2][-1] = m[2][-1], m[2][-2]
+                events[i] = e.copy(value=mops)
+                return History(events, assign_indices=False), i
+    raise ValueError("no ok read of two or more elements at/after "
+                     "at_frac to corrupt")
+
+
+def corrupt_rw_register_history(hist: History, at_frac: float = 0.85
+                                ) -> tuple[History, int]:
+    """A copy of an rw-register history with one committed read damaged:
+    the first ok txn at or after `at_frac` of the events with a read of
+    a key that some later op writes has that read replaced by the later
+    write's value. The txn then observes the future, which the elle
+    checkers report as a dependency cycle. Returns (the history, the
+    index of the damaged op)."""
+    events = list(hist)
+    for i in range(int(len(events) * at_frac), len(events)):
+        e = events[i]
+        if e.type != "ok" or e.f != "txn":
+            continue
+        for j, m in enumerate(e.value):
+            if m[0] != "r" or m[2] is None:
+                continue
+            future = next((w[2] for later in events[i + 1:]
+                           if later.type == "ok" and later.f == "txn"
+                           for w in later.value
+                           if w[0] == "w" and w[1] == m[1]), None)
+            if future is not None:
+                mops = [list(x) for x in e.value]
+                mops[j][2] = future
+                events[i] = e.copy(value=mops)
+                return History(events, assign_indices=False), i
+    raise ValueError("no ok read at/after at_frac with a later write of "
+                     "its key")

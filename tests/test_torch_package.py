@@ -82,3 +82,70 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
         linearizable({"model": models.cas_register()}).check({}, h)
     assert calls == []
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_elle_and_bank_run_without_loading_jax():
+    code = """
+import sys
+from jepsen_tpu_torch.checker import cycle
+from jepsen_tpu_torch.gpu import certify, synth
+from jepsen_tpu_torch.workloads import bank
+h = synth.list_append_history(300, seed=1)
+bad, _ = synth.corrupt_list_append_history(h)
+a = cycle.append_checker({"device": "cpu"}).check({}, h)
+b = cycle.append_checker({"device": "cpu", "engine": "device"}).check(
+    {}, bad)
+w = cycle.wr_checker({"device": "cpu"}).check(
+    {}, synth.rw_register_history(300, seed=2))
+assert a["valid?"] is True and b["valid?"] is False, (a, b)
+assert w["valid?"] is True, w
+for h_, r in ((h, a), (bad, b)):
+    certify.validate(h_, r["certificate"])
+c = bank.check_fast(synth.bank_history(300, n_accounts=32, seed=3), 320,
+                    device="cpu")
+assert c["valid?"] is True, c
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "jepsen_tpu"))
+print("LOADED", loaded)
+assert not loaded, loaded
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout
+
+
+def test_elle_and_bank_refuse_the_cpu_by_default(monkeypatch):
+    from jepsen_tpu_torch.checker import cycle
+    from jepsen_tpu_torch.gpu import elle, elle_device, scc, synth
+    from jepsen_tpu_torch.gpu.kernels import bank_reduce
+    from jepsen_tpu_torch.gpu.kernels import scc as scc_kernel
+    from jepsen_tpu_torch.workloads import bank
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    monkeypatch.setattr(scc_kernel, "scc_labels",
+                        lambda *a, **k: calls.append(a))
+    monkeypatch.setattr(bank_reduce, "bank_reduce",
+                        lambda *a, **k: calls.append(a))
+    la = synth.list_append_history(50, seed=1)
+    rw = synth.rw_register_history(50, seed=1)
+    for fn in (lambda: elle.check_list_append(la),
+               lambda: elle.check_rw_register(rw),
+               lambda: elle.check_list_append(la, {"engine": "device"}),
+               lambda: elle_device.check_list_append_device(la),
+               lambda: elle_device.check_rw_register_device(rw),
+               lambda: cycle.append_checker().check({}, la),
+               lambda: cycle.wr_checker().check({}, rw),
+               lambda: scc.scc(3, [0, 1], [1, 0]),
+               lambda: scc.scc_device(3, [0, 1], [1, 0]),
+               lambda: bank.check_fast(synth.bank_history(50, seed=1), 80),
+               lambda: bank.checker().check({}, synth.bank_history(
+                   50, seed=1))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    assert calls == []
+    # the host engine never touches a device
+    assert elle.check_list_append(la, {"engine": "host"})["valid?"] is True
