@@ -11,8 +11,11 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
   2. builds every kernel from jepsen_tpu_torch/gpu/kernels/csrc;
   3. holds the wgl_search kernel against its plain PyTorch version on the
      card, on seeded histories (verdict and reach mode, with and without
-     crashes, a window/frontier overflow case): zero mismatches allowed,
-     every output is an integer;
+     crashes, a window/frontier overflow case), on 128 crashed 400-op
+     ensemble rows at W=32, F=64 (over 48 KB of shared memory a block),
+     and on one launch over a one-device ensemble layout with
+     unreferenced and repeated segments (against the plain version and a
+     numpy gather): zero mismatches allowed, every output is an integer;
   4. drives the main path: a 1M-event CAS-register history
      (register_history(500_000, n_procs=5, seed=42)) through encode and
      check_segmented(target_len=8192) on the card, with the kernel launch
@@ -51,7 +54,30 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
  11. replays the Elle and bank main paths' launches to time both kernels,
      their plain versions and (bank) the PyTorch reduction, prints the scc
      rounds, sweeps and live edges per round of each launch (the bytes of
-     its bound are counted from them), and one `{"kernels": [...]}` line.
+     its bound are counted from them);
+ 12. drives the ensemble, BASELINE config 5: 1,024 histories of
+     register_history(400, n_procs=4, seed=1000+i, crash_p=0.15) through
+     analysis_batch_streamed(chunk=128) three times (all valid, 8 launches
+     a run), analysis_batch (one launch) and analysis_batch_sharded (one
+     launch of the one-device ensemble form), with the launch counts set
+     to 0 just before each and read just after; a twin with member 700
+     corrupted at 30% must be invalid at member 700 only, with a witness,
+     and member 700 corrupted at 85% must not come back VALID from the
+     card (TWIN_AT_FRAC says why it is not searched on the host); prints
+     wall time, events/s, host-resolved rows, kernel ms per launch (CUDA
+     events) and each drain's wait on its launch's event;
+ 13. drives the independent-key checker over the same histories folded
+     into one multi-key history (~819k events): valid over 1,024 keys in
+     one launch with a certificate or a counted absence for each key, the
+     folded twin invalid with failures [700]; 15 seeded certificates (and
+     key 700's of the twin) validated against the whole history;
+ 14. drives check_slices in the fleet's shape: every start state of 64
+     crashed ensemble histories and of their crash-free twins in one
+     launch at W=24, F=48; every known row must equal the host reach
+     search, and 8 rows must equal check_slices on the CPU;
+ 15. replays the ensemble's launches (one streamed run's chunks and the
+     sharded launch) on the kernel and its plain version, and prints one
+     `{"kernels": [...]}` line.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -70,9 +96,10 @@ import torch
 
 import numpy as np
 
-from jepsen_tpu_torch import telemetry
+from jepsen_tpu_torch import independent, telemetry
 from jepsen_tpu_torch.checker import cycle, linearizable, models
-from jepsen_tpu_torch.gpu import certify, elle, synth, wgl
+from jepsen_tpu_torch.gpu import certify, elle, ensemble, synth, wgl
+from jepsen_tpu_torch.history import History, op
 from jepsen_tpu_torch.gpu.encode import encode
 from jepsen_tpu_torch.gpu.kernels import bank_reduce as kbank
 from jepsen_tpu_torch.gpu.kernels import build
@@ -85,6 +112,38 @@ from jepsen_tpu_torch.workloads import bank
 # integer compare/select work
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+
+# BASELINE config 5 (bench.py:145-187): 1,024 register histories of 400
+# ops, 4 processes, 15% of ops crashed, streamed in chunks of 128
+ENSEMBLE_N = 1024
+ENSEMBLE_CHUNK = 128
+ENSEMBLE_BAD = 700
+# The twin corrupts member 700 at 30% of its history. At 85% neither
+# package decides that member in bounded time: the kernel answers
+# UNKNOWN (frontier overflow) and the exact host search behind it is
+# exponential in the crashed writes before the bad read (30 there; the
+# search takes 0.2 s at 30%, 2 s at 40%, 52 s at 50% on a CPU). The 85%
+# twin runs through the card only (phase 12), which must not say VALID.
+TWIN_AT_FRAC = 0.3
+UNDECIDED_AT_FRAC = 0.85
+
+
+def ensemble_hist(i: int, crash_p: float = 0.15) -> History:
+    return synth.register_history(400, n_procs=4, seed=1000 + i,
+                                  crash_p=crash_p)
+
+
+def fold_keys(hists) -> History:
+    """One multi-key history out of single-key ones (key k = hists[k]):
+    values become (k, v), process ids k * 1000 + p, and ops merge by
+    (per-key time, key) with index and time renumbered."""
+    events = sorted(((o.time, k, o) for k, h in enumerate(hists)
+                     for o in h), key=lambda e: (e[0], e[1]))
+    return History([op(index=i, time=i, type=o.type,
+                       process=k * 1000 + o.process, f=o.f,
+                       value=(k, o.value))
+                    for i, (_t, k, o) in enumerate(events)],
+                   assign_indices=False)
 
 
 def emit(obj) -> None:
@@ -651,10 +710,381 @@ def bank_timing(recorded, launches: int, on_card: bool) -> dict:
     }
 
 
+def ensemble_against_plain(dev, on_card: bool, n_rows: int) -> int:
+    """Phase 3, the ensemble's shapes: n_rows crashed 400-op rows at
+    W=32, F=64 (the successor buffer of 4,096 keys puts a block past the
+    48 KB shared-memory default), and one launch over a one-device
+    ensemble layout with unreferenced and repeated segments, against the
+    plain version followed by a numpy gather."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    m = models.cas_register()
+    encs = [encode(m, ensemble_hist(i)) for i in range(max(n_rows, 12))]
+    total = 0
+    pb = wgl.PackedBatch(encs[:n_rows])
+    rows = [(i, e.init_state) for i, e in enumerate(encs[:n_rows])]
+    smem = (ws._lib().wgl_search_smem_bytes(32, 64, 0) if on_card
+            else None)
+    for reach in (False, True):
+        packed, rs, s0 = pb.tensors(*pb.rows(rows), dev)
+        kw = dict(W=32, F=64, max_iters=pb.M + 4, reach=reach,
+                  crash_free=False)
+        sync()
+        t0 = time.perf_counter()
+        got = ws.wgl_search(packed, rs, s0, **kw)
+        sync()
+        t_kernel = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = ws.wgl_search_reference(packed, rs, s0, **kw)
+        sync()
+        t_plain = time.perf_counter() - t0
+        mism = _mismatches(got, want)
+        total += sum(mism)
+        emit({"phase": "kernel-vs-plain",
+              "case": f"ensemble-{n_rows}x400-crash0.15-"
+                      f"{'reach' if reach else 'verdict'}",
+              "M": pb.M, "rows": len(rows), "entries": int(pb.m.sum()),
+              "W": 32, "F": 64, "reach": reach, "crash_free": False,
+              "smem_bytes": smem, "levels": int(want[-4]),
+              "unknown_rows": int((want[1] if reach else want[0] == -1)
+                                  .sum()),
+              "mismatches": mism, "kernel_s": t_kernel,
+              "plain_s": t_plain})
+    sub = wgl.PackedBatch(encs[:12])
+    # segments 1, 2, 4, 6, 7, 8 and 10 unreferenced; 0, 3 and 9 repeated
+    lrows = [(0, 0), (3, 1), (3, 0), (5, 2), (3, 1), (9, 4), (11, 0),
+             (0, 3), (9, 4)]
+    lay = ensemble.shard_layout(sub, lrows, 1)
+    for reach in (False, True):
+        calls: list = []
+        original = _recording(wgl, "_run", calls)
+        try:
+            wgl._drain(ensemble.sharded_launch(sub, lrows, 32, 64,
+                                               reach=reach, devices=dev),
+                       reach=reach)
+        finally:
+            wgl._run = original
+        r = _replay(calls[0], on_card)
+        total += r["mismatches"]
+        emit({"phase": "kernel-vs-plain",
+              "case": f"ensemble-layout-{'reach' if reach else 'verdict'}",
+              "segments": sub.B, "layout_segments": int(lay.mseg.size),
+              "rows": len(lrows), "layout_rows": int(lay.row_seg.size),
+              "levels": r["levels"], "mismatches": r["mismatches"]})
+    return total
+
+
+def _drains() -> list[dict]:
+    return [sp.get("attrs", {}) for sp in telemetry.get().spans()
+            if sp["name"] == "wgl:drain"]
+
+
+def _ensemble_counters(c: dict) -> dict:
+    return {"host_resolved_rows": c.get("wgl.host-resolved-rows", 0),
+            "host_resolved_s": c.get("wgl.host-resolved-ns", 0) / 1e9,
+            "encode_s": c.get("encode.ns", 0) / 1e9,
+            "pack_s": c.get("wgl.batch.pack_ns", 0) / 1e9,
+            "h2d_enqueue_s": c.get("wgl.kernel.h2d_ns", 0) / 1e9,
+            "drain_wait_s": c.get("wgl.kernel.execute_ns", 0) / 1e9}
+
+
+def ensemble_path(dev, on_card: bool, hists, chunk: int, bad: int) -> dict:
+    """Phase 12: BASELINE config 5 through analysis_batch_streamed (three
+    runs), analysis_batch and analysis_batch_sharded, with the kernel
+    launch count set to 0 just before each and read just after; then the
+    twin with member `bad` corrupted. Returns the recorded launches of
+    each path and the launch counts."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    model = models.cas_register()
+    n = len(hists)
+    events = sum(len(h) for h in hists)
+    per_path: dict = {"ensemble-streamed": []}
+    recorded: dict = {}
+    calls: list = []
+    original = _recording(wgl, "_run", calls)
+    try:
+        for rep in range(3):
+            calls.clear()
+            ws.launches = 0
+            telemetry.reset()
+            t0 = time.perf_counter()
+            res = wgl.analysis_batch_streamed(model, hists, chunk=chunk,
+                                              device=dev)
+            sync()
+            t1 = time.perf_counter()
+            launches = ws.launches
+            not_valid = [i for i, r in enumerate(res)
+                         if r["valid?"] is not True]
+            if not_valid:
+                raise AssertionError(f"ensemble members not valid: "
+                                     f"{not_valid[:20]}")
+            if on_card and launches != -(-n // chunk):
+                raise AssertionError(f"{launches} launches for {n} "
+                                     f"histories in chunks of {chunk}")
+            drains = _drains()
+            emit({"phase": "ensemble", "entry": "analysis_batch_streamed",
+                  "rep": rep, "histories": n, "events": events,
+                  "chunk": chunk, "wall_s": t1 - t0,
+                  "events_per_s": events / (t1 - t0),
+                  "wgl_search_launches": launches,
+                  **_ensemble_counters(telemetry.get().counters()),
+                  "kernel_ms": [d["device_ms"] for d in drains],
+                  "drain_wait_ms": [d["wait_ns"] / 1e6 for d in drains],
+                  "levels": [d["levels"] for d in drains],
+                  "analyzers": sorted({r["analyzer"] for r in res})})
+            per_path["ensemble-streamed"].append(launches)
+        recorded["streamed"] = (list(calls), _drains())
+        verdicts = [r["valid?"] for r in res]
+        for entry in ("analysis_batch", "analysis_batch_sharded"):
+            calls.clear()
+            ws.launches = ensemble.launches = 0
+            telemetry.reset()
+            t0 = time.perf_counter()
+            if entry == "analysis_batch":
+                res = wgl.analysis_batch(model, hists, device=dev)
+            else:
+                res = ensemble.analysis_batch_sharded(model, hists,
+                                                      devices=dev)
+            sync()
+            t1 = time.perf_counter()
+            launches = ws.launches
+            if [r["valid?"] for r in res] != verdicts:
+                raise AssertionError(f"{entry} disagrees with the "
+                                     "streamed verdicts")
+            if on_card and launches != 1:
+                raise AssertionError(f"{entry}: {launches} launches")
+            if entry.endswith("sharded"):
+                per_path["ensemble-sharded (B2)"] = ensemble.launches
+                if on_card and ensemble.launches != 1:
+                    raise AssertionError(f"{ensemble.launches} sharded "
+                                         "launches")
+            per_path[entry] = launches
+            recorded[entry] = (list(calls), _drains())
+            emit({"phase": "ensemble", "entry": entry, "histories": n,
+                  "wall_s": t1 - t0, "events_per_s": events / (t1 - t0),
+                  "wgl_search_launches": launches,
+                  "sharded_launches": ensemble.launches,
+                  **_ensemble_counters(telemetry.get().counters()),
+                  "kernel_ms": [d["device_ms"] for d in _drains()],
+                  "analyzers": sorted({r["analyzer"] for r in res})})
+    finally:
+        wgl._run = original
+    twin = list(hists)
+    twin[bad] = synth.corrupt_register_history(hists[bad],
+                                               at_frac=TWIN_AT_FRAC)[0]
+    telemetry.reset()
+    t0 = time.perf_counter()
+    tres = wgl.analysis_batch_streamed(model, twin, chunk=chunk,
+                                       device=dev)
+    sync()
+    t1 = time.perf_counter()
+    not_valid = [i for i, r in enumerate(tres) if r["valid?"] is not True]
+    w = tres[bad]
+    if not_valid != [bad] or w["valid?"] is not False:
+        raise AssertionError(f"twin: members {not_valid[:20]} not valid")
+    if w.get("op") is None and not w.get("configs"):
+        raise AssertionError(f"twin member {bad} carries no witness: {w}")
+    emit({"phase": "ensemble-twin", "member": bad,
+          "at_frac": TWIN_AT_FRAC, "invalid_members": not_valid,
+          "analyzer": w["analyzer"],
+          "witness_extraction": w["witness-extraction"],
+          "witness_entry": w.get("witness-entry"),
+          "op_indices": w.get("op-indices"), "wall_s": t1 - t0,
+          **_ensemble_counters(telemetry.get().counters())})
+    und = encode(model, synth.corrupt_register_history(
+        hists[bad], at_frac=UNDECIDED_AT_FRAC)[0])
+    code = int(wgl.check_batch([und], device=dev)[0])
+    if code == wgl.VALID:
+        raise AssertionError(f"member {bad} corrupted at "
+                             f"{UNDECIDED_AT_FRAC} judged VALID")
+    emit({"phase": "ensemble-twin-undecided", "member": bad,
+          "at_frac": UNDECIDED_AT_FRAC, "entries": und.m,
+          "crashed_entries": int(und.crashed.sum()), "kernel_code": code,
+          "host_search": "not run (exponential in the crashed writes "
+                         "before the bad read)"})
+    return {"recorded": recorded, "per_path": per_path}
+
+
+def independent_path(dev, on_card: bool, hists, bad: int,
+                     n_validate: int = 15) -> dict:
+    """Phase 13: the independent-key checker over the ensemble folded
+    into one multi-key history, and its twin."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n = len(hists)
+    t0 = time.perf_counter()
+    multi = fold_keys(hists)
+    twin_hists = list(hists)
+    twin_hists[bad] = synth.corrupt_register_history(
+        hists[bad], at_frac=TWIN_AT_FRAC)[0]
+    twin = fold_keys(twin_hists)
+    fold_s = time.perf_counter() - t0
+    chk = independent.checker(linearizable({"model": models.cas_register(),
+                                            "device": dev}))
+    per_path = {}
+    for name, h in (("independent", multi), ("independent-twin", twin)):
+        ws.launches = 0
+        telemetry.reset()
+        t0 = time.perf_counter()
+        res = chk.check({}, h)
+        sync()
+        t1 = time.perf_counter()
+        launches = ws.launches
+        c = telemetry.get().counters()
+        results = res["results"]
+        if len(results) != n:
+            raise AssertionError(f"{name}: {len(results)} keys, want {n}")
+        odd = [k for k, r in results.items()
+               if "error" in r or not isinstance(r["valid?"], bool)]
+        if odd:
+            raise AssertionError(f"{name}: keys {odd[:10]} errored")
+        if on_card and launches != 1:
+            raise AssertionError(f"{name}: {launches} wgl launches")
+        n_cert = c.get("certify.extracted", 0) + c.get("certify.absent", 0)
+        if n_cert != n:
+            raise AssertionError(f"{name}: {n_cert} certificates for {n}")
+        want_failures = [] if name == "independent" else [bad]
+        if res["valid?"] is not (not want_failures) \
+                or res["failures"] != want_failures:
+            raise AssertionError(f"{name}: valid? {res['valid?']} "
+                                 f"failures {res['failures'][:10]}")
+        absent = {k: r["certificate"]["absent"] for k, r in results.items()
+                  if "absent" in r["certificate"]}
+        present = sorted(k for k in results if k not in absent)
+        if name == "independent":
+            rng = np.random.default_rng(13)
+            sample = sorted(int(k) for k in rng.choice(
+                present, size=min(n_validate, len(present)),
+                replace=False))
+        else:
+            sample = [bad] if bad in present else []
+        t2 = time.perf_counter()
+        digest = certify.history_digest(h)
+        for k in sample:
+            certify.validate(h, results[k]["certificate"], digest=digest)
+        t3 = time.perf_counter()
+        per_path[name] = launches
+        emit({"phase": "independent", "check": name, "keys": n,
+              "events": len(h), "valid": res["valid?"],
+              "failures": res["failures"], "wgl_search_launches": launches,
+              "certify_extracted": c.get("certify.extracted", 0),
+              "certify_absent": c.get("certify.absent", 0),
+              "absent": {str(k): v for k, v in absent.items()},
+              "validated_keys": sample, "validate_s": t3 - t2,
+              "fold_s": fold_s, "check_s": t1 - t0,
+              "events_per_s": len(h) / (t1 - t0),
+              "subhistories_s": _span_s("independent:subhistories"),
+              "kernel_ms": [d["device_ms"] for d in _drains()],
+              "certify_attach_s": _span_s("certify.attach"),
+              **_ensemble_counters(c)})
+    return per_path
+
+
+def slices_path(dev, on_card: bool, hists, n: int) -> int:
+    """Phase 14: check_slices in the fleet's shape. Rows are every start
+    state of the first n ensemble histories (each one Encoded object,
+    shared by its rows) and of their crash-free twins (same seeds,
+    crash_p 0), in one launch at W=24, F=48. Every row the card answers
+    as known must equal the host reach search; unknown rows are counted
+    and listed. Returns the launch count."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    model = models.cas_register()
+    groups = {"crashed": [encode(model, h) for h in hists[:n]],
+              "crash-free": [encode(model, ensemble_hist(i, crash_p=0.0))
+                             for i in range(n)]}
+    slices, where = [], []
+    for g, encs in groups.items():
+        for i, e in enumerate(encs):
+            for s in range(e.n_states):
+                slices.append((e, s))
+                where.append((g, i, s))
+    ws.launches = 0
+    telemetry.reset()
+    t0 = time.perf_counter()
+    out, unk = wgl.check_slices(slices, W=24, F=48, device=dev)
+    sync()
+    t1 = time.perf_counter()
+    launches = ws.launches
+    if on_card and launches != 1:
+        raise AssertionError(f"check_slices: {launches} launches")
+    known = [i for i in range(len(slices)) if not unk[i]]
+    bad = [where[i] for i in known
+           if wgl.search_host_reach(slices[i][0].with_init(slices[i][1]))
+           != int(out[i])]
+    t2 = time.perf_counter()
+    if bad:
+        raise AssertionError(f"check_slices rows differ from the host "
+                             f"reach search: {bad[:10]}")
+    pick = sorted(int(i) for i in np.random.default_rng(14).choice(
+        len(slices), size=8, replace=False))
+    cpu_out, cpu_unk = wgl.check_slices([slices[i] for i in pick], W=24,
+                                        F=48, device="cpu")
+    if (cpu_out.tolist() != out[pick].tolist()
+            or cpu_unk.tolist() != unk[pick].tolist()):
+        raise AssertionError(f"check_slices card {out[pick]} {unk[pick]} "
+                             f"!= cpu {cpu_out} {cpu_unk}")
+    unknown = {g: sorted({i for (gg, i, _s), u in zip(where, unk)
+                          if u and gg == g}) for g in groups}
+    emit({"phase": "check_slices", "rows": len(slices),
+          "segments": sum(len(v) for v in groups.values()),
+          "wgl_search_launches": launches, "card_s": t1 - t0,
+          "known_rows": len(known), "unknown_rows": int(unk.sum()),
+          "unknown_rows_by_group": {
+              g: sum(1 for (gg, _i, _s), u in zip(where, unk)
+                     if u and gg == g) for g in groups},
+          "histories_with_unknown_rows": unknown,
+          "host_reach_of_known_rows_s": t2 - t1,
+          "cpu_rows": [where[i] for i in pick], "cpu_equal": True})
+    return launches
+
+
+def _replay(rec, on_card: bool) -> dict:
+    """One recorded `wgl._run` call replayed: the kernel (with the on-card
+    gather of a sharded launch) by CUDA events, the plain version (plus
+    a numpy gather), its bound, and the largest difference between the
+    recorded outputs and the plain version's."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    args, kw, launch = rec
+    packed, rs, s0, W, F, max_iters, reach = args
+    kkw = dict(W=W, F=F, max_iters=max_iters, reach=reach,
+               crash_free=kw["crash_free"])
+    gather = kw.get("gather")
+    n_res = 2 if reach else 1
+
+    def card():
+        outs = ws.wgl_search(packed, rs, s0, **kkw)
+        if gather is not None:
+            idx = gather.long()
+            return [o.view(torch.int32).index_select(0, idx)
+                    if o.dtype == torch.uint32 else o.index_select(0, idx)
+                    for o in outs[:n_res]]
+        return outs
+
+    kernel_ms = _event_ms(card, reps=3) if on_card else None
+    sync()
+    t0 = time.perf_counter()
+    want = list(ws.wgl_search_reference(packed, rs, s0, **kkw))
+    if gather is not None:
+        idx = gather.long()
+        want = [w.to(torch.int64).index_select(0, idx)
+                for w in want[:n_res]] + want[n_res:]
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    got = [o.to(rs.device) for o in launch.outs]
+    nbytes, ops, bound_ms = _launch_bound(packed, rs, kkw, got)
+    return {"rows": int(rs.numel()), "M": int(packed[0].shape[1]),
+            "reach": reach, "levels": int(want[-4]),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bytes": nbytes, "operations": ops,
+            "max_abs_err": _max_abs_err(got, want),
+            "mismatches": sum(_mismatches(got, want))}
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 20_000, n_elle: int = 100_000,
-        n_elle_cross: int = 20_000, n_bank: int = 500_000) -> dict:
+        n_elle_cross: int = 20_000, n_bank: int = 500_000,
+        n_ensemble: int = ENSEMBLE_N, chunk: int = ENSEMBLE_CHUNK,
+        bad_member: int = ENSEMBLE_BAD, n_plain_rows: int = 128,
+        n_slices: int = 64) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
 
@@ -690,6 +1120,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
               "F": F, "reach": reach, "crash_free": kw["crash_free"],
               "levels": int(want[-4]), "mismatches": mism,
               "kernel_s": t_kernel, "plain_s": t_plain})
+    total_mism += ensemble_against_plain(dev, on_card, n_plain_rows)
     if total_mism:
         raise AssertionError(f"kernel disagrees with its plain version "
                              f"in {total_mism} values")
@@ -835,13 +1266,45 @@ def run(dev: torch.device, n_headline: int = 500_000,
     bank_recorded, bank_launches = bank_path(dev, on_card, n_bank)
     scc_entry = scc_timing(scc_recorded, scc_per_check, on_card)
     bank_entry = bank_timing(bank_recorded, bank_launches, on_card)
+
+    # 12-14. the batch path at BASELINE config 5's size
+    t0 = time.perf_counter()
+    hists = [ensemble_hist(i) for i in range(n_ensemble)]
+    emit({"phase": "ensemble-generate", "histories": n_ensemble,
+          "events": sum(len(h) for h in hists),
+          "generate_s": time.perf_counter() - t0})
+    ens = ensemble_path(dev, on_card, hists, chunk, bad_member)
+    per_path = {"headline": main_count, **ens["per_path"]}
+    per_path.update(independent_path(dev, on_card, hists, bad_member))
+    per_path["check_slices"] = slices_path(dev, on_card, hists, n_slices)
+
+    # the ensemble launches replayed: the streamed run's chunks (B1) and
+    # the sharded launch (B2)
+    calls, drains = ens["recorded"]["streamed"]
+    streamed = [_replay(c, on_card) for c in calls]
+    for x, d in zip(streamed, drains):
+        x["in_run_device_ms"] = d["device_ms"]
+    sharded = [_replay(c, on_card)
+               for c in ens["recorded"]["analysis_batch_sharded"][0]]
+    emit({"phase": "ensemble-launches", "streamed": streamed,
+          "sharded": sharded})
+    max_err = max([max_err] + [x["max_abs_err"] for x in streamed])
+    sh_err = max(x["max_abs_err"] for x in sharded)
+    if max_err or sh_err:
+        raise AssertionError(f"ensemble launches differ from the plain "
+                             f"version by up to {max(max_err, sh_err)}")
+    sh_bytes = sum(x["bytes"] for x in sharded)
+    sh_ops = sum(x["operations"] for x in sharded)
+    by_path = {k: (sum(v) if isinstance(v, list) else v)
+               for k, v in per_path.items() if k != "ensemble-sharded (B2)"}
     return {
         "kernels": [{
             "name": "wgl_search",
             "route": "cuda",
             "source": "jepsen_tpu_torch/gpu/kernels/csrc/wgl_search.cu",
             "replaces": "jepsen_tpu/tpu/wgl.py:518",
-            "launches": main_count,
+            "launches": sum(by_path.values()),
+            "launches_per_path": per_path,
             "max_abs_err": max_err,
             "mismatches": total_mism,
             "ms": kernel_ms,
@@ -850,7 +1313,25 @@ def run(dev: torch.device, n_headline: int = 500_000,
             "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
                          >= ops / PEAK_OPS_PER_S else "operations"),
             "library_ms": None,
+            "timed_path": "headline",
             "main_path_launches": per_launch,
+            "ensemble_streamed_launches": streamed,
+        }, {
+            "name": "wgl_search (ensemble, one-device form)",
+            "route": "cuda",
+            "source": "jepsen_tpu_torch/gpu/kernels/csrc/wgl_search.cu",
+            "replaces": "jepsen_tpu/tpu/ensemble.py:54",
+            "launches": per_path["ensemble-sharded (B2)"],
+            "max_abs_err": sh_err,
+            "mismatches": sum(x["mismatches"] for x in sharded),
+            "ms": (sum(x["kernel_ms"] for x in sharded) if on_card
+                   else None),
+            "plain_ms": sum(x["plain_ms"] for x in sharded),
+            "bound_ms": sum(x["bound_ms"] for x in sharded),
+            "bound_by": ("bytes" if sh_bytes / PEAK_BYTES_PER_S
+                         >= sh_ops / PEAK_OPS_PER_S else "operations"),
+            "library_ms": None,
+            "main_path_launches": sharded,
         }, scc_entry, bank_entry],
         "headline_runs": runs,
     }

@@ -2,21 +2,58 @@
 port's device search, and the pieces the port's cycle and bank checkers
 share (`_Fn`, `op_indices`, `anomaly_classes`).
 
-Capability reference: jepsen/src/jepsen/checker.clj:202-233
-(linearizable). The batch form (`check_batch`), the checkpoint and
-extend store paths and the counterexample rendering of the JAX package's
-checker are not ported yet.
+Capability reference: jepsen/src/jepsen/checker.clj:79-90 (check-safe)
+and 202-233 (linearizable). The checkpoint and extend store paths and
+the counterexample rendering of the JAX package's checker are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import logging
+import traceback
+from typing import Any
+
 from ..history import History
+
+logger = logging.getLogger(__name__)
 
 
 class Checker:
     def check(self, test, history: History, opts: dict | None = None) -> dict:
         """Returns at least {'valid?': True|False|'unknown'}."""
         raise NotImplementedError
+
+
+def _as_history(hist) -> History:
+    if isinstance(hist, History):
+        return hist
+    return History(hist)
+
+
+def check(checker: Checker, test, hist, opts=None) -> dict:
+    return checker.check(test, _as_history(hist), opts or {})
+
+
+def check_safe(checker: Checker, test, hist, opts=None) -> dict:
+    """check, but an exception degrades to valid? 'unknown' with the
+    traceback under 'error' (checker.clj:79-90)."""
+    try:
+        return check(checker, test, hist, opts)
+    except Exception:  # noqa: BLE001 — the reference's check-safe
+        logger.exception("Error while checking history:")
+        return {"valid?": "unknown", "error": traceback.format_exc()}
+
+
+def merge_valid(valids) -> Any:
+    """false dominates, then unknown, else true."""
+    out: Any = True
+    for v in valids:
+        if v is False:
+            return False
+        if v == "unknown":
+            out = "unknown"
+    return out
 
 
 class _Fn(Checker):
@@ -97,17 +134,36 @@ class Linearizable(Checker):
         a["configs"] = a.get("configs", [])[:10]
         return a
 
+    @classmethod
+    def _finish(cls, out: dict) -> dict:
+        # coverage taxonomy: the one class this checker decides, with
+        # the explicit negative ("checked, linearizable") recorded
+        out = cls._trim(out)
+        return anomaly_classes(
+            out, nonlinearizable=out.get("valid?") is False)
+
     def check(self, test, hist, opts=None):
         from ..gpu import wgl
 
-        out = self._trim(wgl.analysis(self.model, hist,
-                                      algorithm=self.algorithm,
-                                      certify=self.certify,
-                                      device=self.device))
-        # coverage taxonomy: the one class this checker decides, with
-        # the explicit negative ("checked, linearizable") recorded
-        return anomaly_classes(
-            out, nonlinearizable=out.get("valid?") is False)
+        return self._finish(wgl.analysis(self.model, hist,
+                                         algorithm=self.algorithm,
+                                         certify=self.certify,
+                                         device=self.device))
+
+    def check_batch(self, test, hists, opts=None) -> list[dict]:
+        """check over many histories: with algorithm 'gpu', one batched
+        search on the device for all of them (analysis_batch); other
+        algorithms check each history on its own. A device failure
+        raises."""
+        from ..gpu import wgl
+
+        if self.algorithm != "gpu":
+            return [self._finish(wgl.analysis(
+                        self.model, hh, algorithm=self.algorithm,
+                        certify=self.certify, device=self.device))
+                    for hh in hists]
+        return [self._finish(a) for a in wgl.analysis_batch(
+            self.model, hists, certify=self.certify, device=self.device)]
 
 
 def linearizable(opts: dict) -> Checker:

@@ -110,6 +110,28 @@ class Encoded:
         return f"Encoded<m={self.m} states={self.n_states}>"
 
 
+def balanced_groups(weights, n_groups: int) -> list[list[int]]:
+    """Shard-aligned packing: partition item indices into n_groups
+    groups balanced by weight (longest-processing-time greedy), so
+    the packed segment tensors slice cleanly along the device axis with
+    near-even per-device search work. Groups keep ascending index
+    order internally (stable layouts keep launch shapes stable);
+    every group exists even when items < groups (empty groups map to
+    sentinel-only shards)."""
+    n_groups = max(int(n_groups), 1)
+    weights = list(weights)
+    order = sorted(range(len(weights)), key=lambda i: (-weights[i], i))
+    loads = [0.0] * n_groups
+    groups: list[list[int]] = [[] for _ in range(n_groups)]
+    for i in order:
+        g = loads.index(min(loads))
+        groups[g].append(i)
+        loads[g] += max(float(weights[i]), 1.0)
+    for g in groups:
+        g.sort()
+    return groups
+
+
 def _with_value(inv: Op, value) -> Op:
     """inv with a substituted value. A slot-direct constructor: this
     runs once per completed read in a million-op encode, where

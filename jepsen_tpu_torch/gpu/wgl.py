@@ -19,12 +19,16 @@ The algorithm is the JAX package's, unchanged:
 - Deduplication is a sort + unique-compaction of the successor keys each
   level (kernels/wgl_search.py, csrc/wgl_search.cu).
 
-Every device launch goes through `_launch` into the hand-written CUDA
-kernel (or, for tensors on the CPU, its plain PyTorch version). A kernel
-that fails to build or launch raises: there is no device-failure
-ladder. UNKNOWN rows (window or frontier overflow) still go to the exact
-host search, which is the algorithm's own soundness rule; they are
-counted under `wgl.host-resolved-rows`.
+Every device launch goes through `_launch` (or, for the one-device
+ensemble layout, gpu/ensemble.py) into the hand-written CUDA kernel (or,
+for tensors on the CPU, its plain PyTorch version). A launch returns
+before its search ends and `_drain` waits on that launch's own event, so
+the batch entry points (`analysis_batch_streamed`) overlap one chunk's
+host encoding with the previous chunk's search. A kernel that fails to
+build or launch raises: there is no device-failure ladder. UNKNOWN rows
+(window or frontier overflow) still go to the exact host search, which
+is the algorithm's own soundness rule; they are counted under
+`wgl.host-resolved-rows`.
 """
 
 from __future__ import annotations
@@ -358,21 +362,90 @@ class PackedBatch:
                 device: torch.device):
         """(packed, row_seg, st0) on `device`, after one host-to-device
         copy of the packed tables and the rows together."""
-        host = torch.from_numpy(np.concatenate([self.flat, row_seg, st0]))
-        dev = host.to(device)
+        dev = _upload([self.flat, row_seg, st0], device)
         K, M, S = self.B + 1, self.M, self.S
-        sizes = [K * M, K * M, K * M * S, K, K * (M + 1), len(row_seg),
-                 len(st0)]
-        inv_t, ret_t, trans, m, sufmin, rs, s0 = torch.split(dev, sizes)
+        sizes = [K * M, K * M, K * M * S, K, K * (M + 1)]
+        inv_t, ret_t, trans, m, sufmin = torch.split(dev[0], sizes)
         packed = (inv_t.view(K, M), ret_t.view(K, M), trans.view(K, M, S),
                   m, sufmin.view(K, M + 1))
-        return packed, rs, s0
+        return packed, dev[1], dev[2]
+
+
+def _upload(parts: Sequence[np.ndarray], device: torch.device
+            ) -> list[torch.Tensor]:
+    """int32 arrays on `device`, in one copy. For the card the arrays are
+    staged in pinned host memory and copied with non_blocking=True: a
+    copy from pageable memory would first wait for the stream's earlier
+    work (the previous chunk's search), and so block the host. PyTorch's
+    pinned-memory cache keeps the staging buffer from reuse until the
+    copy is done."""
+    sizes = [int(a.size) for a in parts]
+    host = torch.empty(sum(sizes), dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+    buf = host.numpy()
+    off = 0
+    for a, n in zip(parts, sizes):
+        buf[off:off + n] = a.reshape(-1)
+        off += n
+    return list(torch.split(host.to(device, non_blocking=True), sizes))
+
+
+class Launch:
+    """One search in flight: its outputs (host tensors once `done` has
+    fired), the CUDA events around its device work, and `done`, the
+    event recorded after the copies of its outputs to the host. On the
+    CPU the outputs are ready and the events are None."""
+
+    __slots__ = ("outs", "start", "end", "done")
+
+    def __init__(self, outs, start=None, end=None, done=None):
+        self.outs, self.start, self.end, self.done = outs, start, end, done
+
+
+def _run(packed, rs, s0, W: int, F: int, max_iters: int, reach: bool,
+         crash_free: bool, gather: torch.Tensor | None = None) -> Launch:
+    """Launches the kernel over uploaded tensors without waiting for it.
+    `gather` (int32 row indices on the same device) reorders and trims the
+    per-row outputs on the device before they are read back. On the card
+    the outputs are then copied into pinned host buffers with
+    non_blocking=True, and an event is recorded after the copies, all in
+    the current stream's order: the host returns at once, and _drain
+    waits on that event alone."""
+    on_card = rs.device.type == "cuda"
+    start = end = done = None
+    if on_card:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+    outs = kernel.wgl_search(packed, rs, s0, W=W, F=F, max_iters=max_iters,
+                             reach=reach, crash_free=crash_free)
+    if gather is not None:
+        n_res = 2 if reach else 1
+        idx = gather.to(torch.int64)
+        # uint32 masks travel as int32: the same bits, and an index_select
+        # that every backend has
+        outs = tuple(
+            o.view(torch.int32).index_select(0, idx).view(torch.uint32)
+            if o.dtype == torch.uint32 else o.index_select(0, idx)
+            for o in outs[:n_res]) + tuple(outs[n_res:])
+    if not on_card:
+        return Launch(outs)
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    host = []
+    for o in outs:
+        h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+        h.copy_(o, non_blocking=True)
+        host.append(h)
+    done = torch.cuda.Event()
+    done.record()
+    return Launch(tuple(host), start, end, done)
 
 
 def _launch(pb: PackedBatch, rows: Sequence[tuple[int, int]], W: int,
-            F: int, reach: bool, device: torch.device):
-    """Dispatches one batched search over (segment, start-state) rows.
-    Every wgl entry point funnels through here."""
+            F: int, reach: bool, device: torch.device) -> Launch:
+    """Dispatches one batched search over (segment, start-state) rows
+    without waiting for it (drain it with _drain). Every wgl entry point
+    funnels through here."""
     row_seg, st0 = pb.rows(list(rows))
     t0 = _time.monotonic_ns()
     packed, rs, s0 = pb.tensors(row_seg, st0, device)
@@ -380,31 +453,40 @@ def _launch(pb: PackedBatch, rows: Sequence[tuple[int, int]], W: int,
     tel.count("wgl.kernel.h2d_ns", _time.monotonic_ns() - t0)
     tel.count("wgl.kernel.rows", len(row_seg))
     tel.count("wgl.kernel.launches")
-    return kernel.wgl_search(packed, rs, s0, W=W, F=F,
-                             max_iters=pb.M + 4, reach=reach,
-                             crash_free=not pb.has_crashed)
+    return _run(packed, rs, s0, W, F, pb.M + 4, reach,
+                crash_free=not pb.has_crashed)
 
 
-def _drain(out, reach: bool):
-    """Materializes a launch's outputs (waiting for the device), and
-    records the launch's wait, iteration count and search-shape series
-    (frontier occupancy / states explored / dedup hits per BFS level).
-    Returns result [B] (reach=False) or (out_mask, unknown) arrays
-    (reach=True)."""
+def _drain(out: Launch, reach: bool):
+    """Waits for one launch (on its own `done` event, never on the whole
+    device) and records its wait, iteration count and search-shape
+    series (frontier occupancy / states explored / dedup hits per BFS
+    level), plus a `wgl:drain` span whose attrs carry the rows, the wait
+    and the launch's device time between its CUDA events. Returns result
+    [B] (reach=False) or (out_mask, unknown) arrays (reach=True)."""
     tel = telemetry.get()
-    t0 = _time.monotonic_ns()
-    if reach:
-        mask, unk, it, lvl_live, lvl_new, lvl_dup = out
-        res = (mask.cpu().numpy(), unk.cpu().numpy())
-    else:
-        r, it, lvl_live, lvl_new, lvl_dup = out
-        res = r.cpu().numpy()
-    n_it = int(it)
-    live = lvl_live[:n_it].cpu().numpy()
-    new = lvl_new[:n_it].cpu().numpy()
-    dup = lvl_dup[:n_it].cpu().numpy()
+    with tel.span("wgl:drain") as rec:
+        t0 = _time.monotonic_ns()
+        if out.done is not None:
+            out.done.synchronize()
+        wait_ns = _time.monotonic_ns() - t0
+        if reach:
+            mask, unk, it, lvl_live, lvl_new, lvl_dup = out.outs
+            res = (mask.numpy(), unk.numpy())
+        else:
+            r, it, lvl_live, lvl_new, lvl_dup = out.outs
+            res = r.numpy()
+        n_it = int(it)
+        live = lvl_live[:n_it].numpy()
+        new = lvl_new[:n_it].numpy()
+        dup = lvl_dup[:n_it].numpy()
+        device_ms = (out.start.elapsed_time(out.end)
+                     if out.start is not None else None)
+        rec["attrs"] = {"rows": int(len(res[0] if reach else res)),
+                        "levels": n_it, "wait_ns": wait_ns,
+                        "device_ms": device_ms}
     peak = int(live.max()) if live.size else 0
-    tel.count("wgl.kernel.execute_ns", _time.monotonic_ns() - t0)
+    tel.count("wgl.kernel.execute_ns", wait_ns)
     tel.count("wgl.kernel.iterations", n_it)
     tel.count("wgl.search.levels", n_it)
     tel.count("wgl.search.states", int(new.sum()))
@@ -453,6 +535,45 @@ def check_batch_reach(encs: Sequence[Encoded], W: int = 32, F: int = 32,
     out, unk = _drain(_launch(pb, rows, W, F, reach=True, device=device),
                       reach=True)
     return out[:pb.B], unk[:pb.B]
+
+
+def check_slices(slices: Sequence[tuple[Encoded, int]], W: int = 24,
+                 F: int = 48, device=None) -> tuple[np.ndarray, np.ndarray]:
+    """The fleet's cross-run batching entry point: packs (encoded slice,
+    start state) rows from many tenants' streams into ONE reach launch.
+    Distinct rows may share an Encoded (one segment searched from
+    several live start states costs one packed history, several rows),
+    so slices dedupe by identity before packing. Returns (out_mask
+    uint32 [len(slices)], unknown bool [len(slices)]), row i answering
+    slices[i]. Requires every n_states <= 32 (reach packs states into a
+    uint32).
+
+    A device failure raises. UNKNOWN rows come back unknown for the
+    caller to search on the host (search_host_reach), as the fleet does;
+    they are counted under `wgl.slices.unknown-rows`."""
+    device = resolve_device(device)
+    slices = list(slices)
+    if not slices:
+        return np.empty(0, dtype=np.uint32), np.empty(0, dtype=bool)
+    if max(e.n_states for e, _s in slices) > 32:
+        raise ValueError("reach mode packs states into a uint32")
+    encs: list[Encoded] = []
+    idx: dict[int, int] = {}
+    rows: list[tuple[int, int]] = []
+    for enc, s in slices:
+        j = idx.get(id(enc))
+        if j is None:
+            j = idx[id(enc)] = len(encs)
+            encs.append(enc)
+        rows.append((j, int(s)))
+    pb = PackedBatch(encs)
+    out, unk = _drain(_launch(pb, rows, W, F, reach=True, device=device),
+                      reach=True)
+    out = np.asarray(out[:len(rows)], dtype=np.uint32)
+    unk = np.asarray(unk[:len(rows)], dtype=bool)
+    telemetry.count("wgl.slices.rows", len(rows))
+    telemetry.count("wgl.slices.unknown-rows", int(unk.sum()))
+    return out, unk
 
 
 # ---------------------------------------------------------------------------
@@ -773,6 +894,40 @@ def _seg_kwargs(W: int | None, F: int | None, **extra) -> dict:
     return kw
 
 
+def extract_witness(enc: Encoded, W: int | None = None,
+                    F: int | None = None, device=None) -> dict:
+    """Bounded witness extraction for a history the device kernel
+    flagged INVALID or UNKNOWN.
+
+    For long histories (m >= SEGMENT_MIN_M), localizes the FIRST failing
+    segment by reach-mask composition (batched device launches over
+    segment x start-state rows) and host-searches only that segment.
+    Small or unsegmentable histories take the exact whole-history host
+    search. Sets result["witness-extraction"] to 'segmented' or 'host'."""
+    device = resolve_device(device)
+    if enc.m >= SEGMENT_MIN_M:
+        seg = check_segmented(enc, witness=True, device=device,
+                              **_seg_kwargs(W, F))
+        if seg is not None:
+            seg["witness-extraction"] = "segmented"
+            return _witness_op_indices(seg)
+    out = search_host(enc, witness=True)
+    out["witness-extraction"] = "host"
+    return _witness_op_indices(out)
+
+
+def _resolve_row(enc: Encoded, W: int | None, F: int | None,
+                 device: torch.device) -> dict:
+    """extract_witness for a batch member the card did not answer VALID,
+    counted under `wgl.host-resolved-rows` / `wgl.host-resolved-ns`."""
+    t0 = _time.monotonic_ns()
+    out = extract_witness(enc, W=W, F=F, device=device)
+    tel = telemetry.get()
+    tel.count("wgl.host-resolved-rows")
+    tel.count("wgl.host-resolved-ns", _time.monotonic_ns() - t0)
+    return out
+
+
 def _search_stats(out: dict) -> dict:
     """Attaches out['search'] — the witness-position percentile
     ("nonlinearizable witnessed at 12% of the history") for invalid
@@ -874,3 +1029,94 @@ def _analysis(model, hist, algorithm, W, F, device,
     out = search_host(enc, witness=True)
     out["analyzer"] = "gpu+host-fallback"
     return _witness_op_indices(out)
+
+
+def analysis_batch_streamed(model, hists: Sequence, chunk: int = 256,
+                            W: int | None = None, F: int | None = None,
+                            certify: bool = False,
+                            device=None) -> list[dict]:
+    """analysis_batch with host-to-device pipelining: histories are
+    encoded and launched chunk by chunk, and since a launch returns
+    before its search ends (_launch), chunk i+1's encoding on the host
+    overlaps chunk i's search on the card. A one-chunk drain lag keeps
+    at most two chunks' buffers live. certify=True attaches a per-result
+    verdict certificate (the checker batch path passes it).
+
+    A launch or kernel failure raises. Members the card does not answer
+    VALID go to extract_witness (counted as host-resolved rows); a chunk
+    past the kernel's position range (RangeError) is UNKNOWN as a whole,
+    counted under `wgl.batch.range-chunks`."""
+    device = resolve_device(device)
+    hists = [hh if isinstance(hh, History) else History(hh) for hh in hists]
+    results: list[dict] = [None] * len(hists)  # type: ignore
+    certify_mod = None
+    if certify:
+        from . import certify as certify_mod
+    W_run = W if W is not None else 32
+    F_run = F if F is not None else 64
+
+    def launch(start):
+        encs, idx_map = [], []
+        for i in range(start, min(start + chunk, len(hists))):
+            try:
+                encs.append(encode(model, hists[i]))
+                idx_map.append(i)
+            except EncodingError:
+                out = search_host_model(model, hists[i], witness=True)
+                out["analyzer"] = "model"
+                results[i] = _witness_op_indices(_search_stats(out))
+                if certify_mod is not None:
+                    certify_mod.attach_wgl(model, hists[i], None,
+                                           results[i])
+        if not encs:
+            return None
+        try:
+            pb = PackedBatch(encs)
+        except RangeError:
+            telemetry.count("wgl.batch.range-chunks")
+            return None, encs, idx_map
+        rows = [(j, e.init_state) for j, e in enumerate(encs)]
+        return (_launch(pb, rows, W_run, F_run, reach=False, device=device),
+                encs, idx_map)
+
+    def drain(entry):
+        out_dev, encs, idx_map = entry
+        res = (_drain(out_dev, reach=False)[:len(encs)]
+               if out_dev is not None else [UNKNOWN] * len(encs))
+        for j, i in enumerate(idx_map):
+            r = int(res[j])
+            if r == VALID:
+                results[i] = {"valid?": True, "analyzer": "gpu"}
+            else:
+                out = _resolve_row(encs[j], W, F, device)
+                out["analyzer"] = ("gpu" if r == INVALID
+                                   else "gpu+host-fallback")
+                results[i] = out
+            _search_stats(results[i])
+            if certify_mod is not None:
+                certify_mod.attach_wgl(model, hists[i], encs[j],
+                                       results[i])
+
+    pending = None
+    for start in range(0, len(hists), chunk):
+        entry = launch(start)
+        # drain the PREVIOUS chunk now: the current one is already
+        # launched, so the card keeps searching while the host decodes
+        if pending is not None:
+            drain(pending)
+        pending = entry
+    if pending is not None:
+        drain(pending)
+    return results
+
+
+def analysis_batch(model, hists: Sequence, W: int | None = None,
+                   F: int | None = None, certify: bool = False,
+                   device=None) -> list[dict]:
+    """Checks many histories at once (the ensemble path: one device
+    launch for the whole batch, the host only for members the card
+    does not answer VALID)."""
+    hists = list(hists)
+    return analysis_batch_streamed(model, hists, chunk=max(len(hists), 1),
+                                   W=W, F=F, certify=certify,
+                                   device=device)

@@ -80,8 +80,37 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
         wgl.check_segmented(enc, target_len=32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         linearizable({"model": models.cas_register()}).check({}, h)
+    # the batch path (analysis_batch, check_slices, the ensemble, the
+    # independent-key checker)
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.gpu import ensemble
+
+    lin = linearizable({"model": models.cas_register()})
+    multi = [o.copy(value=(0, o.value)) for o in h]
+    for fn in (lambda: wgl.analysis_batch(models.cas_register(), [h]),
+               lambda: wgl.analysis_batch_streamed(models.cas_register(),
+                                                   [h, h], chunk=1),
+               lambda: wgl.check_slices([(enc, 0)]),
+               lambda: wgl.extract_witness(enc),
+               lambda: ensemble.check_batch_sharded([enc]),
+               lambda: ensemble.analysis_batch_sharded(
+                   models.cas_register(), [h]),
+               lambda: lin.check_batch({}, [h]),
+               lambda: independent.checker(lin).check({}, multi)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
     assert calls == []
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_no_fallback_ladder_and_no_device_wide_sync():
+    """Nothing in the package steps down from the card (no ladder, no
+    `degradation` key) and no wait covers the whole device: a drain
+    waits on its own launch's event."""
+    for path in sorted((ROOT / "jepsen_tpu_torch").rglob("*.py")):
+        text = path.read_text()
+        assert "degradation" not in text, path
+        assert "cuda.synchronize" not in text, path
 
 
 def test_elle_and_bank_run_without_loading_jax():
