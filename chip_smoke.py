@@ -11,8 +11,13 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
   2. builds every kernel from jepsen_tpu_torch/gpu/kernels/csrc;
   3. holds the wgl_search kernel against its plain PyTorch version on the
      card, on seeded histories (verdict and reach mode, with and without
-     crashes, a window/frontier overflow case), on 128 crashed 400-op
-     ensemble rows at W=32, F=64 (over 48 KB of shared memory a block),
+     crashes, a window/frontier overflow case, segment rows with an empty
+     segment, one long segment of ~12k entries at M = 16384 crash-free
+     at W=32 and crashed, so the kernel's shared-memory ring wraps ~93
+     times, a register over 600 values, so S = 512 states), prints the
+     levels each case finished on the kernel's warp path and on its
+     block path and the warp-path levels that sorted, and fails unless
+     all three ran; on 128 crashed 400-op ensemble rows at W=32, F=64 (over 48 KB of shared memory a block),
      and on one launch over a one-device ensemble layout with
      unreferenced and repeated segments (against the plain version and a
      numpy gather): zero mismatches allowed, every output is an integer;
@@ -179,9 +184,34 @@ def _seeded_cases():
         q = enc.m // 8
         cuts = [k * q for k in range(8)] + [enc.m]
         segs = [enc.segment(cuts[k], cuts[k + 1]) for k in range(8)]
-        rows = [(k, s) for k in range(8) for s in range(enc.n_states)]
+        # and an empty segment (m == 0): its rows start VALID, mask
+        # 1 << st0, and never run a level
+        segs.append(enc.segment(q, q))
+        rows = [(k, s) for k in range(9) for s in range(enc.n_states)]
         out.append((f"segments-crash{crash_p / 10}-reach", segs, rows, 24,
                     48, True))
+    # one long segment (11,951 / 11,908 entries, M = 16384), one row: the
+    # kernel's ring of R = 128 entries wraps ~93 times; W=32 crash-free
+    # fills the window (no hole left in the mask), and the crashed
+    # segment's levels give up to 168 successors (the block path)
+    for crash_p, W, F, reach in ((0.0, 32, 64, False), (0.02, 32, 64, False),
+                                 (0.02, 24, 48, True)):
+        enc = encode(m, synth.register_history(15_000, n_procs=5, seed=21,
+                                               crash_p=crash_p))
+        out.append((f"long-crash{crash_p}-W{W}-"
+                    f"{'reach' if reach else 'verdict'}", [enc],
+                    [(0, enc.init_state)], W, F, reach))
+    # a register over 600 values (S = 512 states): the kernel reads trans
+    # from global memory, so its shared memory does not grow with S
+    for crash_p in (0.0, 0.15):
+        hs = [synth.register_history(1500, n_procs=5, seed=30 + s,
+                                     crash_p=crash_p, n_values=600)
+              for s in range(3)]
+        hs.append(synth.corrupt_register_history(hs[0], at_frac=0.5)[0])
+        encs = [encode(m, h) for h in hs]
+        rows = [(i, e.init_state) for i, e in enumerate(encs)]
+        out.append((f"values600-crash{crash_p}-verdict", encs, rows, 24, 48,
+                    False))
     return out
 
 
@@ -193,6 +223,24 @@ def _mismatches(got, want) -> list[int]:
 def _max_abs_err(got, want) -> int:
     return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                if a.numel() else 0 for a, b in zip(got, want))
+
+
+def _path_levels(packed, rs, s0, kw, on_card: bool):
+    """{"warp": n, "block": n, "warp_sorted": n}: the levels one launch
+    of the kernel finished on its warp path and on its block path, and
+    the warp-path levels that sorted (more than F unique successors),
+    summed over its rows, from a launch of its own; None off the card."""
+    if not on_card:
+        return None
+    buf = torch.zeros(3, dtype=torch.int32, device=rs.device)
+    ws.wgl_search(packed, rs, s0, path_levels=buf, **kw)
+    warp, block, warp_sorted = buf.tolist()
+    return {"warp": warp, "block": block, "warp_sorted": warp_sorted}
+
+
+def _us_per_level(kernel_ms, levels: int):
+    return (1e3 * kernel_ms / levels) if kernel_ms is not None and levels \
+        else None
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -745,6 +793,7 @@ def ensemble_against_plain(dev, on_card: bool, n_rows: int) -> int:
               "M": pb.M, "rows": len(rows), "entries": int(pb.m.sum()),
               "W": 32, "F": 64, "reach": reach, "crash_free": False,
               "smem_bytes": smem, "levels": int(want[-4]),
+              "path_levels": _path_levels(packed, rs, s0, kw, on_card),
               "unknown_rows": int((want[1] if reach else want[0] == -1)
                                   .sum()),
               "mismatches": mism, "kernel_s": t_kernel,
@@ -1059,6 +1108,7 @@ def _replay(rec, on_card: bool) -> dict:
         return outs
 
     kernel_ms = _event_ms(card, reps=3) if on_card else None
+    paths = _path_levels(packed, rs, s0, kkw, on_card)
     sync()
     t0 = time.perf_counter()
     want = list(ws.wgl_search_reference(packed, rs, s0, **kkw))
@@ -1072,7 +1122,9 @@ def _replay(rec, on_card: bool) -> dict:
     nbytes, ops, bound_ms = _launch_bound(packed, rs, kkw, got)
     return {"rows": int(rs.numel()), "M": int(packed[0].shape[1]),
             "reach": reach, "levels": int(want[-4]),
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "kernel_ms": kernel_ms,
+            "us_per_level": _us_per_level(kernel_ms, int(want[-4])),
+            "path_levels": paths, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bytes": nbytes, "operations": ops,
             "max_abs_err": _max_abs_err(got, want),
             "mismatches": sum(_mismatches(got, want))}
@@ -1099,6 +1151,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
 
     # 3. kernel against its plain version on the same tensors
     total_mism = 0
+    path_total = {"warp": 0, "block": 0, "warp_sorted": 0}
     for name, encs, rows, W, F, reach in _seeded_cases():
         pb = wgl.PackedBatch(encs)
         packed, rs, s0 = pb.tensors(*pb.rows(rows), dev)
@@ -1115,11 +1168,19 @@ def run(dev: torch.device, n_headline: int = 500_000,
         t_plain = time.perf_counter() - t0
         mism = _mismatches(got, want)
         total_mism += sum(mism)
+        paths = _path_levels(packed, rs, s0, kw, on_card)
+        for k in path_total:
+            path_total[k] += paths[k] if paths else 0
         emit({"phase": "kernel-vs-plain", "case": name, "M": pb.M,
-              "rows": len(rows), "entries": int(pb.m.sum()), "W": W,
+              "S": pb.S, "rows": len(rows), "entries": int(pb.m.sum()), "W": W,
               "F": F, "reach": reach, "crash_free": kw["crash_free"],
               "levels": int(want[-4]), "mismatches": mism,
-              "kernel_s": t_kernel, "plain_s": t_plain})
+              "path_levels": paths, "kernel_s": t_kernel,
+              "plain_s": t_plain})
+    emit({"phase": "kernel-paths", "seeded_cases": path_total})
+    if on_card and not all(path_total.values()):
+        raise AssertionError(f"the seeded cases did not run every level "
+                             f"path of the kernel: {path_total}")
     total_mism += ensemble_against_plain(dev, on_card, n_plain_rows)
     if total_mism:
         raise AssertionError(f"kernel disagrees with its plain version "
@@ -1236,6 +1297,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
         nbytes, ops, bound_ms = _launch_bound(packed, rs, kw, out)
         kernel_ms = (_event_ms(lambda: original(packed, rs, s0, **kw),
                                reps=3) if on_card else None)
+        paths = _path_levels(packed, rs, s0, kw, on_card)
         sync()
         t0 = time.perf_counter()
         want = ws.wgl_search_reference(packed, rs, s0, **kw)
@@ -1244,6 +1306,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
             "rows": int(rs.numel()), "M": int(packed[0].shape[1]),
             "reach": kw["reach"], "levels": int(out[-4]),
             "kernel_ms": kernel_ms,
+            "us_per_level": _us_per_level(kernel_ms, int(out[-4])),
+            "path_levels": paths,
             "plain_ms": 1e3 * (time.perf_counter() - t0),
             "bound_ms": bound_ms, "bytes": nbytes, "operations": ops})
         max_err = max(max_err, _max_abs_err(out, want))
@@ -1314,6 +1378,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
                          >= ops / PEAK_OPS_PER_S else "operations"),
             "library_ms": None,
             "timed_path": "headline",
+            "us_per_level": _us_per_level(
+                kernel_ms, sum(x["levels"] for x in per_launch)),
             "main_path_launches": per_launch,
             "ensemble_streamed_launches": streamed,
         }, {

@@ -48,7 +48,7 @@ def _lib() -> ctypes.CDLL:
         if not _lib_cache:
             lib = build.load("wgl_search")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.wgl_search_launch.argtypes = [p] * 7 + [i] * 8 + [p] * 8
+            lib.wgl_search_launch.argtypes = [p] * 7 + [i] * 8 + [p] * 9
             lib.wgl_search_launch.restype = i
             lib.wgl_search_smem_bytes.argtypes = [i, i, i]
             lib.wgl_search_smem_bytes.restype = ctypes.c_size_t
@@ -90,12 +90,27 @@ def _check(packed, row_seg, st0, W, F, max_iters, reach):
 
 
 def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
-               reach: bool = False, crash_free: bool = False):
-    """The batched frontier search (see the module docstring)."""
+               reach: bool = False, crash_free: bool = False,
+               path_levels: torch.Tensor | None = None):
+    """The batched frontier search (see the module docstring).
+
+    path_levels, an int32 [3] tensor on the inputs' CUDA device, gets the
+    kernel's count of levels finished on its warp path (no block barrier,
+    [0]), on its block path ([1]) and of the warp-path levels that sorted
+    because more than F successors were unique ([2]) added, summed over
+    the rows. It describes the kernel's schedule, not the search, so the
+    plain version has no such count: it is refused with CPU tensors."""
     global launches
     _check(packed, row_seg, st0, W, F, max_iters, reach)
     inv_t, ret_t, trans, mseg, sufmin = packed
     dev = inv_t.device
+    if path_levels is not None and (
+            path_levels.dtype != torch.int32 or path_levels.shape != (3,)
+            or path_levels.device != dev or dev.type != "cuda"):
+        raise ValueError("path_levels must be an int32 [3] tensor on the "
+                         f"inputs' CUDA device, got {path_levels.dtype} "
+                         f"{tuple(path_levels.shape)} on "
+                         f"{path_levels.device} (inputs on {dev})")
     if dev.type == "cpu":
         return wgl_search_reference(packed, row_seg, st0, W, F, max_iters,
                                     reach=reach, crash_free=crash_free)
@@ -119,7 +134,8 @@ def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
             st0.data_ptr(), B, M, S, W, F, max_iters, int(reach),
             int(crash_free), result.data_ptr(), out_mask.data_ptr(),
             unknown.data_ptr(), it.data_ptr(), lvl[0].data_ptr(),
-            lvl[1].data_ptr(), lvl[2].data_ptr(), stream)
+            lvl[1].data_ptr(), lvl[2].data_ptr(),
+            None if path_levels is None else path_levels.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(
             f"wgl_search launch failed: CUDA error {rc} "
@@ -136,11 +152,17 @@ def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
 
 def wgl_search_reference(packed, row_seg, st0, W: int, F: int,
                          max_iters: int, reach: bool = False,
-                         crash_free: bool = False):
+                         crash_free: bool = False, on_level=None):
     """The plain PyTorch version: a Python loop over BFS levels with
     tensor ops over [B, F, W] per level, on whatever device the inputs
     lie. Masks ride in int64 (values < 2^32), so sorting the key
-    p*2^32 + mask orders masks as unsigned."""
+    p*2^32 + mask orders masks as unsigned.
+
+    on_level(it, p, mask, live), if given, sees every level's frontier
+    as kept (int64 [B, F] positions and masks, bool [B, F] live flags):
+    the start (it = 0), then after each level the F smallest unique
+    successors (it + 1), before those at the segment's end retire. It
+    lets a test check the invariants the kernel rests on."""
     inv_t, ret_t, trans, mseg, sufmin = packed
     dev = inv_t.device
     i64 = torch.int64
@@ -177,6 +199,8 @@ def wgl_search_reference(packed, row_seg, st0, W: int, F: int,
     ovf = torch.zeros(B, dtype=torch.bool, device=dev)
     lvl = torch.zeros((3, max_iters), dtype=torch.int32, device=dev)
     it = 0
+    if on_level is not None:
+        on_level(it, p, mask, p < BIG)
     while it < max_iters and bool((result == RUNNING).any()):
         live = p < BIG                                         # [B, F]
         pc = torch.where(live, p, 0)
@@ -238,6 +262,8 @@ def wgl_search_reference(packed, row_seg, st0, W: int, F: int,
         p[rows, dst] = sp[rows, cols]
         mask[rows, dst] = key[rows, cols] & 0xFFFFFFFF
         st[rows, dst] = ss[rows, cols]
+        if on_level is not None:
+            on_level(it + 1, p, mask, p < BIG)
 
         done = (p < BIG) & (p >= m[:, None])                    # [B, F]
         new_ovf = ovf | (cfg_ovf & live).any(1) | (n_uniq > F)
