@@ -37,10 +37,19 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
   7. holds the scc and bank_reduce kernels against their plain PyTorch
      versions on the card: seeded graphs (many large components, edge-mask
      subsets, a 3,000-node decreasing chain that hits SWEEP_CAP, one above
-     DEVICE_MIN_EDGES; the small graphs that hit a cap also with caps of
-     n, the launch scc() makes after a cap hit) and seeded balance
-     matrices (one row past 2^31); zero mismatches allowed in labels, ok,
-     rounds, sweeps, sums, flags;
+     DEVICE_MIN_EDGES, a chain of 100 ten-node cycles; every graph that
+     hits a cap also through the convergence launch, the launch scc()
+     makes after a cap hit, against its plain version on the CPU and
+     scipy's labels, with its rounds, sweeps, trim passes and grid syncs)
+     and seeded balance matrices (one row past 2^31; 1, 2, 3, 32 and 100
+     columns, also starting 8 bytes off the 16-byte grid); zero
+     mismatches allowed in labels, ok, rounds, sweeps, trim passes, sums,
+     flags; then times the convergence launch alone on a 100,000-node
+     decreasing chain, a 100,000-node cycle, the chain of cycles and a
+     100,000-node graph of large components joined to a decreasing chain
+     and, through Edges.scc, a 20,001-node decreasing chain joined to a
+     forward chain of 20,001 edges (one capped launch, one convergence
+     launch), each held against scipy's labels;
   8. drives the Elle path at full size through the checkers, with the scc
      launch count set to 0 just before each check and read just after:
      list_append_history(100_000, seed=11) through append_checker must be
@@ -58,8 +67,10 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      give the numpy fold's first error;
  11. replays the Elle and bank main paths' launches to time both kernels,
      their plain versions and (bank) the PyTorch reduction, prints the scc
-     rounds, sweeps and live edges per round of each launch (the bytes of
-     its bound are counted from them);
+     rounds, sweeps, grid syncs and live edges per round of each launch
+     (the bytes of its bound are counted from them), bank_reduce's time
+     back to back and with L2 flushed before each launch, and both
+     kernels' ptxas registers and spills;
  12. drives the ensemble, BASELINE config 5: 1,024 histories of
      register_history(400, n_procs=4, seed=1000+i, crash_p=0.15) through
      analysis_batch_streamed(chunk=128) three times (all valid, 8 launches
@@ -104,6 +115,7 @@ import numpy as np
 from jepsen_tpu_torch import independent, telemetry
 from jepsen_tpu_torch.checker import cycle, linearizable, models
 from jepsen_tpu_torch.gpu import certify, elle, ensemble, synth, wgl
+from jepsen_tpu_torch.gpu import scc as scc_mod
 from jepsen_tpu_torch.history import History, op
 from jepsen_tpu_torch.gpu.encode import encode
 from jepsen_tpu_torch.gpu.kernels import bank_reduce as kbank
@@ -301,6 +313,17 @@ def _clustered_graph(seed, n, cluster, inner, cross):
     return np.concatenate([src, cs]), np.concatenate([dst, cd])
 
 
+def _cycle_chain(k, size):
+    """k cycles of `size` nodes in decreasing order, each joined to the
+    one below by an edge from its first node to the lower cycle's last:
+    a chain of non-trivial components, which trim cannot touch."""
+    base = np.repeat(np.arange(k) * size, size)
+    pos = np.tile(np.arange(size), k)
+    links = np.arange(1, k) * size
+    return (k * size, np.concatenate([base + pos, links]),
+            np.concatenate([base + (pos + 1) % size, links - 1]))
+
+
 def _scc_cases():
     """(name, n, src, dst, edge_on) seeded graphs for kernel vs plain."""
     rng = np.random.default_rng(5)
@@ -319,6 +342,9 @@ def _scc_cases():
                 np.arange(98, -1, -1), np.ones(99, dtype=bool)))
     out.append(("cycle-600", 600, np.arange(600), (np.arange(600) + 1) % 600,
                 np.ones(600, dtype=bool)))
+    n, src, dst = _cycle_chain(100, 10)
+    out.append(("cycle-chain-100x10", n, src, dst,
+                np.ones(len(src), dtype=bool)))
     n = 2000
     src, dst = rng.integers(0, n, 4000), rng.integers(0, n, 4000)
     out.append(("random-n2000", n, src, dst, rng.random(4000) < 0.8))
@@ -332,20 +358,48 @@ def _scc_tensors(src, dst, on, dev):
 
 
 def _bank_cases():
+    """(name, matrix, offset): an offset case lies one element past a
+    16-byte boundary, so its rows start off the 16-byte grid (all of
+    them for an even width, every other one for an odd width)."""
     rng = np.random.default_rng(9)
     mats = {"random-1000x32": rng.integers(-100, 100, (1000, 32)),
             "random-250000x32": rng.integers(0, 50, (250_000, 32)),
-            "random-77x100": rng.integers(-2 ** 40, 2 ** 40, (77, 100))}
+            "random-77x100": rng.integers(-2 ** 40, 2 ** 40, (77, 100)),
+            "random-1000x1": rng.integers(-2 ** 40, 2 ** 40, (1000, 1)),
+            "random-1000x2": rng.integers(-2 ** 40, 2 ** 40, (1000, 2)),
+            "random-1000x3": rng.integers(-2 ** 40, 2 ** 40, (1000, 3))}
     past = rng.integers(0, 10, (5000, 16))
     past[17, :2] = [2 ** 31 - 1, 5]
     past[18, :3] = [2 ** 31 - 1, 2 ** 31 - 1, 2 ** 31 - 1]
     mats["past-int32-5000x16"] = past
-    return {k: np.ascontiguousarray(v, dtype=np.int64)
-            for k, v in mats.items()}
+    out = [(k, np.ascontiguousarray(v, dtype=np.int64), False)
+           for k, v in mats.items()]
+    for rows, cols in ((1000, 1), (1000, 2), (1000, 3), (77, 100),
+                       (250_414, 32)):
+        out.append((f"offset-{rows}x{cols}", np.ascontiguousarray(
+            rng.integers(-2 ** 40, 2 ** 40, (rows, cols)), dtype=np.int64),
+            True))
+    return out
+
+
+def _bank_tensor(mat, offset: bool, dev):
+    if not offset:
+        return torch.from_numpy(mat).to(dev)
+    rows, cols = mat.shape
+    flat = torch.empty(rows * cols + 1, dtype=torch.int64, device=dev)
+    view = flat[1:].view(rows, cols)
+    view.copy_(torch.from_numpy(mat))
+    return view
+
+
+def _syncs(dev, on_card: bool):
+    return torch.zeros(2, dtype=torch.int32, device=dev) if on_card else None
 
 
 def kernels_against_plain(dev, on_card: bool) -> int:
-    """Phase 7: scc and bank_reduce against their plain versions."""
+    """Phase 7: scc and bank_reduce against their plain versions; every
+    capped case that hits a cap also through the convergence launch,
+    against its plain version on the CPU and scipy's labels."""
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     total = 0
     for name, n, src, dst, on in _scc_cases():
@@ -370,33 +424,157 @@ def kernels_against_plain(dev, on_card: bool) -> int:
         if (name.startswith(("decreasing-chain", "cycle"))
                 and tail[0] != 0):
             raise AssertionError(f"{name} did not hit a cap: {tail}")
-        if tail[0] == 0 and n <= 600:
-            # the launch scc() makes after a cap hit, with caps of n,
-            # against the plain version on the CPU
-            got = kscc.scc_labels_to_convergence(*args, n)
-            want = kscc.scc_labels_to_convergence(
-                *(a.cpu() for a in args), n)
-            mism = int((got.cpu() != want).sum())
-            total += mism
+        if tail[0] == 0:
+            # the launch scc() makes after a cap hit, against its plain
+            # version on the CPU and scipy's labels; on the card also with
+            # block 0 never going on alone, so the grid schedule meets
+            # the plain version too
+            cpu = [a.cpu() for a in args]
+            want = kscc.scc_labels_to_convergence(*cpu, n)
+            host = scc_mod._scc_host(n, src[on], dst[on])
             tail = want[n:].tolist()
-            emit({"phase": "kernel-vs-plain", "kernel": "scc",
-                  "case": f"{name}-to-convergence", "ok": tail[0],
-                  "rounds": tail[1], "sweeps": tail[2],
-                  "mismatches": mism})
             if tail[0] != 1:
                 raise AssertionError(f"{name} to convergence: {tail}")
-    for name, mat in _bank_cases().items():
-        m = torch.from_numpy(mat).to(dev)
+            total += int((want[:n].numpy() != host).sum())
+            schedules = {"default": kscc.TAIL_WORK, "grid": -1}
+            for schedule, tail_work in schedules.items():
+                if not on_card and schedule != "default":
+                    continue
+                syncs = _syncs(dev, on_card)
+                kscc.TAIL_WORK = tail_work
+                try:
+                    sync()
+                    t0 = time.perf_counter()
+                    got = kscc.scc_labels_to_convergence(*args, n,
+                                                         syncs=syncs)
+                    sync()
+                    t_kernel = time.perf_counter() - t0
+                finally:
+                    kscc.TAIL_WORK = schedules["default"]
+                mism = int((got.cpu() != want).sum())
+                total += mism
+                emit({"phase": "kernel-vs-plain", "kernel": "scc",
+                      "case": f"{name}-to-convergence",
+                      "schedule": schedule, "ok": tail[0],
+                      "rounds": tail[1], "sweeps": tail[2],
+                      "trim_passes": tail[3],
+                      "grid_syncs": syncs.tolist() if on_card else None,
+                      "mismatches": mism,
+                      "equals_scipy": bool((want[:n].numpy() == host)
+                                           .all()),
+                      "kernel_s": t_kernel})
+    for name, mat, offset in _bank_cases():
+        m = _bank_tensor(mat, offset, dev)
         got = kbank.bank_reduce(m)
         want = kbank.bank_reduce_reference(m)
         sync()
         mism = [int((a != b).sum()) for a, b in zip(got, want)]
-        exact = bool((got[0].cpu().numpy() == mat.sum(axis=1)).all())
+        exact = bool((got[0].cpu().numpy() == mat.sum(axis=1)).all()
+                     and (got[1].cpu().numpy() == (mat < 0).any(axis=1))
+                     .all())
         total += sum(mism) + (not exact)
         emit({"phase": "kernel-vs-plain", "kernel": "bank_reduce",
-              "case": name, "shape": list(mat.shape), "mismatches": mism,
+              "case": name, "shape": list(mat.shape),
+              "data_ptr_mod_16": m.data_ptr() % 16, "mismatches": mism,
               "equals_numpy_int64": exact})
     return total
+
+
+def _wide_capped(n: int):
+    """A wide graph that hits SWEEP_CAP: n nodes in clusters of 300 with
+    5n random edges inside them and n forward edges between them (many
+    large components, 6n edges), plus a 3,000-node decreasing chain."""
+    src, dst = _clustered_graph(7, n, 300, 5 * n, n)
+    chain = n + np.arange(2999, 0, -1)
+    return (n + 3000, np.concatenate([src, chain]),
+            np.concatenate([dst, chain - 1]))
+
+
+def scc_adversarial(dev, on_card: bool, n_big: int = 100_000,
+                    n_chain: int = 20_001) -> dict:
+    """Phase 7b: the convergence launch alone on a decreasing chain and a
+    single cycle of n_big nodes, the chain of 100 ten-node cycles and a
+    wide graph of n_big nodes joined to a decreasing chain, and a
+    decreasing chain of n_chain nodes joined to a forward chain of
+    n_chain edges through Edges.scc (a cap hit, then the convergence
+    launch). Each is held against scipy's labels; the plain versions are
+    too slow at this size on the card."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    graphs = {
+        f"decreasing-chain-{n_big}": (n_big, np.arange(n_big - 1, 0, -1),
+                                      np.arange(n_big - 2, -1, -1)),
+        f"cycle-{n_big}": (n_big, np.arange(n_big),
+                           (np.arange(n_big) + 1) % n_big),
+        "cycle-chain-100x10": _cycle_chain(100, 10),
+        f"clustered-{n_big}+decreasing-chain-3000": _wide_capped(n_big)}
+    result = {}
+    for name, (n, src, dst) in graphs.items():
+        on = np.ones(len(src), dtype=bool)
+        args = _scc_tensors(src, dst, on, dev)
+        host = scc_mod._scc_host(n, src, dst)
+        syncs = _syncs(dev, on_card)
+        if on_card:  # a warm-up launch
+            kscc.scc_labels_to_convergence(*args, n)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+        sync()
+        t0 = time.perf_counter()
+        if on_card:
+            start.record()
+        out = kscc.scc_labels_to_convergence(*args, n, syncs=syncs)
+        if on_card:
+            end.record()
+        sync()
+        seconds = time.perf_counter() - t0
+        ms = start.elapsed_time(end) if on_card else None
+        o = out.cpu().numpy()
+        if o[n] != 1 or (o[:n] != host).any():
+            raise AssertionError(f"{name}: labels differ from scipy's: "
+                                 f"{o[n:]}")
+        x = {"case": name, "tail_work": kscc.TAIL_WORK, "nodes": n,
+             "edges": len(src), "seconds": seconds, "kernel_ms": ms,
+             "rounds": int(o[n + 1]), "sweeps": int(o[n + 2]),
+             "trim_passes": int(o[n + 3]),
+             "grid_syncs": syncs.tolist() if on_card else None,
+             "equals_scipy": True}
+        result[name] = x
+        emit({"phase": "scc-adversarial", **x})
+    # through the entry point: the capped launch hits SWEEP_CAP, the
+    # convergence launch answers
+    n = n_chain
+    m = n_chain
+    src = np.concatenate([np.arange(n - 1, 0, -1), np.arange(n, n + m)])
+    dst = np.concatenate([np.arange(n - 2, -1, -1), np.arange(n + 1,
+                                                              n + m + 1)])
+    total_n = n + m + 1
+    host = scc_mod._scc_host(total_n, src, dst)
+    kscc.launches = kscc.converge_launches = 0
+    telemetry.reset()
+    sync()
+    t0 = time.perf_counter()
+    labels = scc_mod.scc(total_n, src, dst, device=dev)
+    sync()
+    seconds = time.perf_counter() - t0
+    counters = telemetry.get().counters()
+    counts = {"capped_launches": kscc.launches,
+              "converge_launches": kscc.converge_launches,
+              "nonconverged": counters.get("scc.device-nonconverged", 0),
+              "device_path": counters.get("scc.path.device", 0),
+              "host_path": counters.get("scc.path.host", 0)}
+    if (labels != host).any():
+        raise AssertionError("Edges.scc on the joined chains differs from "
+                             "scipy")
+    if counts["nonconverged"] != 1 or counts["device_path"] != 1 or \
+            counts["host_path"] or (on_card and (
+                counts["capped_launches"], counts["converge_launches"])
+                != (1, 1)):
+        raise AssertionError(f"Edges.scc on the joined chains: {counts}")
+    x = {"case": f"decreasing-chain-{n}+forward-chain-{m} via Edges.scc",
+         "nodes": total_n, "edges": len(src), "seconds": seconds,
+         **counts, "equals_scipy": True}
+    result["entry"] = x
+    emit({"phase": "scc-adversarial", **x})
+    return result
 
 
 def _device_kernels(fn) -> list | str:
@@ -620,21 +798,22 @@ def bank_path(dev, on_card: bool, n_txns: int) -> tuple[list, int]:
     return main, launches
 
 
-def _scc_bound(src, dst, on, n: int, out) -> tuple[int, float, list]:
-    """(bytes, bound ms, per-round work) of one scc launch, from the
-    live edges of each of its rounds (the plain version's count, which
-    must agree with the kernel's rounds and sweeps). Per round: the live
-    mask is rebuilt (edge_on and the new mask over every edge, src, dst
-    and two active flags for each edge of the subset) and the colours
-    set (active read, c written); each forward sweep reads the mask over
-    every edge, src, dst, the source's colour and the target's prop for
-    each live edge, and reads and writes each node's value; the
-    same-colour mask is cut (the mask, and src, dst and both colours of
-    each live edge) and the membership set; each backward sweep is a
-    forward sweep over the same-colour edges; the retire pass reads
-    active and m and writes the labels and active. Over the memory rate:
-    the operations, a compare per edge and node touched, are far below
-    the 32-bit rate."""
+def _scc_jacobi_bytes(src, dst, on, n: int, out) -> tuple[int, float, list]:
+    """(bytes, ms at the memory rate, per-round work) of one scc launch
+    as the kernel ran it before its redesign, from the live edges of each
+    of its rounds (the plain version's count, which must agree with the
+    kernel's rounds and sweeps). Kept so that the times before and after
+    the redesign compare against one count; it is not a bound, since the
+    redesigned kernel moves fewer bytes. Per round: the live mask is
+    rebuilt (edge_on and the new mask over every edge, src, dst and two
+    active flags for each edge of the subset) and the colours set (active
+    read, c written); each forward sweep reads the mask over every edge,
+    src, dst, the source's colour and the target's prop for each live
+    edge, and reads and writes each node's value; the same-colour mask is
+    cut (the mask, and src, dst and both colours of each live edge) and
+    the membership set; each backward sweep is a forward sweep over the
+    same-colour edges; the retire pass reads active and m and writes the
+    labels and active."""
     E, E_on = src.numel(), int(on.sum())
     work = kscc.scc_rounds(src, dst, on, n)
     tail = out[n:].tolist()
@@ -651,16 +830,41 @@ def _scc_bound(src, dst, on, n: int, out) -> tuple[int, float, list]:
     return nbytes, 1e3 * nbytes / PEAK_BYTES_PER_S, work
 
 
-def scc_timing(recorded, per_check, on_card: bool) -> dict:
+def _scc_bound(E: int, n: int) -> tuple[int, float]:
+    """(bytes, bound ms) of one scc launch: the inputs read once and the
+    outputs written once, src and dst (4 bytes) and edge_on (1) for each
+    edge, a 4-byte label for each node and the three counts, over the
+    memory rate. The operations, a compare per edge, are far below the
+    32-bit rate."""
+    nbytes = 9 * E + 4 * (n + 3)
+    return nbytes, 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+def _ptxas(info, name: str) -> list:
+    """The ptxas lines (-Xptxas -v) of one kernel source: each entry
+    function, its registers, its stack and spills."""
+    if not info:
+        return []
+    return [ln.strip() for ln in info["ptxas"].get(name, "").splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
+
+
+def scc_timing(recorded, per_check, on_card: bool, info=None) -> dict:
     """Phase 11, scc: each main-path launch replayed on the kernel (CUDA
-    events) and the plain version, against the plain outputs."""
+    events, and its grid syncs) and the plain version, against the plain
+    outputs."""
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     per_launch, max_err = [], 0
     for check, (src, dst, on, n), out in recorded:
         tail = out[n:].tolist()
-        nbytes, bound_ms, work = _scc_bound(src, dst, on, n, out)
+        nbytes, bound_ms = _scc_bound(src.numel(), n)
+        jacobi_bytes, jacobi_ms, work = _scc_jacobi_bytes(src, dst, on, n,
+                                                          out)
         kernel_ms = (_event_ms(lambda: kscc.scc_labels(src, dst, on, n),
                                reps=20) if on_card else None)
+        syncs = _syncs(src.device, on_card)
+        if on_card:
+            kscc.scc_labels(src, dst, on, n, syncs=syncs)
         sync()
         t0 = time.perf_counter()
         want = kscc.scc_labels_reference(src, dst, on, n)
@@ -671,11 +875,17 @@ def scc_timing(recorded, per_check, on_card: bool) -> dict:
                            "edges": src.numel(),
                            "live_edges": int(on.sum()), "ok": tail[0],
                            "rounds": tail[1], "sweeps": tail[2],
+                           "grid_syncs": (syncs.tolist()[0] if on_card
+                                          else None),
                            "live_edges_per_round": [w[0] for w in work],
+                           "same_colour_edges_per_round": [w[1]
+                                                           for w in work],
                            "sweeps_per_round": [[w[2], w[3]]
                                                 for w in work],
                            "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bytes": nbytes})
+                           "bound_ms": bound_ms, "bytes": nbytes,
+                           "jacobi_bytes": jacobi_bytes,
+                           "jacobi_bytes_ms": jacobi_ms})
     if on_card:
         prof = _device_kernels(lambda: [kscc.scc_labels(*a)
                                         for _c, a, _o in recorded])
@@ -704,40 +914,108 @@ def scc_timing(recorded, per_check, on_card: bool) -> dict:
         "device_ms": (sum(x["device_ms"] for x in per_launch)
                       if per_launch and "device_ms" in per_launch[-1]
                       else None),
+        "grid_syncs": (sum(x["grid_syncs"] for x in per_launch)
+                       if on_card else None),
         "plain_ms": sum(x["plain_ms"] for x in per_launch),
         "bound_ms": sum(x["bound_ms"] for x in per_launch),
         "bound_by": "bytes",
+        "jacobi_bytes_ms": sum(x["jacobi_bytes_ms"] for x in per_launch),
         "library_ms": None,
+        "ptxas": _ptxas(info, "scc"),
     }
 
 
-def bank_timing(recorded, launches: int, on_card: bool) -> dict:
+def _flushed_ms(fn, flush, reps: int) -> list:
+    """CUDA-event ms of `reps` launches of fn, each after a write of the
+    whole `flush` buffer (outside the events), so fn finds L2 cold. The
+    write keeps the card busy while the host enqueues fn, so the events
+    time the kernel, not the host's launch."""
+    times = []
+    for i in range(reps):
+        flush.fill_(i)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)
+
+
+def _device_ms_by_mode(fn, flush, clean, name: str, reps: int = 9):
+    """Median device ms (torch.profiler) of fn's kernel `name`: launched
+    back to back (L2 as the last launch left it), after a write of
+    `flush` (L2 full of dirty lines that the launch must write back), and
+    after that write and a read of `clean` (L2 cold and clean)."""
+    def run():
+        for _ in range(reps + 1):  # the profiler may miss the first
+            fn()
+        for i in range(reps):
+            flush.fill_(i)
+            fn()
+        for i in range(reps):
+            flush.fill_(i)
+            clean.sum()
+            fn()
+    prof = _device_kernels(run)
+    if isinstance(prof, str):
+        return {"warm": prof, "write_flushed": prof, "clean_flushed": prof}
+    us = [u for n, u in prof if name in n][-3 * reps:]
+    if len(us) != 3 * reps:
+        note = f"{len(us)} {name} kernels traced, {3 * reps + 1} launched"
+        return {"warm": note, "write_flushed": note, "clean_flushed": note}
+    med = [sorted(us[k * reps:(k + 1) * reps])[reps // 2] / 1e3
+           for k in range(3)]
+    return {"warm": med[0], "write_flushed": med[1], "clean_flushed": med[2]}
+
+
+def bank_timing(recorded, launches: int, on_card: bool, info=None) -> dict:
     """Phase 11, bank_reduce: the main path's launch replayed on the
     kernel, the plain version and the PyTorch reduction (the same two
-    calls, timed as the library yardstick), all with CUDA events."""
+    calls, timed as the library yardstick). Kernel and library by CUDA
+    events with L2 flushed before each launch (a 256 MB write); the
+    kernel also by the profiler's device time back to back, after that
+    write, and after the write and a 256 MB read (clean L2), and the
+    library's kernels back to back."""
     (mat,), _kw, out = recorded[0]
     want = kbank.bank_reduce_reference(mat)
     max_err = max(int((a.long() - b.long()).abs().max())
                   for a, b in zip(out, want))
     rows, cols = mat.shape
     nbytes = rows * cols * 8 + rows * 9
+    kernel_ms = library_ms = None
+    device = library_device = {}
     if on_card:
-        kernel_ms = _event_ms(lambda: kbank.bank_reduce(mat), reps=20)
+        flush = torch.empty(64 << 20, dtype=torch.int32, device=mat.device)
+        clean = torch.ones(64 << 20, dtype=torch.int32, device=mat.device)
+        k = _flushed_ms(lambda: kbank.bank_reduce(mat), flush, 21)
+        lib = _flushed_ms(lambda: (mat.sum(1), (mat < 0).any(1)), flush, 21)
+        kernel_ms, library_ms = k[len(k) // 2], lib[len(lib) // 2]
         plain_ms = _event_ms(lambda: kbank.bank_reduce_reference(mat),
                              reps=20)
-        library_ms = _event_ms(lambda: (mat.sum(1), (mat < 0).any(1)),
-                               reps=20)
-        prof = _device_kernels(lambda: kbank.bank_reduce(mat))
-        lib_prof = _device_kernels(lambda: (mat.sum(1), (mat < 0).any(1)))
+        device = _device_ms_by_mode(lambda: kbank.bank_reduce(mat), flush,
+                                    clean, "bank_reduce")
+        prof = _device_kernels(lambda: [(mat.sum(1), (mat < 0).any(1))
+                                        for _ in range(5)])
+        library_device = {"warm": (sum(u for _n, u in prof) / 5e3
+                                   if isinstance(prof, list) else prof)}
+        del flush, clean
     else:
-        kernel_ms = library_ms = None
-        prof = lib_prof = "not on the card"
         t0 = time.perf_counter()
         kbank.bank_reduce_reference(mat)
         plain_ms = 1e3 * (time.perf_counter() - t0)
     if max_err:
         raise AssertionError(f"bank_reduce differs from the plain version "
                              f"by {max_err}")
+    bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    shares = {mode: (bound_ms / ms if isinstance(ms, float) else None)
+              for mode, ms in device.items()}
+    emit({"phase": "bank-timing", "shape": [rows, cols],
+          "flushed_event_ms": kernel_ms, "device_ms": device,
+          "bound_ms": bound_ms, "share_of_bound_by_device_ms": shares,
+          "library_flushed_event_ms": library_ms,
+          "library_device_ms": library_device})
     return {
         "name": "bank_reduce",
         "route": "cuda",
@@ -747,14 +1025,13 @@ def bank_timing(recorded, launches: int, on_card: bool) -> dict:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+        "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": library_ms,
-        "device_ms": (sum(us for _n, us in prof) / 1e3
-                      if isinstance(prof, list) else prof),
-        "library_device_ms": (sum(us for _n, us in lib_prof) / 1e3
-                              if isinstance(lib_prof, list) else lib_prof),
+        "device_ms": device,
+        "library_device_ms": library_device,
         "shape": [rows, cols],
+        "ptxas": _ptxas(info, "bank_reduce"),
     }
 
 
@@ -1136,18 +1413,18 @@ def run(dev: torch.device, n_headline: int = 500_000,
         n_elle_cross: int = 20_000, n_bank: int = 500_000,
         n_ensemble: int = ENSEMBLE_N, chunk: int = ENSEMBLE_CHUNK,
         bad_member: int = ENSEMBLE_BAD, n_plain_rows: int = 128,
-        n_slices: int = 64) -> dict:
+        n_slices: int = 64, n_adversarial: int = 100_000,
+        n_adversarial_chain: int = 20_001) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
 
     # 2. build
+    info = None
     if on_card:
         info = build.build_all()
         emit({"phase": "build", "seconds": info["seconds"],
               "libraries": info["libraries"],
-              "ptxas": {n: [ln.strip() for ln in log.splitlines()
-                            if "registers" in ln or "spill" in ln]
-                        for n, log in info["ptxas"].items()}})
+              "ptxas": {n: _ptxas(info, n) for n in info["ptxas"]}})
 
     # 3. kernel against its plain version on the same tensors
     total_mism = 0
@@ -1324,12 +1601,15 @@ def run(dev: torch.device, n_headline: int = 500_000,
     if mism:
         raise AssertionError(f"scc/bank_reduce disagree with their plain "
                              f"versions in {mism} values")
+    adversarial = scc_adversarial(dev, on_card, n_adversarial,
+                                  n_adversarial_chain)
     # 8-10. the Elle and bank paths; 11. their kernels on their launches
     scc_recorded, scc_per_check = elle_main_path(dev, on_card, n_elle)
     elle_cross_check(dev, n_elle_cross)
     bank_recorded, bank_launches = bank_path(dev, on_card, n_bank)
-    scc_entry = scc_timing(scc_recorded, scc_per_check, on_card)
-    bank_entry = bank_timing(bank_recorded, bank_launches, on_card)
+    scc_entry = scc_timing(scc_recorded, scc_per_check, on_card, info)
+    scc_entry["convergence_launch"] = adversarial
+    bank_entry = bank_timing(bank_recorded, bank_launches, on_card, info)
 
     # 12-14. the batch path at BASELINE config 5's size
     t0 = time.perf_counter()

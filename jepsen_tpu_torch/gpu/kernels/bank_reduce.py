@@ -7,6 +7,10 @@ jepsen_tpu/workloads/bank.py:98-103 computes, in int64:
   mat   int64 [reads, accounts]
   -> (sums int64 [reads], negs bool [reads])  row sums, "any negative"
 
+The matrix may have any number of columns and may be a contiguous view
+whose first element is 8- but not 16-byte aligned (mat[1:] of an odd
+width): the kernel reads such rows' odd elements alone.
+
 bank_reduce() launches the kernel for CUDA tensors and runs
 bank_reduce_reference() for CPU tensors; it never runs the plain version
 on the card. `launches` counts kernel launches.
@@ -32,7 +36,7 @@ def _lib() -> ctypes.CDLL:
         if not _lib_cache:
             lib = build.load("bank_reduce")
             p = ctypes.c_void_p
-            lib.bank_reduce_launch.argtypes = [p, ctypes.c_int64,
+            lib.bank_reduce_launch.argtypes = [p, ctypes.c_longlong,
                                                ctypes.c_int, p, p, p]
             lib.bank_reduce_launch.restype = ctypes.c_int
             lib.bank_reduce_error_string.argtypes = [ctypes.c_int]
@@ -52,6 +56,11 @@ def bank_reduce(mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
                          f"{tuple(mat.shape)}")
     if not mat.is_contiguous():
         raise ValueError("mat must be contiguous")
+    if mat.data_ptr() % 8:
+        raise ValueError(f"mat must be 8-byte aligned, starts at "
+                         f"{mat.data_ptr():#x}")
+    if mat.shape[1] >= 2 ** 31:
+        raise ValueError(f"{mat.shape[1]} columns: at most 2**31 - 1")
     dev = mat.device
     if dev.type == "cpu":
         return bank_reduce_reference(mat)

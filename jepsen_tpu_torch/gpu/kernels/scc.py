@@ -1,8 +1,9 @@
-"""Strongly connected components by Orzan's colouring: wrapper of the
-CUDA kernel (csrc/scc.cu) and its plain PyTorch version.
+"""Strongly connected components by Orzan's colouring: wrappers of the
+CUDA kernels (csrc/scc.cu) and their plain PyTorch versions.
 
-Both compute what jepsen_tpu/tpu/scc.py:64 `_scc_program` computes, on
-exact sizes (no shape-bucket padding):
+scc_labels(), the capped launch, computes what
+jepsen_tpu/tpu/scc.py:64 `_scc_program` computes, on exact sizes (no
+shape-bucket padding):
 
   src, dst  int32 [E]  edge endpoints, each in [0, n)
   edge_on   bool  [E]  the edges of this subset
@@ -14,15 +15,25 @@ exact sizes (no shape-bucket padding):
 
 Every output is an integer and max is independent of order, so the
 kernel, the plain version and the JAX program agree exactly, the counts
-included. When ok is 0 the labels are incomplete.
+included. When ok is 0 the labels are incomplete, and the caps hit on
+the same graphs as in the JAX program.
 
-scc_labels() runs with the JAX program's caps, so it gives None-cases
-(ok 0) on the same graphs. scc_labels_to_convergence() runs with caps of
-n, which no graph of n nodes can hit: every fixpoint settles within n
-sweeps (a value travels at most n - 1 edges) and every round retires at
-least the highest active node. Both launch the kernel for CUDA tensors
-and run the plain version for CPU tensors; neither runs the plain
-version on the card. `launches` counts kernel launches.
+scc_labels_to_convergence() is the launch made after a cap hit (the JAX
+package hands such a graph to scipy instead): the same labels on any
+graph, ok always 1, no caps. It trims (a node with no live in- or
+out-edge is its own component) to a fixpoint before each colouring
+round, and its sweeps and trim passes work on frontiers over CSR rows
+built on the card, so a DAG such as a decreasing chain is retired by
+trim alone. Its output is int32 [n + 4]: labels, ok, colouring rounds,
+sweeps, trim passes; the passes are level-synchronous and the sweeps
+Jacobi sweeps, so the counts are order-free and its plain version
+(scc_converge_reference) mirrors them exactly. What still costs
+O(components x depth) is a decreasing chain of non-trivial cycles,
+which trim cannot touch.
+
+Both launch their kernel for CUDA tensors and run the plain version for
+CPU tensors; neither runs the plain version on the card. `launches` and
+`converge_launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -36,8 +47,19 @@ from . import build
 
 SWEEP_CAP = 512
 ROUND_CAP = 64
+# Work left (nodes plus CSR entries not yet retired) at which the
+# convergence launch goes on in block 0 alone, with __syncthreads in
+# place of grid syncs. Measured by chip_smoke.py on the H100: block 0
+# alone from the start takes a 100,000-node decreasing chain or cycle
+# (~300k items) in about half the time of the whole grid, but a
+# 100,000-node graph of large components with 600k edges (~1.3M items)
+# in 1.6 times its time; the threshold lies between the two. Read at each
+# launch: tests set it to -1 (never) or 2**31 - 1 (from the start) to
+# reach either schedule on a small graph.
+TAIL_WORK = 1 << 19
 
 launches = 0
+converge_launches = 0
 
 _lib_lock = threading.Lock()
 _lib_cache: list = []
@@ -47,16 +69,22 @@ def _lib() -> ctypes.CDLL:
     with _lib_lock:
         if not _lib_cache:
             lib = build.load("scc")
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.scc_launch.argtypes = [p, p, p, i, i, i, i] + [p] * 8
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.scc_scratch_bytes.argtypes = [i, i]
+            lib.scc_scratch_bytes.restype = ll
+            lib.scc_converge_scratch_bytes.argtypes = [i, i]
+            lib.scc_converge_scratch_bytes.restype = ll
+            lib.scc_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
             lib.scc_launch.restype = i
+            lib.scc_converge_launch.argtypes = [p, p, p, i, i, i, p, p, p, p]
+            lib.scc_converge_launch.restype = i
             lib.scc_error_string.argtypes = [i]
             lib.scc_error_string.restype = ctypes.c_char_p
             _lib_cache.append(lib)
         return _lib_cache[0]
 
 
-def _check(src, dst, edge_on, n):
+def _check(src, dst, edge_on, n, syncs):
     if src.dtype != torch.int32 or dst.dtype != torch.int32:
         raise TypeError(f"src and dst must be int32, got {src.dtype}, "
                         f"{dst.dtype}")
@@ -74,55 +102,79 @@ def _check(src, dst, edge_on, n):
     for name, t in (("src", src), ("dst", dst), ("edge_on", edge_on)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 0 <= n < 2 ** 31 - 3:
+    if not 0 <= n < 2 ** 31 - 4:
         raise ValueError(f"n={n} out of range")
+    if src.shape[0] > 2 ** 30:
+        raise ValueError(f"E={src.shape[0]} edges: at most 2**30")
+    if syncs is not None and (
+            syncs.dtype != torch.int32 or syncs.shape != (2,)
+            or syncs.device != src.device or src.device.type != "cuda"):
+        raise ValueError("syncs must be an int32 [2] tensor on the inputs' "
+                         f"CUDA device, got {syncs.dtype} "
+                         f"{tuple(syncs.shape)} on {syncs.device} (inputs "
+                         f"on {src.device})")
+    if src.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"scc runs on cuda or cpu, not {src.device}")
 
 
-def scc_labels(src, dst, edge_on, n: int) -> torch.Tensor:
+def scc_labels(src, dst, edge_on, n: int,
+               syncs: torch.Tensor | None = None) -> torch.Tensor:
     """Labels, ok, rounds and sweeps in one int32 [n + 3] tensor (see
     the module docstring), with the caps SWEEP_CAP and ROUND_CAP.
-    Endpoints must lie in [0, n): the kernel does not check them."""
-    return _run(src, dst, edge_on, n, SWEEP_CAP, ROUND_CAP)
+    Endpoints must lie in [0, n): the kernel does not check them.
 
-
-def scc_labels_to_convergence(src, dst, edge_on, n: int) -> torch.Tensor:
-    """As scc_labels(), with caps of n: ok is always 1. An adversarial
-    graph (a long decreasing chain) costs up to n rounds of up to n
-    sweeps each."""
-    cap = max(n, 1)
-    return _run(src, dst, edge_on, n, cap, cap)
-
-
-def _run(src, dst, edge_on, n, sweep_cap, round_cap) -> torch.Tensor:
+    syncs, an int32 [2] tensor on the inputs' CUDA device, gets the
+    launch's grid syncs ([0]) and tail barriers ([1], always 0 here)
+    written. It describes the kernel's schedule, not the algorithm, so
+    the plain version has no such count: it is refused with CPU
+    tensors."""
     global launches
-    _check(src, dst, edge_on, n)
-    dev = src.device
-    if dev.type == "cpu":
-        return _reference(src, dst, edge_on, n, sweep_cap, round_cap)
-    if dev.type != "cuda":
-        raise ValueError(f"scc_labels runs on cuda or cpu, not {dev}")
+    _check(src, dst, edge_on, n, syncs)
+    if src.device.type == "cpu":
+        return _reference(src, dst, edge_on, n, SWEEP_CAP, ROUND_CAP)
     lib = _lib()
     E = src.shape[0]
-    # uninitialised: the kernel sets up its own state
-    active = torch.empty(max(n, 1), dtype=torch.uint8, device=dev)
-    emask = torch.empty(max(E, 1), dtype=torch.uint8, device=dev)
-    scratch = torch.empty((3, max(n, 1)), dtype=torch.int32, device=dev)
-    flags = torch.empty(3, dtype=torch.int32, device=dev)
-    out = torch.empty(n + 3, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.scc_launch(
-            src.data_ptr(), dst.data_ptr(), edge_on.data_ptr(), n, E,
-            sweep_cap, round_cap, active.data_ptr(), emask.data_ptr(),
-            scratch[0].data_ptr(), scratch[1].data_ptr(),
-            scratch[2].data_ptr(), flags.data_ptr(), out.data_ptr(),
-            stream)
-        if rc != 0:
-            raise RuntimeError(
-                f"scc launch failed: CUDA error {rc} "
-                f"({lib.scc_error_string(rc).decode()}); n={n} E={E}")
+    out = torch.empty(n + 3, dtype=torch.int32, device=src.device)
+    _launch(lib.scc_launch, lib.scc_scratch_bytes(n, E), src, dst,
+            edge_on, n, E, (SWEEP_CAP, ROUND_CAP), out, syncs)
     launches += 1
     return out
+
+
+def scc_labels_to_convergence(src, dst, edge_on, n: int,
+                              syncs: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """Labels, ok (always 1), colouring rounds, sweeps and trim passes in
+    one int32 [n + 4] tensor (see the module docstring). syncs as for
+    scc_labels(). TAIL_WORK changes the schedule, not the result."""
+    global converge_launches
+    _check(src, dst, edge_on, n, syncs)
+    if src.device.type == "cpu":
+        return _converge(src, dst, edge_on, n)
+    lib = _lib()
+    E = src.shape[0]
+    out = torch.empty(n + 4, dtype=torch.int32, device=src.device)
+    tail = max(-1, min(int(TAIL_WORK), 2 ** 31 - 1))
+    _launch(lib.scc_converge_launch, lib.scc_converge_scratch_bytes(n, E),
+            src, dst, edge_on, n, E, (tail,), out, syncs)
+    converge_launches += 1
+    return out
+
+
+def _launch(fn, scratch_bytes, src, dst, edge_on, n, E, params, out,
+            syncs):
+    dev = src.device
+    # uninitialised: the kernel sets up its own state
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(src.data_ptr(), dst.data_ptr(), edge_on.data_ptr(), n, E,
+                *params, scratch.data_ptr(), out.data_ptr(),
+                None if syncs is None else syncs.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"scc launch failed: CUDA error {rc} "
+            f"({_lib().scc_error_string(rc).decode()}); n={n} E={E}")
 
 
 def scc_labels_reference(src, dst, edge_on, n: int) -> torch.Tensor:
@@ -130,6 +182,13 @@ def scc_labels_reference(src, dst, edge_on, n: int) -> torch.Tensor:
     nested loops, each sweep one scatter_reduce_(..., "amax") over the
     edge list."""
     return _reference(src, dst, edge_on, n, SWEEP_CAP, ROUND_CAP)
+
+
+def scc_converge_reference(src, dst, edge_on, n: int) -> torch.Tensor:
+    """The plain PyTorch version of scc_labels_to_convergence(): trim
+    passes and colouring rounds over whole arrays, counted as the kernel
+    counts them."""
+    return _converge(src, dst, edge_on, n)
 
 
 def scc_rounds(src, dst, edge_on, n: int) -> list[tuple[int, ...]]:
@@ -141,34 +200,37 @@ def scc_rounds(src, dst, edge_on, n: int) -> list[tuple[int, ...]]:
     return work
 
 
+def _fixpoint(x, frm, to, live, neutral, n, cap=None):
+    """Jacobi sweeps of x along the edges frm -> to (those where `live`
+    holds, or all of them when it is None) to a fixpoint, or to `cap`
+    sweeps; returns (x, converged, sweeps)."""
+    it, changed = 0, True
+    while changed and (cap is None or it < cap):
+        vals = x[frm] if live is None else torch.where(live, x[frm], neutral)
+        prop = torch.full((n,), neutral, dtype=torch.int32,
+                          device=x.device).scatter_reduce_(0, to, vals,
+                                                           "amax")
+        nx = torch.maximum(x, prop)
+        changed = bool((nx != x).any())
+        x, it = nx, it + 1
+    return x, not changed, it
+
+
 def _reference(src, dst, edge_on, n, sweep_cap, round_cap,
                work=None) -> torch.Tensor:
     dev = src.device
     s, d = src.long(), dst.long()
     ids = torch.arange(n, dtype=torch.int32, device=dev)
-
-    def fixpoint(x, frm, to, live, neutral):
-        it, changed = 0, True
-        while changed and it < sweep_cap:
-            vals = torch.where(live, x[frm], neutral)
-            prop = torch.full((n,), neutral, dtype=torch.int32,
-                              device=dev).scatter_reduce_(0, to, vals,
-                                                          "amax")
-            nx = torch.maximum(x, prop)
-            changed = bool((nx != x).any())
-            x, it = nx, it + 1
-        return x, not changed, it
-
     active = torch.ones(n, dtype=torch.bool, device=dev)
     out = torch.full((n,), -1, dtype=torch.int32, device=dev)
     ok, rounds, sweeps = True, 0, 0
     while ok and bool(active.any()) and rounds < round_cap:
         live = edge_on & active[s] & active[d]
-        c, ok_f, it_f = fixpoint(torch.where(active, ids, -1), s, d, live,
-                                 -1)
+        c, ok_f, it_f = _fixpoint(torch.where(active, ids, -1), s, d, live,
+                                  -1, n, sweep_cap)
         same = live & (c[s] == c[d])
         m0 = (active & (c == ids)).to(torch.int32)
-        m, ok_b, it_b = fixpoint(m0, d, s, same, 0)
+        m, ok_b, it_b = _fixpoint(m0, d, s, same, 0, n, sweep_cap)
         if work is not None:
             work.append((int(live.sum()), int(same.sum()), it_f, it_b))
         member = active & (m > 0)
@@ -179,5 +241,78 @@ def _reference(src, dst, edge_on, n, sweep_cap, round_cap,
         sweeps += it_f + it_b
     done = ok and not bool(active.any())
     tail = torch.tensor([int(done), rounds, sweeps], dtype=torch.int32,
+                        device=dev)
+    return torch.cat([out, tail])
+
+
+class _Rows:
+    """CSR rows of the edges a -> b by a: rows(v) lists every b of v."""
+
+    def __init__(self, a, b, n):
+        order = torch.argsort(a, stable=True)
+        self.adj = b[order]
+        count = torch.bincount(a, minlength=n)
+        self.off = torch.cat([count.new_zeros(1), torch.cumsum(count, 0)])
+
+    def of(self, nodes):
+        """Every b of every node in `nodes`, with repeats."""
+        start, end = self.off[nodes], self.off[nodes + 1]
+        count = end - start
+        first = torch.cumsum(count, 0) - count
+        idx = torch.repeat_interleave(start - first, count) + torch.arange(
+            int(count.sum()), device=nodes.device)
+        return self.adj[idx]
+
+
+def _converge(src, dst, edge_on, n) -> torch.Tensor:
+    dev = src.device
+    # self-loops never join two nodes: the kernel leaves them out of its
+    # CSR rows, and so out of the trim's degrees
+    keep = edge_on & (src != dst)
+    s, d = src[keep].long(), dst[keep].long()
+    by_src, by_dst = _Rows(s, d, n), _Rows(d, s, n)
+    indeg = torch.bincount(d, minlength=n)
+    outdeg = torch.bincount(s, minlength=n)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+
+    def lower(gone):
+        """Takes the retired nodes `gone` out of their neighbours'
+        degrees; returns the active neighbours left with no live in- or
+        out-edge: the next trim pass."""
+        w, u = by_src.of(gone), by_dst.of(gone)
+        indeg.index_add_(0, w, torch.full_like(w, -1))
+        outdeg.index_add_(0, u, torch.full_like(u, -1))
+        near = torch.unique(torch.cat([w, u]))
+        return near[active[near] & ((indeg[near] == 0) | (outdeg[near] == 0))]
+
+    rounds = sweeps = passes = 0
+    trim = torch.nonzero((indeg == 0) | (outdeg == 0)).flatten()
+    while True:
+        # trim to a fixpoint: each pass retires, with their own ids, the
+        # active nodes left with no live in-edge or no live out-edge
+        while trim.numel():
+            passes += 1
+            out[trim] = trim.to(torch.int32)
+            active[trim] = False
+            trim = lower(trim)
+        if not bool(active.any()):
+            break
+        # a colouring round over the live edges, with no caps
+        live = active[s] & active[d]
+        ls, ld = s[live], d[live]
+        c, _ok, it_f = _fixpoint(torch.where(active, ids, -1), ls, ld,
+                                 None, -1, n)
+        same = c[ls] == c[ld]
+        m0 = (active & (c == ids)).to(torch.int32)
+        m, _ok, it_b = _fixpoint(m0, ld[same], ls[same], None, 0, n)
+        member = active & (m > 0)
+        out = torch.where(member, c, out)
+        active = active & ~member
+        rounds += 1
+        sweeps += it_f + it_b
+        trim = lower(torch.nonzero(member).flatten())
+    tail = torch.tensor([1, rounds, sweeps, passes], dtype=torch.int32,
                         device=dev)
     return torch.cat([out, tail])

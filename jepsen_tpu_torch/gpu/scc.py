@@ -14,11 +14,14 @@ Node ids follow history order, so dependency edges point mostly forward
 and the fixpoints converge in a handful of sweeps. Both loops carry the
 JAX program's caps; when the algorithm hits one (ok false, adversarial
 graphs such as a long decreasing chain) scc() counts it as
-`scc.device-nonconverged` and launches again with caps of n, which
-cannot be hit: the work stays where it was asked to run. A kernel that
-fails to build or launch raises. Graphs under DEVICE_MIN_EDGES live
-edges take the host path (scipy's compiled Tarjan-equivalent) outright,
-as in the reference's dispatch.
+`scc.device-nonconverged` and makes the convergence launch on the same
+device (where the JAX package goes to scipy): trim to a fixpoint, then
+colouring rounds, each sweep and pass driven by a frontier over CSR rows
+built on the card, with no caps. A DAG is retired by trim alone; a
+decreasing chain of non-trivial cycles still costs O(components x
+depth). A kernel that fails to build or launch raises. Graphs under
+DEVICE_MIN_EDGES live edges take the host path (scipy's compiled
+Tarjan-equivalent) outright, as in the reference's dispatch.
 
 Edge subsets (elle checks cycles over WW, WW+WR, ... cumulative edge
 classes) are boolean edge masks over ONE shared edge array: an Edges
@@ -68,7 +71,7 @@ class Edges:
     def labels_device(self, emask=None, to_convergence: bool = False
                       ) -> np.ndarray | None:
         """One kernel launch (see scc_device); with to_convergence, the
-        caps are n and the labels always come back."""
+        convergence launch, whose labels always come back."""
         n = self.n
         if n == 0:
             return np.empty(0, dtype=np.int32)
@@ -81,7 +84,7 @@ class Edges:
             out = launch(*self._on_device,
                          torch.from_numpy(self._mask(emask)).to(self.dev),
                          n)
-            # one download: labels, ok, rounds, sweeps
+            # one download: labels, ok and the launch's counts
             labels = out.cpu().numpy()
         if not labels[n]:
             return None
@@ -89,8 +92,8 @@ class Edges:
 
     def scc(self, emask=None) -> np.ndarray:
         """SCC labels (component max-id per node) of the masked edges:
-        the device kernel, launched again with caps of n when the JAX
-        caps are hit, and the host path outright for small graphs
+        the device kernel, followed by the convergence launch when the
+        JAX caps are hit, and the host path outright for small graphs
         (under DEVICE_MIN_EDGES live edges)."""
         n = self.n
         on = self._mask(emask)

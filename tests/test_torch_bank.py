@@ -169,10 +169,17 @@ def cuda_device():
 
 
 def test_cuda_kernel_matches_plain(cuda_device):
+    """Whole matrices and views one element into a buffer (rows off the
+    16-byte grid), at odd and even widths."""
     rng = np.random.default_rng(1)
-    for rows, cols in ((1, 1), (1000, 32), (250_000, 32), (77, 100)):
-        mat = torch.from_numpy(rng.integers(-2 ** 40, 2 ** 40, (rows, cols),
-                                            dtype=np.int64)).to(cuda_device)
+    shapes = ((1, 1), (1000, 1), (1000, 2), (1000, 3), (1000, 32),
+              (250_000, 32), (77, 100))
+    for (rows, cols), view in [(s, v) for s in shapes for v in (0, 1)]:
+        host = torch.from_numpy(rng.integers(-2 ** 40, 2 ** 40, (rows, cols),
+                                             dtype=np.int64))
+        flat = torch.empty(rows * cols + view, dtype=torch.int64,
+                           device=cuda_device)
+        mat = flat[view:].view(rows, cols).copy_(host)
         before = kbank.launches
         got = kbank.bank_reduce(mat)
         assert kbank.launches == before + 1
@@ -180,3 +187,53 @@ def test_cuda_kernel_matches_plain(cuda_device):
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b.cpu())
+
+
+def _offset_view(rows, cols, seed):
+    """A contiguous [rows, cols] view one element into a buffer, so its
+    first element is 8- but not 16-byte aligned (mat[1:] of a 3-column
+    matrix is such a view)."""
+    rng = np.random.default_rng(seed)
+    flat = torch.tensor(rng.integers(-2 ** 40, 2 ** 40, rows * cols + 1,
+                                     dtype=np.int64))
+    return flat[1:].view(rows, cols)
+
+
+@pytest.mark.parametrize("rows,cols", [(1000, 1), (1000, 2), (1000, 3),
+                                       (77, 100), (500, 32), (9, 33)])
+@pytest.mark.parametrize("view", [False, True], ids=["whole", "offset"])
+def test_plain_reduction_on_odd_widths_and_views(rows, cols, view):
+    """The shapes the kernel meets with a head or a tail: widths that
+    are not a multiple of two elements, and views whose rows start off
+    the 16-byte grid. The wrapper takes them all."""
+    if view:
+        mat = _offset_view(rows, cols, cols)
+    else:
+        mat = torch.from_numpy(np.random.default_rng(cols).integers(
+            -2 ** 40, 2 ** 40, (rows, cols), dtype=np.int64))
+    assert mat.is_contiguous()
+    sums, negs = kbank.bank_reduce(mat)
+    m = mat.numpy()
+    np.testing.assert_array_equal(sums.numpy(), m.sum(axis=1))
+    np.testing.assert_array_equal(negs.numpy(), (m < 0).any(axis=1))
+    s2, n2 = kbank.bank_reduce_reference(mat)
+    assert torch.equal(s2, sums) and torch.equal(n2, negs)
+
+
+def test_wrapper_checks_alignment():
+    """mat[1:] of a 3-column matrix starts 8 bytes off the 16-byte grid
+    and is taken; an int64 tensor that is not even 8-byte aligned is
+    refused before any launch."""
+    view = torch.tensor(np.arange(33, dtype=np.int64).reshape(11, 3))[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    sums, _ = kbank.bank_reduce(view)
+    np.testing.assert_array_equal(sums.numpy(), view.numpy().sum(axis=1))
+    raw = torch.frombuffer(bytearray(8 * 13), dtype=torch.int64, count=12,
+                           offset=4).view(4, 3)
+    assert raw.data_ptr() % 8 == 4
+    before = kbank.launches
+    with pytest.raises(ValueError, match="aligned"):
+        kbank.bank_reduce(raw)
+    with pytest.raises(ValueError, match="contiguous"):
+        kbank.bank_reduce(torch.zeros((4, 6), dtype=torch.int64)[:, ::2])
+    assert kbank.launches == before
