@@ -37,7 +37,7 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
   7. holds the scc and bank_reduce kernels against their plain PyTorch
      versions on the card: seeded graphs (many large components, edge-mask
      subsets, a 3,000-node decreasing chain that hits SWEEP_CAP, one above
-     DEVICE_MIN_EDGES, a chain of 100 ten-node cycles; every graph that
+     DEVICE_MIN_EDGES, chains of 100 and 800 ten-node cycles; every graph that
      hits a cap also through the convergence launch, the launch scc()
      makes after a cap hit, against its plain version on the CPU and
      scipy's labels, with its rounds, sweeps, trim passes and grid syncs)
@@ -45,7 +45,8 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      columns, also starting 8 bytes off the 16-byte grid); zero
      mismatches allowed in labels, ok, rounds, sweeps, trim passes, sums,
      flags; then times the convergence launch alone on a 100,000-node
-     decreasing chain, a 100,000-node cycle, the chain of cycles and a
+     decreasing chain, a 100,000-node cycle, chains of 100, 800 and 2,000
+     ten-node cycles and a
      100,000-node graph of large components joined to a decreasing chain
      and, through Edges.scc, a 20,001-node decreasing chain joined to a
      forward chain of 20,001 edges (one capped launch, one convergence
@@ -342,9 +343,10 @@ def _scc_cases():
                 np.arange(98, -1, -1), np.ones(99, dtype=bool)))
     out.append(("cycle-600", 600, np.arange(600), (np.arange(600) + 1) % 600,
                 np.ones(600, dtype=bool)))
-    n, src, dst = _cycle_chain(100, 10)
-    out.append(("cycle-chain-100x10", n, src, dst,
-                np.ones(len(src), dtype=bool)))
+    for k in (100, 800):
+        n, src, dst = _cycle_chain(k, 10)
+        out.append((f"cycle-chain-{k}x10", n, src, dst,
+                    np.ones(len(src), dtype=bool)))
     n = 2000
     src, dst = rng.integers(0, n, 4000), rng.integers(0, n, 4000)
     out.append(("random-n2000", n, src, dst, rng.random(4000) < 0.8))
@@ -493,8 +495,9 @@ def _wide_capped(n: int):
 def scc_adversarial(dev, on_card: bool, n_big: int = 100_000,
                     n_chain: int = 20_001) -> dict:
     """Phase 7b: the convergence launch alone on a decreasing chain and a
-    single cycle of n_big nodes, the chain of 100 ten-node cycles and a
-    wide graph of n_big nodes joined to a decreasing chain, and a
+    single cycle of n_big nodes, the chains of 100, 800 and 2,000
+    ten-node cycles and a wide graph of n_big nodes joined to a
+    decreasing chain, and a
     decreasing chain of n_chain nodes joined to a forward chain of
     n_chain edges through Edges.scc (a cap hit, then the convergence
     launch). Each is held against scipy's labels; the plain versions are
@@ -506,7 +509,9 @@ def scc_adversarial(dev, on_card: bool, n_big: int = 100_000,
         f"cycle-{n_big}": (n_big, np.arange(n_big),
                            (np.arange(n_big) + 1) % n_big),
         "cycle-chain-100x10": _cycle_chain(100, 10),
-        f"clustered-{n_big}+decreasing-chain-3000": _wide_capped(n_big)}
+        f"clustered-{n_big}+decreasing-chain-3000": _wide_capped(n_big),
+        "cycle-chain-800x10": _cycle_chain(800, 10),
+        "cycle-chain-2000x10": _cycle_chain(2000, 10)}
     result = {}
     for name, (n, src, dst) in graphs.items():
         on = np.ones(len(src), dtype=bool)

@@ -26,7 +26,8 @@
 //
 // scc_converge_kernel, the launch made after a cap hit, returns the same
 // labels on any graph with no caps, in time that does not grow with the
-// square of a chain's length (see its own note below).
+// square of a chain's length, of nodes or of cycles (see its own note
+// below).
 //
 // Design of the capped launch. One launch runs the whole peeling loop:
 // the grid is cooperative (sized to what can be resident), phases are
@@ -505,23 +506,52 @@ __global__ void __launch_bounds__(kThreads, 1) scc_kernel(Capped a) {
 //     depend on the order of the atomics. A DAG, such as a decreasing
 //     chain, is retired by trim alone, in (longest path + 1) / 2 passes
 //     of work proportional to the frontier.
-//   - Colouring rounds on what trim leaves: the same forward and
-//     backward Jacobi fixpoints as the capped launch, but driven by a
-//     frontier list of the nodes that changed in the previous sweep and
-//     their CSR rows, so a sweep costs what changed, not E. A round's
-//     members retire and lower their neighbours' counters, which may
-//     start another trim.
+//   - Colouring rounds on what trim leaves: forward and backward Jacobi
+//     fixpoints as in the capped launch, but driven by a frontier list of
+//     the nodes that changed in the previous sweep and their CSR rows, so
+//     a sweep costs what changed, not E. A round's members retire and
+//     lower their neighbours' counters, which may start another trim.
+//   - Colours are priorities, not ids. Node v starts a round with the
+//     colour prio(v) = v * kPrio mod 2^31, a bijection of the ids (kPrio
+//     is odd) that looks random along a run of ids; a root is a node whose
+//     colour is its own priority. Coloured by id, a decreasing chain of k
+//     non-trivial cycles (which trim cannot touch) took k rounds, each a
+//     flood down the rest of the chain and one cycle retired: k(k + 19)
+//     sweeps for k ten-node cycles. Coloured by priority, every cycle
+//     whose priority beats those of all the active cycles above it
+//     retires in the same round, and the retired cycles cut the chain
+//     into pieces that flood on their own: 8 rounds and 641 sweeps for
+//     k = 100, 10 and 2,314 for k = 800.
+//   - Labels. A member retires holding its root's id, unprio(colour), and
+//     raises that root's slot of `top` to its own id; a trimmed node is
+//     its own root. One pass after the last round (no sync of its own:
+//     the last retire is a sync behind it) sets each label to its root's
+//     slot, the max member id of the component, as scipy's labels are.
 //   - The one-block tail. The work left (nodes and CSR entries not yet
 //     retired) is counted from the slots after each sync; once it falls
 //     to tail_work, every block but block 0 leaves at the same sync, and
 //     block 0 finishes with __syncthreads only.
-// Its counts (rounds, sweeps, trim passes) are order-free, so its plain
-// version (gpu/kernels/scc.py) mirrors them exactly. What still costs
-// O(components x depth): a decreasing chain of non-trivial cycles, which
-// trim cannot touch; each round retires one cycle after a forward flood
-// down the rest of the chain.
+// Its counts (rounds, sweeps, trim passes) are order-free, since the
+// priorities are fixed, so its plain version (gpu/kernels/scc.py) mirrors
+// them exactly. What the colouring still costs: a round floods each piece
+// of a chain from its top, so the sweeps of a round are the longest
+// piece's length, and a single cycle of L nodes still takes 2L sweeps.
 
 enum { kActive = 0, kQueued = 1, kRetired = 2 };
+
+// prio(v) = v * kPrio mod 2^31 and its inverse, in unsigned arithmetic
+// (kPrioInv * kPrio = 1 mod 2^32); gpu/kernels/scc.py holds the same
+// constants.
+constexpr unsigned kPrio = 0x9E3779B1u, kPrioInv = 0x0E8B2F51u;
+constexpr unsigned kPrioMask = 0x7fffffffu;
+
+__device__ __forceinline__ int prio(int v) {
+  return (int)(((unsigned)v * kPrio) & kPrioMask);
+}
+
+__device__ __forceinline__ int unprio(int x) {
+  return (int)(((unsigned)x * kPrioInv) & kPrioMask);
+}
 
 struct Conv {
   const int* src;
@@ -532,6 +562,7 @@ struct Conv {
   int* c[2];
   int* m[2];
   int* stamp;
+  int* top;      // [n] the max member id of each root's component
   int* cnt_out;  // [n] degree counts, then fill cursors
   int* cnt_in;
   int* outdeg;  // [n] live degree counters for trim
@@ -544,7 +575,8 @@ struct Conv {
   int* fr[2];   // [n] frontiers
   int* bsum;    // [2 * kMaxBlocks]
   int* ctl;
-  int* out;    // [n + 4]: labels, then ok, rounds, sweeps, trim passes
+  int* out;    // [n + 4]: roots, at the end labels; ok, rounds, sweeps,
+               // trim passes
   int* syncs;  // optional [2]: grid syncs, tail barriers
 };
 
@@ -601,14 +633,16 @@ __device__ __forceinline__ void claim(const Conv& a, int w, int* list,
     list[atomicAdd(count, 1)] = w;
 }
 
-// Retires v (label lab) and lowers its neighbours' counters; a neighbour
-// left with no live in- or out-edge is claimed for `list`, unless it is
-// a member retiring in the same pass (mfin[w] != 0; mfin null in trim).
-// Returns the work retired: the node and its CSR entries.
-__device__ __forceinline__ int retire(const Conv& a, int v, int lab,
+// Retires v (the root of its component: root) and lowers its neighbours'
+// counters; a neighbour left with no live in- or out-edge is claimed for
+// `list`, unless it is a member retiring in the same pass (mfin[w] != 0;
+// mfin null in trim). Returns the work retired: the node and its CSR
+// entries.
+__device__ __forceinline__ int retire(const Conv& a, int v, int root,
                                       const int* mfin, int* list,
                                       int* count) {
-  a.out[v] = lab;
+  a.out[v] = root;
+  atomicMax(&a.top[root], v);
   a.state[v] = kRetired;
   const int o0 = a.out_off[v], o1 = a.out_off[v + 1];
   const int i0 = a.in_off[v], i1 = a.in_off[v + 1];
@@ -643,6 +677,7 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
       a.cnt_out[v] = a.cnt_in[v] = 0;
       a.state[v] = kActive;
       a.stamp[v] = 0;
+      a.top[v] = -1;
     }
     if (S.tid == 0)
       for (int i = 0; i < 3 * kSlot; ++i) a.ctl[i] = 0;
@@ -768,7 +803,7 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
         if (i < n_act) {
           v = listed ? a.act[A][i] : i;
           keep = a.state[v] == kActive;
-          if (keep) a.c[0][v] = a.c[1][v] = v;
+          if (keep) a.c[0][v] = a.c[1][v] = prio(v);
         }
         append(keep, S.lane, S.put(kCountB), a.act[1 - A], v);
       }
@@ -818,7 +853,7 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
         int v = 0;
         if (i < n_act) {
           v = act[i];
-          root = c[v] == v;
+          root = c[v] == prio(v);
           a.m[0][v] = a.m[1][v] = root ? 1 : 0;
         }
         append(root, S.lane, S.put(kCountA), a.fr[0], v);
@@ -868,7 +903,8 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
           const int i = bb + S.lane;
           if (i < n_act) {
             const int v = act[i];
-            if (m[v]) work += retire(a, v, c[v], m, a.fr[0], S.put(kCountA));
+            if (m[v])
+              work += retire(a, v, unprio(c[v]), m, a.fr[0], S.put(kCountA));
           }
         }
         add_work(S, work);
@@ -879,6 +915,8 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
       p = 0;
       if (leave()) return;
     }
+    // 10. labels: every node retired at least one sync ago (step 5's)
+    for (int v = S.tid; v < n; v += S.stride) a.out[v] = a.top[a.out[v]];
   }
   if (S.tid == 0) {
     a.out[n] = 1;
@@ -977,6 +1015,7 @@ void carve_conv(Conv& a, Carve& cv) {
     a.fr[i] = cv.take<int>(a.n);
   }
   a.stamp = cv.take<int>(a.n);
+  a.top = cv.take<int>(a.n);
   a.cnt_out = cv.take<int>(a.n);
   a.cnt_in = cv.take<int>(a.n);
   a.outdeg = cv.take<int>(a.n);

@@ -24,12 +24,19 @@ graph, ok always 1, no caps. It trims (a node with no live in- or
 out-edge is its own component) to a fixpoint before each colouring
 round, and its sweeps and trim passes work on frontiers over CSR rows
 built on the card, so a DAG such as a decreasing chain is retired by
-trim alone. Its output is int32 [n + 4]: labels, ok, colouring rounds,
-sweeps, trim passes; the passes are level-synchronous and the sweeps
-Jacobi sweeps, so the counts are order-free and its plain version
-(scc_converge_reference) mirrors them exactly. What still costs
-O(components x depth) is a decreasing chain of non-trivial cycles,
-which trim cannot touch.
+trim alone. Its colouring rounds colour by a fixed pseudo-random
+priority of each node, prio(v) = v * PRIO mod 2**31 (a bijection, PRIO
+being odd), not by its id: on a decreasing chain of non-trivial cycles
+every cycle whose priority beats those of all the active cycles above
+it retires in the same round, and the retired cycles cut the chain, so
+a chain of k cycles takes a few rounds (8 for 100 ten-node cycles, 10
+for 800) instead of k. The roots are the nodes whose colour is their own
+priority; each member's label is the max member id of its root's
+component, gathered once at the end, so the labels are scipy's. Its
+output is int32 [n + 4]: labels, ok, colouring rounds, sweeps, trim
+passes; the passes are level-synchronous, the sweeps Jacobi sweeps and
+the priorities fixed, so the counts are order-free and its plain version
+(scc_converge_reference) mirrors them exactly.
 
 Both launch their kernel for CUDA tensors and run the plain version for
 CPU tensors; neither runs the plain version on the card. `launches` and
@@ -47,13 +54,21 @@ from . import build
 
 SWEEP_CAP = 512
 ROUND_CAP = 64
+# The convergence launch's priority multiplier (odd, so v -> v * PRIO mod
+# 2**31 is a bijection of the ids) and its inverse mod 2**32; csrc/scc.cu
+# holds the same two constants.
+PRIO = 0x9E3779B1
+PRIO_INV = 0x0E8B2F51
+_PRIO_MASK = (1 << 31) - 1
 # Work left (nodes plus CSR entries not yet retired) at which the
 # convergence launch goes on in block 0 alone, with __syncthreads in
-# place of grid syncs. Measured by chip_smoke.py on the H100: block 0
-# alone from the start takes a 100,000-node decreasing chain or cycle
-# (~300k items) in about half the time of the whole grid, but a
-# 100,000-node graph of large components with 600k edges (~1.3M items)
-# in 1.6 times its time; the threshold lies between the two. Read at each
+# place of grid syncs. Measured by chip_smoke.py on the H100 when rounds
+# coloured by id: block 0 alone from the start takes a 100,000-node
+# decreasing chain or cycle (~300k items) in about half the time of the
+# whole grid, but a 100,000-node graph of large components with 600k
+# edges (~1.3M items) in 1.6 times its time; the threshold lies between
+# the two, and trim and those graphs' rounds do not depend on how a
+# round colours. Read at each
 # launch: tests set it to -1 (never) or 2**31 - 1 (from the start) to
 # reach either schedule on a small graph.
 TAIL_WORK = 1 << 19
@@ -273,8 +288,9 @@ def _converge(src, dst, edge_on, n) -> torch.Tensor:
     by_src, by_dst = _Rows(s, d, n), _Rows(d, s, n)
     indeg = torch.bincount(d, minlength=n)
     outdeg = torch.bincount(s, minlength=n)
-    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    prio = _prio(torch.arange(n, dtype=torch.int64, device=dev))
     active = torch.ones(n, dtype=torch.bool, device=dev)
+    # the root of each retired node, then (at the end) its label
     out = torch.full((n,), -1, dtype=torch.int32, device=dev)
 
     def lower(gone):
@@ -299,20 +315,37 @@ def _converge(src, dst, edge_on, n) -> torch.Tensor:
             trim = lower(trim)
         if not bool(active.any()):
             break
-        # a colouring round over the live edges, with no caps
+        # a colouring round over the live edges, with no caps: colours
+        # are priorities, and a root is a node whose colour is its own
         live = active[s] & active[d]
         ls, ld = s[live], d[live]
-        c, _ok, it_f = _fixpoint(torch.where(active, ids, -1), ls, ld,
+        c, _ok, it_f = _fixpoint(torch.where(active, prio, -1), ls, ld,
                                  None, -1, n)
         same = c[ls] == c[ld]
-        m0 = (active & (c == ids)).to(torch.int32)
+        m0 = (active & (c == prio)).to(torch.int32)
         m, _ok, it_b = _fixpoint(m0, ld[same], ls[same], None, 0, n)
         member = active & (m > 0)
-        out = torch.where(member, c, out)
+        out = torch.where(member, _unprio(c), out)
         active = active & ~member
         rounds += 1
         sweeps += it_f + it_b
         trim = lower(torch.nonzero(member).flatten())
+    # each component's label is its max member id, gathered through the
+    # root every member holds (a trimmed node is its own root)
+    top = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    top.scatter_reduce_(0, out.long(), torch.arange(n, dtype=torch.int32,
+                                                     device=dev), "amax")
     tail = torch.tensor([1, rounds, sweeps, passes], dtype=torch.int32,
                         device=dev)
-    return torch.cat([out, tail])
+    return torch.cat([top[out.long()], tail])
+
+
+def _prio(v):
+    """The convergence launch's colour of each node id in int64 `v`: a
+    bijection of [0, 2**31), as int32."""
+    return ((v * PRIO) & _PRIO_MASK).to(torch.int32)
+
+
+def _unprio(x):
+    """The node id whose priority is x (int32, >= 0)."""
+    return ((x.long() * PRIO_INV) & _PRIO_MASK).to(torch.int32)
