@@ -93,8 +93,25 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      launch at W=24, F=48; every known row must equal the host reach
      search, and 8 rows must equal check_slices on the CPU;
  15. replays the ensemble's launches (one streamed run's chunks and the
-     sharded launch) on the kernel and its plain version, and prints one
-     `{"kernels": [...]}` line.
+     sharded launch) on the kernel and its plain version;
+ 16. checkpoint-and-extend on the headline history: analysis_extend of
+     its first 90% writes a wgl-extend record to a temporary store, and
+     analysis_extend of the whole history resumes from it; the result
+     and certificate must equal, byte for byte, a fresh analysis_extend
+     without a store, the certificate must validate, and the resumed run
+     may compute at most (K - matched segments + 1) * S masks; the
+     85%-corrupted twin resumed from its clean 80% prefix must equal its
+     fresh check (invalid, same failed segment and certificate); a torn
+     record must count ckpt.torn and give the fresh result; prints the
+     reused and computed masks, launches, rows, wall seconds and kernel
+     ms of each run;
+ 17. check_segmented(enc, checkpoint_dir=...) on the headline history
+     twice: the second run must load every mask the first saved and
+     launch no kernel, with the same result;
+ 18. the linearizable checker with a store directory and extend? on the
+     card: valid through analysis_extend, its certificate validated;
+     then prints one `{"kernels": [...]}` line, whose wgl_search launches
+     include those of phases 16-18.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -107,7 +124,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -115,7 +134,7 @@ import numpy as np
 
 from jepsen_tpu_torch import independent, telemetry
 from jepsen_tpu_torch.checker import cycle, linearizable, models
-from jepsen_tpu_torch.gpu import certify, elle, ensemble, synth, wgl
+from jepsen_tpu_torch.gpu import certify, ckpt, elle, ensemble, synth, wgl
 from jepsen_tpu_torch.gpu import scc as scc_mod
 from jepsen_tpu_torch.history import History, op
 from jepsen_tpu_torch.gpu.encode import encode
@@ -123,6 +142,7 @@ from jepsen_tpu_torch.gpu.kernels import bank_reduce as kbank
 from jepsen_tpu_torch.gpu.kernels import build
 from jepsen_tpu_torch.gpu.kernels import scc as kscc
 from jepsen_tpu_torch.gpu.kernels import wgl_search as ws
+from jepsen_tpu_torch.store.format import jsonable
 from jepsen_tpu_torch.workloads import bank
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth,
@@ -1412,6 +1432,224 @@ def _replay(rec, on_card: bool) -> dict:
             "mismatches": sum(_mismatches(got, want))}
 
 
+def _cert_bytes(res: dict) -> bytes:
+    return json.dumps(jsonable(res["certificate"]),
+                      sort_keys=True).encode()
+
+
+def _prefix(ops: list, frac: float) -> list:
+    return ops[:int(len(ops) * frac)]
+
+
+def _extend_run(dev, model, ops, store, certify_on: bool) -> dict:
+    """One analysis_extend on the card, with the wgl_search count set to
+    0 just before and read just after: its result, counters, launches,
+    wall seconds and the device ms of its launches (wgl:drain spans)."""
+    telemetry.reset()
+    ws.launches = 0
+    t0 = time.perf_counter()
+    res = wgl.analysis_extend(model, History(ops), store_path=store,
+                              certify=certify_on, device=dev)
+    seconds = time.perf_counter() - t0
+    c = telemetry.get().counters()
+    return {"result": res, "counters": c, "launches": ws.launches,
+            "seconds": seconds,
+            "kernel_ms": sum(d.get("device_ms") or 0 for d in _drains()),
+            "rows": c.get("wgl.kernel.rows", 0),
+            "certify_s": _span_s("certify.attach")}
+
+
+def _matched_segments(old: dict, new: dict) -> int:
+    """Segments of `new` whose two cuts and digests equal `old`'s: what
+    check_extend may reuse."""
+    matched = 0
+    for a, b, x, y in zip(old["cuts"], new["cuts"], old["digests"],
+                          new["digests"]):
+        if a != b or x != y:
+            break
+        matched += 1
+    return max(0, matched - 1)
+
+
+def _extend_line(name: str, r: dict, on_card: bool, **extra) -> dict:
+    c = r["counters"]
+    return {"phase": "extend", "run": name,
+            "valid": r["result"]["valid?"],
+            "failed_segment": r["result"].get("failed-segment"),
+            "seconds": r["seconds"], "wgl_search_launches": r["launches"],
+            "rows": r["rows"], "kernel_ms": r["kernel_ms"],
+            "reused_masks": c.get("ckpt.extend.reused-masks", 0),
+            "computed_masks": c.get("ckpt.extend.computed-masks", 0),
+            "torn": c.get("ckpt.torn", 0), "stale": c.get("ckpt.stale", 0),
+            "host_resolved_rows": c.get("wgl.host-resolved-rows", 0),
+            "host_resolved_s": c.get("wgl.host-resolved-ns", 0) / 1e9,
+            "encode_s": c.get("encode.ns", 0) / 1e9,
+            "pack_s": c.get("wgl.batch.pack_ns", 0) / 1e9,
+            "certify_s": r["certify_s"],
+            **extra, "card": nvidia_smi_line() if on_card else "cpu"}
+
+
+def extend_path(dev, on_card: bool, hist, bad) -> dict:
+    """Phase 16: checkpoint-and-extend on the headline history. The
+    first 90% of its ops writes a wgl-extend record; the whole history
+    resumes from it and must equal, certificate byte for byte, a fresh
+    analysis_extend without a store, computing at most (K - matched
+    segments + 1) * S masks; the 85%-corrupted twin resumed from its
+    clean 80% prefix must equal its fresh check (invalid, same failed
+    segment, same certificate); a torn record counts ckpt.torn and
+    gives the fresh verdict and certificate. Returns the launches of
+    each run."""
+    model = models.cas_register()
+    ops, bad_ops = list(hist), list(bad)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = Path(tmp) / "extend.ckpt"
+        r = _extend_run(dev, model, _prefix(ops, 0.9), store, False)
+        prefix_rec = ckpt.read(store)
+        if prefix_rec is None or r["counters"].get("ckpt.saved") != 1:
+            raise AssertionError("the 90% prefix wrote no wgl-extend "
+                                 "record")
+        launches["extend-prefix"] = r["launches"]
+        emit(_extend_line("prefix-90%", r, on_card,
+                          ops=len(ops) * 9 // 10,
+                          segments=len(prefix_rec["cuts"]) - 1))
+        fresh = _extend_run(dev, model, ops, None, True)
+        launches["extend-fresh"] = fresh["launches"]
+        torn_store = Path(tmp) / "torn.ckpt"
+        torn_store.write_bytes(store.read_bytes())
+        resumed = _extend_run(dev, model, ops, store, True)
+        launches["extend-resumed"] = resumed["launches"]
+        # the entry digest chain, which every run computes on the host
+        enc = encode(model, History(ops))
+        cuts = wgl.segment_cuts(enc, wgl.EXTEND_STRIDE)
+        t0 = time.perf_counter()
+        ckpt.entry_digest_chain(enc, cuts)
+        digest_s = time.perf_counter() - t0
+        del enc
+        new_rec = ckpt.read(store)
+        K = len(new_rec["cuts"]) - 1
+        S = len(new_rec["states"])
+        matched = _matched_segments(prefix_rec, new_rec)
+        computed = resumed["counters"].get("ckpt.extend.computed-masks")
+        fr, rr = fresh["result"], resumed["result"]
+        same = _norm(rr) == _norm(fr) and \
+            _cert_bytes(rr) == _cert_bytes(fr)
+        emit(_extend_line("fresh", fresh, on_card, segments=K, states=S,
+                          digest_chain_s=digest_s))
+        emit(_extend_line("resumed-from-90%", resumed, on_card,
+                          segments=K, states=S, matched_segments=matched,
+                          computed_bound=(K - matched + 1) * S,
+                          certificate_equal=same))
+        if fr["valid?"] is not True or not same:
+            raise AssertionError(f"resumed extend differs from fresh: "
+                                 f"valid {fr['valid?']} / {rr['valid?']}")
+        if matched < 1 or computed is None or \
+                computed > (K - matched + 1) * S:
+            raise AssertionError(f"resumed extend computed {computed} "
+                                 f"masks, K={K} matched={matched} S={S}")
+        if on_card and not (fresh["launches"] and resumed["launches"]):
+            raise AssertionError("an extend run launched no kernel")
+        certify.validate(hist, rr["certificate"])
+
+        # the torn record: counted, the fresh verdict and certificate
+        data = torn_store.read_bytes()
+        torn_store.write_bytes(data[:len(data) // 2])
+        torn = _extend_run(dev, model, ops, torn_store, True)
+        launches["extend-torn"] = torn["launches"]
+        emit(_extend_line("torn-record", torn, on_card))
+        if torn["counters"].get("ckpt.torn") != 1 or \
+                _norm(torn["result"]) != _norm(fr) or \
+                _cert_bytes(torn["result"]) != _cert_bytes(fr):
+            raise AssertionError("a torn record changed the result")
+
+        # the 85%-corrupted twin, resumed from its clean 80% prefix
+        twin_store = Path(tmp) / "twin.ckpt"
+        r = _extend_run(dev, model, _prefix(bad_ops, 0.8), twin_store,
+                        False)
+        launches["extend-twin-prefix"] = r["launches"]
+        twin_fresh = _extend_run(dev, model, bad_ops, None, True)
+        twin = _extend_run(dev, model, bad_ops, twin_store, True)
+        launches["extend-twin-fresh"] = twin_fresh["launches"]
+        launches["extend-twin-resumed"] = twin["launches"]
+        tf, tr = twin_fresh["result"], twin["result"]
+        same = _norm(tr) == _norm(tf) and \
+            _cert_bytes(tr) == _cert_bytes(tf)
+        emit(_extend_line("twin-fresh", twin_fresh, on_card))
+        emit(_extend_line("twin-resumed-from-80%", twin, on_card,
+                          certificate_equal=same))
+        if tf["valid?"] is not False or not same or \
+                twin["counters"].get("ckpt.extend.resumed") != 1:
+            raise AssertionError(f"the twin resumed {tr['valid?']} at "
+                                 f"{tr.get('failed-segment')}, fresh "
+                                 f"{tf['valid?']} at "
+                                 f"{tf.get('failed-segment')}")
+        certify.validate(bad, tr["certificate"])
+    return {"launches": launches,
+            "fresh": {k: fresh[k] for k in ("seconds", "launches",
+                                             "kernel_ms", "rows")},
+            "resumed": {k: resumed[k] for k in ("seconds", "launches",
+                                                "kernel_ms", "rows")}}
+
+
+def resumable_segmented(dev, on_card: bool, enc, target_len: int) -> dict:
+    """Phase 17: check_segmented(enc, checkpoint_dir=...) on the headline
+    history twice. The second run loads every mask the first saved and
+    launches no kernel, with the same result."""
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for rep in range(2):
+            telemetry.reset()
+            ws.launches = 0
+            t0 = time.perf_counter()
+            res = wgl.check_segmented(enc, target_len=target_len,
+                                      device=dev, checkpoint_dir=tmp)
+            seconds = time.perf_counter() - t0
+            c = telemetry.get().counters()
+            runs.append((res, c, ws.launches))
+            emit({"phase": "segmented-checkpoint", "rep": rep,
+                  "valid": res["valid?"], "segments": res["segments"],
+                  "seconds": seconds, "wgl_search_launches": ws.launches,
+                  "saved": c.get("wgl.checkpoint.saved", 0),
+                  "loaded": c.get("wgl.checkpoint.loaded", 0),
+                  "files": sorted(p.name for p in Path(tmp).iterdir()),
+                  "card": nvidia_smi_line() if on_card else "cpu"})
+    (first, c1, n1), (second, c2, n2) = runs
+    if first["valid?"] is not True or second != first or n2 != 0 or \
+            c2.get("wgl.checkpoint.loaded") != c1.get(
+                "wgl.checkpoint.saved") or (on_card and n1 == 0):
+        raise AssertionError(f"resumed segmented check: {n1} then {n2} "
+                             f"launches, saved "
+                             f"{c1.get('wgl.checkpoint.saved')}, loaded "
+                             f"{c2.get('wgl.checkpoint.loaded')}")
+    return {"segmented-checkpoint-first": n1,
+            "segmented-checkpoint-resumed": n2}
+
+
+def checker_extend(dev, on_card: bool, hist) -> dict:
+    """Phase 18: the linearizable checker with a store directory and
+    extend? on the card: valid, through analysis_extend, with a
+    certificate that validates."""
+    with tempfile.TemporaryDirectory() as tmp:
+        telemetry.reset()
+        ws.launches = 0
+        t0 = time.perf_counter()
+        res = linearizable({"model": models.cas_register(),
+                            "device": dev}).check(
+            {"store_dir": tmp, "extend?": True}, hist)
+        seconds = time.perf_counter() - t0
+        stored = sorted(p.name for p in (Path(tmp) / "ckpt").iterdir())
+    certify.validate(hist, res["certificate"])
+    emit({"phase": "checker-extend", "valid": res["valid?"],
+          "analyzer": res["analyzer"], "seconds": seconds,
+          "wgl_search_launches": ws.launches, "stored": stored,
+          "card": nvidia_smi_line() if on_card else "cpu"})
+    if res["valid?"] is not True or res["analyzer"] != "gpu-extend" or \
+            len(stored) != 1 or (on_card and ws.launches == 0):
+        raise AssertionError(f"checker extend?: {res['valid?']} "
+                             f"{res['analyzer']} {stored}")
+    return {"checker-extend": ws.launches}
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 20_000, n_elle: int = 100_000,
@@ -1644,6 +1882,12 @@ def run(dev: torch.device, n_headline: int = 500_000,
                              f"version by up to {max(max_err, sh_err)}")
     sh_bytes = sum(x["bytes"] for x in sharded)
     sh_ops = sum(x["operations"] for x in sharded)
+    # 16-18. checkpoint-and-extend on the headline history
+    ext = extend_path(dev, on_card, hist, bad)
+    per_path.update(ext["launches"])
+    per_path.update(resumable_segmented(dev, on_card, enc, target_len))
+    per_path.update(checker_extend(dev, on_card, hist))
+
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}
     return {
@@ -1663,6 +1907,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
                          >= ops / PEAK_OPS_PER_S else "operations"),
             "library_ms": None,
             "timed_path": "headline",
+            "extend": {"fresh": ext["fresh"], "resumed": ext["resumed"]},
             "us_per_level": _us_per_level(
                 kernel_ms, sum(x["levels"] for x in per_launch)),
             "main_path_launches": per_launch,

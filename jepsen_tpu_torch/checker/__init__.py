@@ -3,15 +3,16 @@ port's device search, and the pieces the port's cycle and bank checkers
 share (`_Fn`, `op_indices`, `anomaly_classes`).
 
 Capability reference: jepsen/src/jepsen/checker.clj:79-90 (check-safe)
-and 202-233 (linearizable). The checkpoint and extend store paths and
-the counterexample rendering of the JAX package's checker are not ported
-yet.
+and 202-233 (linearizable). The counterexample rendering of the JAX
+package's checker is not ported yet.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import traceback
+from pathlib import Path
 from typing import Any
 
 from ..history import History
@@ -143,12 +144,45 @@ class Linearizable(Checker):
             out, nonlinearizable=out.get("valid?") is False)
 
     def check(self, test, hist, opts=None):
+        """With test["store_dir"] set: test["extend?"] checks through
+        analysis_extend, reusing the frontier stored for this run and
+        model (a grown run costs O(suffix)); test["checkpoint?"] keeps
+        the segmented check's masks in store_dir/checker-frontier, so an
+        interrupted check resumes."""
         from ..gpu import wgl
 
+        store_dir = test.get("store_dir") if isinstance(test, dict) \
+            else None
+        if store_dir and test.get("extend?") and self.algorithm == "gpu":
+            return self._finish(wgl.analysis_extend(
+                self.model, hist,
+                store_path=self._extend_path(store_dir, hist),
+                certify=self.certify, device=self.device))
+        ckpt_dir = None
+        if store_dir and test.get("checkpoint?"):
+            # a DIRECTORY: each check derives a per-fingerprint file, so
+            # concurrent per-key or composed checkers never collide
+            ckpt_dir = Path(store_dir) / "checker-frontier"
         return self._finish(wgl.analysis(self.model, hist,
                                          algorithm=self.algorithm,
                                          certify=self.certify,
-                                         device=self.device))
+                                         device=self.device,
+                                         checkpoint_dir=ckpt_dir))
+
+    def _extend_path(self, store_dir, hist) -> Path:
+        """The store file of this (model, history identity) under the
+        run directory's ckpt/: keyed by the model's repr and the FIRST
+        op (stable as the run grows by appending), so concurrent per-key
+        checks never share one record. The JAX package's name for the
+        same run and model."""
+        from ..gpu import ckpt
+        from ..store import format as fmt
+
+        h = hashlib.sha256(repr(self.model).encode())
+        first = next(iter(hist), None)
+        if first is not None:
+            h.update(fmt.encode_op(first))
+        return ckpt.run_dir_path(store_dir, f"wgl-{h.hexdigest()[:16]}")
 
     def check_batch(self, test, hists, opts=None) -> list[dict]:
         """check over many histories: with algorithm 'gpu', one batched

@@ -1,5 +1,5 @@
 """Elle-style transactional anomaly checking (list-append, rw-register):
-jepsen_tpu/tpu/elle.py up to StreamingElle, ported.
+jepsen_tpu/tpu/elle.py ported, StreamingElle included.
 
 Capability reference: the reference wraps the external elle 0.2.1
 library (jepsen/src/jepsen/tests/cycle/append.clj:6-27, wr.clj:5-25):
@@ -42,6 +42,8 @@ O(n * concurrency) edges; per-process chains carry session order.
 
 from __future__ import annotations
 
+import logging
+import threading
 from collections import defaultdict
 from typing import Any
 
@@ -49,9 +51,11 @@ import numpy as np
 
 from .. import history as h
 from .. import telemetry
+from ..store import format as fmt
 from ..history import History
 from .. import txn as txnlib
 from ..device import resolve_device
+from . import ckpt
 
 WW, WR, RW, RT, PROC = 0, 1, 2, 3, 4
 EDGE_NAMES = {WW: "ww", WR: "wr", RW: "rw", RT: "realtime",
@@ -769,3 +773,211 @@ def check_rw_register(hist, opts: dict | None = None) -> dict:
     return _finish(_with_classes(annotate_op_indices(out, hist),
                                  CHECKED_WR),
                    hist, "rw-register", opts, key_edges)
+
+
+# ---------------------------------------------------------------------------
+# Streaming elle (checkpoint-and-extend)
+# ---------------------------------------------------------------------------
+
+_INF_POS = 1 << 60
+
+
+class StreamingElle:
+    """Incremental committed-txn consumer for the elle families, the
+    streaming-wgl contract of the fleet's streams. As chunks arrive,
+    the CLOSED txn frontier (txns whose completion is already streamed,
+    which does not change as the history grows) extends the dependency
+    graph, and the cycle search is scoped to SCCs touching the suffix:
+    new txns, or endpoints of edges the previous step had not seen.
+
+    What the stream may claim:
+      * a cycle or a monotone read anomaly (G1a, G1b, internal,
+        duplicate-appends, incompatible-order: none can un-happen as the
+        history grows, given the spine's prefix stability) tightens the
+        state to `tentative-invalid` mid-stream;
+      * a longer read that REWRITES an already-consumed version-order
+        prefix means earlier graph extensions were built on a version
+        order the full history contradicts: the stream reports
+        `unknown` and stops tightening; the final check decides;
+      * `unobservable-read` alone never tightens: the writer may not
+        have streamed yet.
+
+    Only list-append streams (its spine IS the observed version order);
+    other families report `unsupported` and rely on the final check.
+
+    Checkpoints: after each consumed frontier the `elle` record
+    (family, n_closed, per-key versions, the stream's state) goes to
+    `ckpt_sink`; `seed()` resumes from a digest-verified record, so a
+    restarted server searches only the suffix again. Its cycle search
+    is the host engine's (_sccs, _find_cycle), as in the reference.
+    """
+
+    _guarded_by_lock = {"_lock": ("_ops", "_since", "_n_closed",
+                                  "_versions", "_edges_seen", "_state",
+                                  "_inflight", "_frac")}
+
+    STREAM_EVERY = 128
+
+    def __init__(self, family: str, tenant: str = "", run: str = ""):
+        self.family = family
+        self.tenant = tenant
+        self.run = run
+        self._ops: list = []
+        self._since = 0
+        self._lock = threading.Lock()
+        self._n_closed = 0
+        self._versions: dict[str, list] = {}
+        self._edges_seen: set = set()
+        self._frac = 0.0
+        self._state = "streaming" if family == "list-append" \
+            else "unsupported"
+        self._inflight = False
+        self.ckpt_sink = None  # set at attach time, before streaming
+
+    # -- the stream surface ----------------------------------------------
+
+    def add_ops(self, ops: list) -> None:
+        with self._lock:
+            self._ops.extend(ops)
+            self._since += len(ops)
+            due = self._since >= self.STREAM_EVERY
+        if due:
+            self.step()
+
+    def status(self) -> dict:
+        with self._lock:
+            return {"state": self._state,
+                    "checked-frac": round(self._frac, 4),
+                    "ops": len(self._ops)}
+
+    def seed(self, ops: list, rec: dict | None) -> bool:
+        """Restart recovery: adopt the replayed ops and, when the record
+        digest-matches their prefix, the consumed frontier, so the first
+        step after a restart searches only the suffix. A stale record is
+        counted and ignored (everything is consumed again, never a wrong
+        tightening)."""
+        resumed = False
+        if rec is not None and self._state == "streaming":
+            ok = (rec.get("kind") == "elle"
+                  and rec.get("family") == self.family
+                  and rec.get("n_ops", 0) <= len(ops)
+                  and ckpt.ops_digest(ops, rec["n_ops"])
+                  == rec.get("digest"))
+            if ok:
+                resumed = True
+                telemetry.count("ckpt.resumed")
+            else:
+                telemetry.count("ckpt.stale")
+        with self._lock:
+            self._ops = list(ops)
+            if resumed:
+                self._n_closed = int(rec["n_closed"])
+                self._versions = {str(k): list(v) for k, v
+                                  in rec["versions"].items()}
+                fr = rec.get("frontier") or {}
+                if fr.get("state") in ("tentative-invalid", "unknown"):
+                    self._state = fr["state"]
+            self._since = max(len(ops), self.STREAM_EVERY)
+        return resumed
+
+    def step(self) -> None:
+        with self._lock:
+            if self._state != "streaming" or self._inflight:
+                return
+            self._inflight = True
+            self._since = 0
+        threading.Thread(
+            target=self._step_work,
+            name=f"elle-stream-{self.tenant}-{self.run}",
+            daemon=True).start()
+
+    # -- the consuming step ----------------------------------------------
+
+    @staticmethod
+    def _vjson(v):
+        return fmt.jsonable(_freeze(v))
+
+    def _settle(self, state: str | None = None) -> None:
+        with self._lock:
+            self._inflight = False
+            if state is not None:
+                self._state = state
+            elif self._since < self.STREAM_EVERY:
+                self._since = self.STREAM_EVERY
+
+    def _step_work(self) -> None:
+        try:
+            with self._lock:
+                snapshot = list(self._ops)
+                lo = self._n_closed
+                old_versions = {k: list(v) for k, v
+                                in self._versions.items()}
+                edges_seen = set(self._edges_seen)
+            a = AppendAnalysis(History(snapshot))
+            closed = sum(1 for t in a.txns if t.complete_pos < _INF_POS)
+            if closed <= lo:
+                return self._settle()
+            # an already-consumed version-order prefix was rewritten by
+            # a longer read: the graph extensions consumed so far may be
+            # wrong, so the stream says unknown
+            new_versions = {str(k): [self._vjson(v) for v in sp]
+                            for k, sp in a.spine.items()}
+            for k, old in old_versions.items():
+                if new_versions.get(k, [])[:len(old)] != old:
+                    telemetry.count("elle.stream.reordered")
+                    return self._settle("unknown")
+            # monotone read anomalies tighten at once; unobservable-read
+            # is indecision (its writer may stream later)
+            monotone = {name: recs for name, recs in a.anomalies.items()
+                        if name != "unobservable-read" and recs}
+            # only SCCs touching a new txn or a new edge can hold a new
+            # cycle
+            new_edges = [e for e in a.edges if e not in edges_seen]
+            touched = {e[0] for e in new_edges} \
+                | {e[1] for e in new_edges}
+            cyclic = False
+            for scc in _sccs(len(a.txns), a.edges):
+                if not (touched & set(scc) or any(i >= lo for i in scc)):
+                    continue
+                if _find_cycle(scc, a.edges):
+                    cyclic = True
+                    break
+            with self._lock:
+                self._inflight = False
+                if self._state != "streaming":
+                    return
+                self._n_closed = closed
+                self._versions = new_versions
+                self._edges_seen = set(a.edges)
+                self._frac = closed / max(len(a.txns), 1)
+                if monotone or cyclic:
+                    self._state = "tentative-invalid"
+                    telemetry.count("elle.stream.tentative-invalid")
+            telemetry.count("elle.stream.segments")
+            self._checkpoint(snapshot, closed, new_versions, len(a.edges))
+        except Exception:  # noqa: BLE001 — the stream is advisory
+            logging.getLogger(__name__).exception(
+                "streaming elle step failed")
+            return self._settle("unknown")
+        with self._lock:
+            pending = (self._state == "streaming"
+                       and self._since >= self.STREAM_EVERY)
+        if pending:
+            self.step()
+
+    def _checkpoint(self, snapshot, closed, versions, n_edges) -> None:
+        sink = self.ckpt_sink
+        if sink is None:
+            return
+        with self._lock:
+            state = self._state
+        try:
+            sink({"v": ckpt.VERSION, "kind": "elle",
+                  "family": self.family, "n_closed": closed,
+                  "versions": versions,
+                  "frontier": {"state": state, "edges": n_edges},
+                  "n_ops": len(snapshot),
+                  "digest": ckpt.ops_digest(snapshot)})
+        except Exception:  # noqa: BLE001 — checkpoints are advisory
+            logging.getLogger(__name__).exception(
+                "elle stream checkpoint sink failed")

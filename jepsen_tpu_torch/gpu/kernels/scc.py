@@ -62,13 +62,13 @@ PRIO_INV = 0x0E8B2F51
 _PRIO_MASK = (1 << 31) - 1
 # Work left (nodes plus CSR entries not yet retired) at which the
 # convergence launch goes on in block 0 alone, with __syncthreads in
-# place of grid syncs. Measured by chip_smoke.py on the H100 when rounds
+# place of grid syncs. Measured by chip_smoke.py on the H100 with rounds
 # coloured by id: block 0 alone from the start takes a 100,000-node
 # decreasing chain or cycle (~300k items) in about half the time of the
 # whole grid, but a 100,000-node graph of large components with 600k
 # edges (~1.3M items) in 1.6 times its time; the threshold lies between
-# the two, and trim and those graphs' rounds do not depend on how a
-# round colours. Read at each
+# the two. Priority colouring leaves the chain's and the cycle's counts as
+# they were and gives the wide graph more rounds (PERF.md). Read at each
 # launch: tests set it to -1 (never) or 2**31 - 1 (from the start) to
 # reach either schedule on a small graph.
 TAIL_WORK = 1 << 19

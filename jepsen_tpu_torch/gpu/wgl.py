@@ -33,8 +33,12 @@ is the algorithm's own soundness rule; they are counted under
 
 from __future__ import annotations
 
+import json
 import logging
+import struct
 import time as _time
+import zlib
+from pathlib import Path
 from typing import Sequence
 
 import numpy as np
@@ -44,6 +48,8 @@ from .. import telemetry
 from ..checker import models as model_mod
 from ..device import resolve_device
 from ..history import History
+from ..store import format as sformat
+from . import ckpt as ckpt_mod
 from .encode import INF, Encoded, EncodingError, encode
 from .kernels import wgl_search as kernel
 from .kernels.wgl_search import BIG, INVALID, RUNNING, UNKNOWN, VALID
@@ -620,6 +626,89 @@ def segment_cuts(enc: Encoded, target_len: int = 2048,
     return cuts
 
 
+class _SegmentCheckpoint:
+    """CRC-framed (k, s) -> mask log keyed by a fingerprint of the
+    history, the transition tables and the cut layout, so a log written
+    for other data or another model never poisons a check. The file is
+    the JAX package's byte for byte (store/format.py framing, the same
+    JSON lines), so either package resumes the other's."""
+
+    def __init__(self, path, enc: Encoded, cuts):
+        self.path = Path(path)
+        self.fingerprint = self.fingerprint_of(enc, cuts)
+        self._known: set = set()
+        self._reset_needed = False
+        self._opened = False
+
+    @staticmethod
+    def fingerprint_of(enc: Encoded, cuts) -> int:
+        h = zlib.crc32(enc.inv_t.tobytes())
+        h = zlib.crc32(enc.ret_t.tobytes(), h)
+        h = zlib.crc32(enc.trans.tobytes(), h)  # model semantics
+        h = zlib.crc32(np.asarray(cuts, dtype=np.int64).tobytes(), h)
+        return int(h)
+
+    def load(self) -> dict:
+        out: dict = {}
+        if not self.path.exists():
+            return out
+        try:
+            for payload, _end in sformat._scan_path(self.path):
+                d = json.loads(payload)
+                if d.get("fp") != self.fingerprint:
+                    # other history, model or cuts: restart the file on
+                    # the next write, or mixed-fingerprint records would
+                    # poison every later load
+                    self._reset_needed = True
+                    self._known = set()
+                    return {}
+                out[(d["k"], d["s"])] = d["m"]
+        except (OSError, ValueError):
+            self._reset_needed = True
+            return {}
+        self._known = set(out)
+        telemetry.count("wgl.checkpoint.loaded", len(out))
+        return out
+
+    def _prepare(self):
+        """First write: restart a stale or corrupt file, or truncate a
+        torn tail so that appends stay readable (a record appended
+        after a torn one would hide everything later)."""
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        if self._reset_needed or not self.path.exists():
+            with open(self.path, "wb") as f:
+                f.write(sformat.MAGIC)
+            self._reset_needed = False
+        else:
+            end = sformat._valid_prefix_end(self.path)
+            if end == 0:
+                with open(self.path, "wb") as f:
+                    f.write(sformat.MAGIC)
+            elif end < self.path.stat().st_size:
+                with open(self.path, "r+b") as f:
+                    f.truncate(end)
+        self._opened = True
+
+    def save_one(self, k: int, s: int, mask: int) -> None:
+        if (k, s) in self._known:
+            return
+        if not self._opened:
+            self._prepare()
+        with open(self.path, "ab") as f:
+            payload = json.dumps(
+                {"fp": self.fingerprint, "k": k, "s": s,
+                 "m": int(mask)}).encode()
+            f.write(struct.pack("<II", len(payload), zlib.crc32(payload)))
+            f.write(payload)
+        self._known.add((k, s))
+        telemetry.count("wgl.checkpoint.saved")
+
+    def save(self, resolved: dict) -> None:
+        for (k, s), m in resolved.items():
+            if m is not None:
+                self.save_one(k, s, m)
+
+
 def _wave_bounds(K: int, early: bool) -> list[tuple[int, int]]:
     """Segment-index waves for early-exit composition: geometric
     doubling from 4, so a witness at fraction p of the history costs
@@ -718,7 +807,8 @@ def _resolve_wave(enc: Encoded, segs, cuts, vcuts, lo: int, hi: int,
 def check_segmented(enc: Encoded, target_len: int | None = None,
                     W: int = 24, F: int = 48, witness: bool = False,
                     prefix_screen: int = 96, early_exit: bool = True,
-                    device=None) -> dict | None:
+                    device=None, checkpoint_path=None,
+                    checkpoint_dir=None) -> dict | None:
     """Checks one long history by cutting it into segments, computing
     per-(segment, start-state) final-state reachability in batched
     device launches, and composing reachability masks across segments.
@@ -734,7 +824,18 @@ def check_segmented(enc: Encoded, target_len: int | None = None,
     early_exit: segments resolve in geometric waves composed as they
     land, so an invalid history witnessed at fraction p of the search
     costs ~p of the check. Verdicts, masks, witnesses and certificates
-    are identical either way."""
+    are identical either way.
+
+    checkpoint_path / checkpoint_dir: persists every resolved
+    (segment, start-state) reach mask to a CRC-framed log as it lands
+    (after each wave and after each host search), and loads it before
+    the first wave, so an interrupted long check resumes without
+    searching finished segments again; a mask loaded is not launched.
+    The log is keyed by a fingerprint of the history, model and cuts,
+    so a log of other data is ignored. checkpoint_path names one file;
+    checkpoint_dir derives a per-fingerprint file name in that
+    directory, so checkers sharing a store directory never share a
+    file."""
     device = resolve_device(device)
     if enc.n_states > 32:
         # the per-(segment, state) reach masks are uint32 bitmasks
@@ -763,6 +864,16 @@ def check_segmented(enc: Encoded, target_len: int | None = None,
     # UNKNOWN, resolved on host ONLY if the composition actually
     # reaches that state (unknown rows are the hardest searches).
     resolved: dict[tuple[int, int], int | None] = {}
+    ckpt = None
+    if checkpoint_path is not None:
+        ckpt = _SegmentCheckpoint(checkpoint_path, enc, cuts)
+    elif checkpoint_dir is not None:
+        fp = _SegmentCheckpoint.fingerprint_of(enc, cuts)
+        ckpt = _SegmentCheckpoint(
+            Path(checkpoint_dir) / f"frontier-{fp & 0xffffffff:08x}.jlog",
+            enc, cuts)
+    if ckpt is not None:
+        resolved.update(ckpt.load())
     waves = _wave_bounds(K, early_exit)
     reach = 1 << enc.init_state
     reaches = [reach]  # reachable-state mask entering each segment
@@ -773,6 +884,8 @@ def check_segmented(enc: Encoded, target_len: int | None = None,
                       prefix_screen, resolved, device,
                       pad_to=(_next_pow2(hi - lo)
                               if len(waves) > 1 else None))
+        if ckpt is not None:
+            ckpt.save(resolved)
         for k in range(lo, hi):
             nreach = 0
             for s in range(S):
@@ -781,6 +894,8 @@ def check_segmented(enc: Encoded, target_len: int | None = None,
                     if mask is None:
                         mask = _host_reach(segs[k].with_init(s))
                         resolved[(k, s)] = mask
+                        if ckpt is not None:
+                            ckpt.save_one(k, s, mask)
                     nreach |= mask
             if nreach == 0:
                 failed_k = k
@@ -845,6 +960,185 @@ def _reach_chain(resolved: dict, reaches: list[int], upto: int,
         else:
             return None
     return chain
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint-and-extend: incremental re-checking of grown histories
+# ---------------------------------------------------------------------------
+
+# The extend path's FIXED cut stride. check_segmented's adaptive
+# target_len moves the cut layout whenever the history grows, which
+# would orphan every checkpointed mask; a fixed stride makes the greedy
+# cut schedule prefix-stable (entries below a valid cut are fixed by
+# real time, so the same cuts, and the same reach masks, come out of the
+# grown history).
+EXTEND_STRIDE = 512
+
+
+def _extend_fingerprint(enc: Encoded) -> int:
+    """The model fingerprint of wgl-extend records: the model class and
+    initial state (through the models' value-based reprs). Entry digests
+    key the history prefix; this keys the model, so a record written for
+    another model or initial value is never reused. Not the transition
+    tables' bytes: those depend on the whole history's distinct ops,
+    which grow with the suffix; each state's identity is carried by the
+    record's "states" reprs instead."""
+    init = enc.states[enc.init_state]
+    return int(zlib.crc32(f"{type(init).__name__}:{init!r}".encode()))
+
+
+def _remap_record_masks(record: dict, enc: Encoded,
+                        reused_segments: int
+                        ) -> dict[tuple[int, int], int] | None:
+    """A record's (segment, state) -> mask entries in THIS encoding's
+    state indices. A grown history can discover new distinct ops, which
+    reorders state discovery: indices move, but the states (model
+    objects with stable reprs) do not, and a reach mask is a set of
+    model states. None when a recorded state is unknown to this
+    encoding (a stale record)."""
+    new_idx = {repr(s): i for i, s in enumerate(enc.states)}
+    mapping = []
+    for key in record["states"]:
+        i = new_idx.get(key)
+        if i is None:
+            return None
+        mapping.append(i)
+    out: dict[tuple[int, int], int] = {}
+    for key, mask in record["masks"].items():
+        k_str, s_str = key.split(":")
+        k, s = int(k_str), int(s_str)
+        if k >= reused_segments or s >= len(mapping):
+            continue
+        new_mask = 0
+        m = int(mask)
+        for j in range(len(mapping)):
+            if (m >> j) & 1:
+                new_mask |= 1 << mapping[j]
+        out[(k, mapping[s])] = new_mask
+    return out
+
+
+def check_extend(enc: Encoded, record: dict | None = None,
+                 stride: int = EXTEND_STRIDE, W: int = 24, F: int = 48,
+                 device=None) -> tuple[dict | None, dict | None]:
+    """Segment-composed check with a prefix-stable cut schedule and a
+    reusable (segment, state) -> reach-mask frontier. Returns (result,
+    new_record); (None, None) when the history does not segment (the
+    caller takes the plain paths).
+
+    `record` is a ckpt.py "wgl-extend" record of an earlier check of a
+    PREFIX of this history. Reuse is earned: the record's cuts must
+    match this history's schedule position by position and digest by
+    digest (sha256 over the encoded entries below each cut), so a torn,
+    stale or wrong-history record costs a full check, with `ckpt.stale`
+    counted when a record was offered and nothing matched. The masks of
+    the matched segments are reused as they are; the others are computed
+    in ONE check_slices launch on `device`, and its UNKNOWN rows by the
+    exact host search. Fresh and resumed runs compose the same exact
+    masks through the same composition, so verdicts, search chains and
+    certificates (certify.attach_wgl derives them from the search chain)
+    are identical by construction."""
+    device = resolve_device(device)
+    if enc.n_states > 32:
+        return None, None
+    vcuts = valid_cut_points(enc)
+    cuts = segment_cuts(enc, stride, vcuts=vcuts)
+    K = len(cuts) - 1
+    if K < 2:
+        return None, None
+    if 2 * max(cuts[k + 1] - cuts[k] for k in range(K)) >= (1 << 21):
+        return None, None  # a segment alone exceeds the kernel range
+    S = enc.n_states
+    digests = ckpt_mod.entry_digest_chain(enc, cuts)
+    fp = _extend_fingerprint(enc)
+
+    resolved: dict[tuple[int, int], int] = {}
+    if record is not None:
+        ok = (record.get("stride") == stride
+              and record.get("model_fp") == fp)
+        matched = 0
+        if ok:
+            rcuts, rdigs = record["cuts"], record["digests"]
+            limit = min(len(rcuts), len(cuts))
+            while matched < limit and rcuts[matched] == cuts[matched] \
+                    and rdigs[matched] == digests[matched]:
+                matched += 1
+        # a segment is reusable when both its cut endpoints matched
+        reused_segments = max(0, matched - 1)
+        remapped = (_remap_record_masks(record, enc, reused_segments)
+                    if reused_segments else None)
+        if remapped:
+            resolved.update(remapped)
+            telemetry.count("ckpt.extend.reused-masks", len(resolved))
+            telemetry.count("ckpt.extend.resumed")
+        else:
+            telemetry.count("ckpt.stale")
+
+    segs = [enc.segment(cuts[k], cuts[k + 1]) for k in range(K)]
+    need = [(k, s) for k in range(K) for s in range(S)
+            if (k, s) not in resolved]
+    if need:
+        out, unk = check_slices([(segs[k], s) for k, s in need], W, F,
+                                device=device)
+        for i, (k, s) in enumerate(need):
+            # UNKNOWN rows take the exact host search: resolved masks
+            # are always exact, so a resumed composition is the same
+            resolved[(k, s)] = (_host_reach(segs[k].with_init(s))
+                                if unk[i] else int(out[i]))
+    telemetry.count("ckpt.extend.computed-masks", len(need))
+
+    reach = 1 << enc.init_state
+    reaches = [reach]
+    failed_k = None
+    wstate = 0
+    for k in range(K):
+        nreach = 0
+        for s in range(S):
+            if (reach >> s) & 1:
+                mask = resolved.get((k, s))
+                if mask is None:
+                    # a reused segment can miss a state the old encoding
+                    # never had; the exact host search fills it
+                    mask = int(search_host_reach(segs[k].with_init(s)))
+                    resolved[(k, s)] = mask
+                nreach |= mask
+        if nreach == 0:
+            failed_k = k
+            wstate = next(s for s in range(S) if (reach >> s) & 1)
+            break
+        reach = nreach
+        reaches.append(reach)
+
+    new_record = {
+        "v": ckpt_mod.VERSION, "kind": "wgl-extend",
+        "stride": int(stride), "model_fp": fp,
+        "cuts": [int(c) for c in cuts], "digests": digests,
+        "states": [repr(s) for s in enc.states],
+        "masks": {f"{k}:{s}": int(m)
+                  for (k, s), m in sorted(resolved.items())},
+        "n_ops": int(enc.m), "digest": digests[-1],
+    }
+    if failed_k is not None:
+        k = failed_k
+        res: dict = {"valid?": False, "failed-segment": k,
+                     "segment-range": [cuts[k], cuts[k + 1]]}
+        chain = _reach_chain(resolved, reaches, k, wstate)
+        if chain is not None:
+            res["search-chain"] = {"cuts": [int(c) for c in cuts],
+                                   "chain": chain}
+        w = search_host(segs[k].with_init(wstate), witness=True)
+        res.update({kk: v for kk, v in w.items() if kk != "valid?"})
+        if "witness-entry" in res:
+            res["witness-entry"] = int(cuts[k] + res["witness-entry"])
+            res["entry-count"] = int(enc.m)
+        return res, new_record
+    final_state = next(s for s in range(S) if (reach >> s) & 1)
+    chain = _reach_chain(resolved, reaches, K, final_state)
+    res = {"valid?": True, "segments": K}
+    if chain is not None:
+        res["search-chain"] = {"cuts": [int(c) for c in cuts],
+                               "chain": chain}
+    return res, new_record
 
 
 # ---------------------------------------------------------------------------
@@ -952,7 +1246,8 @@ ALGORITHMS = ("gpu", "wgl", "model")
 
 def analysis(model, hist, algorithm: str = "gpu", W: int | None = None,
              F: int | None = None, certify: bool = False,
-             device=None) -> dict:
+             device=None, checkpoint_path=None,
+             checkpoint_dir=None) -> dict:
     """Checks a single history against a model.
 
     algorithm: 'gpu'   — device kernel, host search on UNKNOWN
@@ -964,13 +1259,15 @@ def analysis(model, hist, algorithm: str = "gpu", W: int | None = None,
     'configs': [...], 'analyzer': ...}.
 
     certify=True additionally attaches a machine-checkable proof of the
-    verdict as result['certificate'] (certify.py)."""
+    verdict as result['certificate'] (certify.py). checkpoint_path /
+    checkpoint_dir go to check_segmented on the segmented path."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm {algorithm!r} is not one of "
                          f"{ALGORITHMS}")
     device = resolve_device(device)
     enc_box: list = [None]
-    out = _analysis(model, hist, algorithm, W, F, device, enc_box)
+    out = _analysis(model, hist, algorithm, W, F, device, checkpoint_path,
+                    checkpoint_dir, enc_box)
     _search_stats(out)
     if certify:
         from . import certify as certify_mod
@@ -979,8 +1276,54 @@ def analysis(model, hist, algorithm: str = "gpu", W: int | None = None,
     return out
 
 
-def _analysis(model, hist, algorithm, W, F, device,
-              enc_box: list | None = None) -> dict:
+def analysis_extend(model, hist, store_path=None,
+                    stride: int = EXTEND_STRIDE, W: int | None = None,
+                    F: int | None = None, certify: bool = False,
+                    device=None) -> dict:
+    """analysis(), resumable: checks through check_extend's
+    prefix-stable segmentation, loading the previous frontier from the
+    ckpt.py store at `store_path` and writing the grown frontier back
+    after the verdict. Checking a grown history again costs O(suffix); a
+    missing, torn, stale or wrong-model record costs a full check, never
+    a wrong verdict. Histories that do not segment (too short, more than
+    32 states, unencodable) go to analysis() on the same device, counted
+    as `ckpt.extend.fallback`, so this is safe wherever analysis() is."""
+    device = resolve_device(device)
+    if not isinstance(hist, History):
+        hist = History(hist)
+    enc = None
+    try:
+        enc = encode(model, hist)
+    except EncodingError:
+        pass
+    out = None
+    new_rec = None
+    if enc is not None:
+        record = None
+        if store_path is not None:
+            record = ckpt_mod.load(store_path, "wgl-extend")
+        out, new_rec = check_extend(enc, record=record, stride=stride,
+                                    device=device, **_seg_kwargs(W, F))
+    if out is None:
+        telemetry.count("ckpt.extend.fallback")
+        return analysis(model, hist, algorithm="gpu", W=W, F=F,
+                        certify=certify, device=device)
+    out["analyzer"] = "gpu-extend"
+    _witness_op_indices(out)
+    _search_stats(out)
+    if store_path is not None and new_rec is not None:
+        # a failed write (ENOSPC, EIO) leaves the previous record in
+        # place: the next check is slower, and this verdict stands
+        ckpt_mod.try_write(store_path, new_rec)
+    if certify:
+        from . import certify as certify_mod
+
+        certify_mod.attach_wgl(model, hist, enc, out)
+    return out
+
+
+def _analysis(model, hist, algorithm, W, F, device, checkpoint_path=None,
+              checkpoint_dir=None, enc_box: list | None = None) -> dict:
     if not isinstance(hist, History):
         hist = History(hist)
     try:
@@ -1006,7 +1349,9 @@ def _analysis(model, hist, algorithm, W, F, device,
     # resolve on host) than the whole-history kernel (32/64).
     if enc.m >= SEGMENT_MIN_M:
         seg = check_segmented(enc, witness=True, device=device,
-                              **_seg_kwargs(W, F))
+                              **_seg_kwargs(W, F,
+                                            checkpoint_path=checkpoint_path,
+                                            checkpoint_dir=checkpoint_dir))
         if seg is not None:
             seg["analyzer"] = "gpu-segmented"
             return _witness_op_indices(seg)
