@@ -42,9 +42,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import struct
 import threading
-import zlib
 from pathlib import Path
 
 from .. import telemetry
@@ -52,7 +50,6 @@ from ..ledger import write_all
 from ..store import format as fmt
 
 CKPT_MAGIC = b"JTPUCKP1"
-_HDR = struct.Struct("<II")
 VERSION = 1
 
 KINDS = ("stream-wgl", "wgl-extend", "elle")
@@ -206,8 +203,7 @@ def write(path, rec: dict) -> Path:
     p = Path(path)
     payload = json.dumps(rec, separators=(",", ":"),
                          sort_keys=True).encode()
-    data = (CKPT_MAGIC
-            + _HDR.pack(len(payload), zlib.crc32(payload)) + payload)
+    data = CKPT_MAGIC + fmt.frame(payload)
     with _hook_lock:
         hook = _fault_hook
     try:
@@ -247,16 +243,9 @@ def read(path) -> dict | None:
         buf = p.read_bytes()
     except OSError:
         return None
-    if buf[:len(CKPT_MAGIC)] != CKPT_MAGIC:
-        telemetry.count("ckpt.torn")
-        return None
-    pos = len(CKPT_MAGIC)
-    if len(buf) < pos + _HDR.size:
-        telemetry.count("ckpt.torn")
-        return None
-    n, crc = _HDR.unpack(buf[pos:pos + _HDR.size])
-    payload = buf[pos + _HDR.size:pos + _HDR.size + n]
-    if len(payload) < n or zlib.crc32(payload) != crc:
+    payload = (fmt.unframe(buf, len(CKPT_MAGIC))
+               if buf[:len(CKPT_MAGIC)] == CKPT_MAGIC else None)
+    if payload is None:
         telemetry.count("ckpt.torn")
         return None
     try:

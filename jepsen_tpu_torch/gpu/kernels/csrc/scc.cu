@@ -515,18 +515,19 @@ __global__ void __launch_bounds__(kThreads, 1) scc_kernel(Capped a) {
 //     colour prio(v) = v * kPrio mod 2^31, a bijection of the ids (kPrio
 //     is odd) that looks random along a run of ids; a root is a node whose
 //     colour is its own priority. Coloured by id, a decreasing chain of k
-//     non-trivial cycles (which trim cannot touch) took k rounds, each a
-//     flood down the rest of the chain and one cycle retired: k(k + 19)
-//     sweeps for k ten-node cycles. Coloured by priority, every cycle
+//     non-trivial cycles (which trim cannot touch) would take k rounds,
+//     each a flood down the rest of the chain that retires one cycle:
+//     k(k + 19) sweeps for k ten-node cycles. Coloured by priority, every cycle
 //     whose priority beats those of all the active cycles above it
 //     retires in the same round, and the retired cycles cut the chain
 //     into pieces that flood on their own: 8 rounds and 641 sweeps for
 //     k = 100, 10 and 2,314 for k = 800.
 //   - Labels. A member retires holding its root's id, unprio(colour), and
 //     raises that root's slot of `top` to its own id; a trimmed node is
-//     its own root. One pass after the last round (no sync of its own:
-//     the last retire is a sync behind it) sets each label to its root's
-//     slot, the max member id of the component, as scipy's labels are.
+//     its own root. One pass after the last round sets each label to its
+//     root's slot, the max member id of the component, as scipy's labels
+//     are. It needs no sync of its own: the listing pass that finds no
+//     active node ends with one, after every retirement.
 //   - The one-block tail. The work left (nodes and CSR entries not yet
 //     retired) is counted from the slots after each sync; once it falls
 //     to tail_work, every block but block 0 leaves at the same sync, and
@@ -915,7 +916,7 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
       p = 0;
       if (leave()) return;
     }
-    // 10. labels: every node retired at least one sync ago (step 5's)
+    // 10. labels: every node retired before step 5's last sync
     for (int v = S.tid; v < n; v += S.stride) a.out[v] = a.top[a.out[v]];
   }
   if (S.tid == 0) {

@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import json
 import logging
-import struct
 import time as _time
 import zlib
 from pathlib import Path
@@ -694,12 +693,10 @@ class _SegmentCheckpoint:
             return
         if not self._opened:
             self._prepare()
+        payload = json.dumps({"fp": self.fingerprint, "k": k, "s": s,
+                              "m": int(mask)}).encode()
         with open(self.path, "ab") as f:
-            payload = json.dumps(
-                {"fp": self.fingerprint, "k": k, "s": s,
-                 "m": int(mask)}).encode()
-            f.write(struct.pack("<II", len(payload), zlib.crc32(payload)))
-            f.write(payload)
+            f.write(sformat.frame(payload))
         self._known.add((k, s))
         telemetry.count("wgl.checkpoint.saved")
 

@@ -25,6 +25,23 @@ MAGIC = b"JTPUHIS1"
 _HDR = struct.Struct("<II")
 
 
+def frame(payload: bytes) -> bytes:
+    """One record: the header [u32 len][u32 crc32] and the payload."""
+    return _HDR.pack(len(payload), zlib.crc32(payload)) + payload
+
+
+def unframe(buf: bytes, pos: int) -> bytes | None:
+    """The payload of the record at buf[pos:], or None when the record
+    is torn (short header or payload) or corrupt (CRC mismatch)."""
+    if len(buf) < pos + _HDR.size:
+        return None
+    n, crc = _HDR.unpack_from(buf, pos)
+    payload = buf[pos + _HDR.size:pos + _HDR.size + n]
+    if len(payload) < n or zlib.crc32(payload) != crc:
+        return None
+    return payload
+
+
 def _scan_records(f) -> Iterator[tuple[bytes, int]]:
     """Walks intact CRC-framed records from just after the magic,
     yielding (payload, end_offset) and stopping at a torn or corrupt
