@@ -104,7 +104,10 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      fresh check (invalid, same failed segment and certificate); a torn
      record must count ckpt.torn and give the fresh result; prints the
      reused and computed masks, launches, rows, wall seconds and kernel
-     ms of each run;
+     ms of each run; the whole history's rows go through check_slices
+     on the card once more, and every known row, and every mask of the
+     resumed record, must equal the host reach search, and 8 rows
+     check_slices on the CPU;
  17. check_segmented(enc, checkpoint_dir=...) on the headline history
      twice: the second run must load every mask the first saved and
      launch no kernel, with the same result;
@@ -1329,6 +1332,31 @@ def independent_path(dev, on_card: bool, hists, bad: int,
     return per_path
 
 
+def _slices_against_host(dev, on_card: bool, slices, seed: int):
+    """check_slices over `slices` in one launch at W=24, F=48 on `dev`;
+    every row the card answers as known searched on the host
+    (search_host_reach), and 8 rows picked by `seed` run again through
+    check_slices on the CPU. Unknown rows are not searched (ROADMAP C3).
+    Returns (out, unk, {row: host mask}, launch s, host s, CPU rows,
+    whether the CPU rows equal the card's)."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out, unk = wgl.check_slices(slices, W=24, F=48, device=dev)
+    sync()
+    t1 = time.perf_counter()
+    host = {i: wgl.search_host_reach(e.with_init(s))
+            for i, (e, s) in enumerate(slices) if not unk[i]}
+    t2 = time.perf_counter()
+    pick = sorted(int(i) for i in np.random.default_rng(seed).choice(
+        len(slices), size=8, replace=False))
+    cpu_out, cpu_unk = wgl.check_slices([slices[i] for i in pick], W=24,
+                                        F=48, device="cpu")
+    cpu_equal = (cpu_out.tolist() == out[pick].tolist()
+                 and cpu_unk.tolist() == unk[pick].tolist())
+    return out, unk, host, t1 - t0, t2 - t1, pick, cpu_equal
+
+
 def slices_path(dev, on_card: bool, hists, n: int) -> int:
     """Phase 14: check_slices in the fleet's shape. Rows are every start
     state of the first n ensemble histories (each one Encoded object,
@@ -1336,7 +1364,6 @@ def slices_path(dev, on_card: bool, hists, n: int) -> int:
     crash_p 0), in one launch at W=24, F=48. Every row the card answers
     as known must equal the host reach search; unknown rows are counted
     and listed. Returns the launch count."""
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
     model = models.cas_register()
     groups = {"crashed": [encode(model, h) for h in hists[:n]],
               "crash-free": [encode(model, ensemble_hist(i, crash_p=0.0))
@@ -1349,40 +1376,29 @@ def slices_path(dev, on_card: bool, hists, n: int) -> int:
                 where.append((g, i, s))
     ws.launches = 0
     telemetry.reset()
-    t0 = time.perf_counter()
-    out, unk = wgl.check_slices(slices, W=24, F=48, device=dev)
-    sync()
-    t1 = time.perf_counter()
+    out, unk, host, card_s, host_s, pick, cpu_equal = \
+        _slices_against_host(dev, on_card, slices, 14)
     launches = ws.launches
     if on_card and launches != 1:
         raise AssertionError(f"check_slices: {launches} launches")
-    known = [i for i in range(len(slices)) if not unk[i]]
-    bad = [where[i] for i in known
-           if wgl.search_host_reach(slices[i][0].with_init(slices[i][1]))
-           != int(out[i])]
-    t2 = time.perf_counter()
+    bad = [where[i] for i, h in host.items() if h != int(out[i])]
     if bad:
         raise AssertionError(f"check_slices rows differ from the host "
                              f"reach search: {bad[:10]}")
-    pick = sorted(int(i) for i in np.random.default_rng(14).choice(
-        len(slices), size=8, replace=False))
-    cpu_out, cpu_unk = wgl.check_slices([slices[i] for i in pick], W=24,
-                                        F=48, device="cpu")
-    if (cpu_out.tolist() != out[pick].tolist()
-            or cpu_unk.tolist() != unk[pick].tolist()):
+    if not cpu_equal:
         raise AssertionError(f"check_slices card {out[pick]} {unk[pick]} "
-                             f"!= cpu {cpu_out} {cpu_unk}")
+                             f"!= cpu on rows {pick}")
     unknown = {g: sorted({i for (gg, i, _s), u in zip(where, unk)
                           if u and gg == g}) for g in groups}
     emit({"phase": "check_slices", "rows": len(slices),
           "segments": sum(len(v) for v in groups.values()),
-          "wgl_search_launches": launches, "card_s": t1 - t0,
-          "known_rows": len(known), "unknown_rows": int(unk.sum()),
+          "wgl_search_launches": launches, "card_s": card_s,
+          "known_rows": len(host), "unknown_rows": int(unk.sum()),
           "unknown_rows_by_group": {
               g: sum(1 for (gg, _i, _s), u in zip(where, unk)
                      if u and gg == g) for g in groups},
           "histories_with_unknown_rows": unknown,
-          "host_reach_of_known_rows_s": t2 - t1,
+          "host_reach_of_known_rows_s": host_s,
           "cpu_rows": [where[i] for i in pick], "cpu_equal": True})
     return launches
 
@@ -1489,6 +1505,41 @@ def _extend_line(name: str, r: dict, on_card: bool, **extra) -> dict:
             **extra, "card": nvidia_smi_line() if on_card else "cpu"}
 
 
+def _extend_masks(dev, on_card: bool, enc, cuts, rec) -> dict:
+    """The extend path's launch held against the host: every (segment,
+    state) row of the whole history through _slices_against_host, in one
+    launch at check_extend's shape, as a fresh run makes it; every mask
+    of the resumed run's record (reused or computed) is held against the
+    same host search where the row is known."""
+    K, S = len(cuts) - 1, enc.n_states
+    if rec["cuts"] != [int(c) for c in cuts] or \
+            rec["states"] != [repr(x) for x in enc.states]:
+        raise AssertionError("the resumed record's cuts or states differ "
+                             "from the history's encoding")
+    segs = [enc.segment(cuts[k], cuts[k + 1]) for k in range(K)]
+    keys = [(k, s) for k in range(K) for s in range(S)]
+    out, unk, host, card_s, host_s, pick, cpu_equal = _slices_against_host(
+        dev, on_card, [(segs[k], s) for k, s in keys], 16)
+    bad = [keys[i] for i, h in host.items() if h != int(out[i])]
+    masks = rec["masks"]
+    on_rec = [i for i in host if f"{keys[i][0]}:{keys[i][1]}" in masks]
+    bad_rec = [keys[i] for i in on_rec
+               if masks[f"{keys[i][0]}:{keys[i][1]}"] != host[i]]
+    line = {"phase": "extend-masks", "rows": len(keys),
+            "known_rows": len(host), "unknown_rows": int(unk.sum()),
+            "card_s": card_s, "mismatches": len(bad),
+            "record_masks_checked": len(on_rec),
+            "record_mismatches": len(bad_rec),
+            "host_reach_of_known_rows_s": host_s,
+            "cpu_rows": [keys[i] for i in pick], "cpu_equal": cpu_equal}
+    emit(line)
+    if bad or bad_rec or not cpu_equal:
+        raise AssertionError(f"extend masks differ from the host reach "
+                             f"search: launch {bad[:10]}, record "
+                             f"{bad_rec[:10]}, cpu rows equal {cpu_equal}")
+    return line
+
+
 def extend_path(dev, on_card: bool, hist, bad) -> dict:
     """Phase 16: checkpoint-and-extend on the headline history. The
     first 90% of its ops writes a wgl-extend record; the whole history
@@ -1497,8 +1548,9 @@ def extend_path(dev, on_card: bool, hist, bad) -> dict:
     segments + 1) * S masks; the 85%-corrupted twin resumed from its
     clean 80% prefix must equal its fresh check (invalid, same failed
     segment, same certificate); a torn record counts ckpt.torn and
-    gives the fresh verdict and certificate. Returns the launches of
-    each run."""
+    gives the fresh verdict and certificate. The masks of the whole
+    history's launch and record are held against the host
+    (_extend_masks). Returns the launches of each run."""
     model = models.cas_register()
     ops, bad_ops = list(hist), list(bad)
     launches = {}
@@ -1525,8 +1577,9 @@ def extend_path(dev, on_card: bool, hist, bad) -> dict:
         t0 = time.perf_counter()
         ckpt.entry_digest_chain(enc, cuts)
         digest_s = time.perf_counter() - t0
-        del enc
         new_rec = ckpt.read(store)
+        checked = _extend_masks(dev, on_card, enc, cuts, new_rec)
+        del enc
         K = len(new_rec["cuts"]) - 1
         S = len(new_rec["states"])
         matched = _matched_segments(prefix_rec, new_rec)
@@ -1535,11 +1588,13 @@ def extend_path(dev, on_card: bool, hist, bad) -> dict:
         same = _norm(rr) == _norm(fr) and \
             _cert_bytes(rr) == _cert_bytes(fr)
         emit(_extend_line("fresh", fresh, on_card, segments=K, states=S,
-                          digest_chain_s=digest_s))
+                          digest_chain_s=digest_s,
+                          mask_mismatches=checked["mismatches"]))
         emit(_extend_line("resumed-from-90%", resumed, on_card,
                           segments=K, states=S, matched_segments=matched,
                           computed_bound=(K - matched + 1) * S,
-                          certificate_equal=same))
+                          certificate_equal=same,
+                          mask_mismatches=checked["record_mismatches"]))
         if fr["valid?"] is not True or not same:
             raise AssertionError(f"resumed extend differs from fresh: "
                                  f"valid {fr['valid?']} / {rr['valid?']}")

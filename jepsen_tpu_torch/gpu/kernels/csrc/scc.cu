@@ -511,40 +511,54 @@ __global__ void __launch_bounds__(kThreads, 1) scc_kernel(Capped a) {
 //     the nodes that changed in the previous sweep and their CSR rows, so
 //     a sweep costs what changed, not E. A round's members retire and
 //     lower their neighbours' counters, which may start another trim.
-//   - Colours are priorities, not ids. Node v starts a round with the
-//     colour prio(v) = v * kPrio mod 2^31, a bijection of the ids (kPrio
-//     is odd) that looks random along a run of ids; a root is a node whose
-//     colour is its own priority. Coloured by id, a decreasing chain of k
+//   - The first round colours by id, later rounds by priority. Where
+//     ids follow a topological order, as in a wide graph of clusters
+//     joined by forward edges, the round by id retires most components
+//     at once (the wide case of chip_smoke's phase 7b: 1 round; by
+//     priority alone: 11). Coloured by id, a decreasing chain of k
 //     non-trivial cycles (which trim cannot touch) would take k rounds,
 //     each a flood down the rest of the chain that retires one cycle:
-//     k(k + 19) sweeps for k ten-node cycles. Coloured by priority, every cycle
-//     whose priority beats those of all the active cycles above it
-//     retires in the same round, and the retired cycles cut the chain
-//     into pieces that flood on their own: 8 rounds and 641 sweeps for
-//     k = 100, 10 and 2,314 for k = 800.
-//   - Labels. A member retires holding its root's id, unprio(colour), and
-//     raises that root's slot of `top` to its own id; a trimmed node is
-//     its own root. One pass after the last round sets each label to its
-//     root's slot, the max member id of the component, as scipy's labels
-//     are. It needs no sync of its own: the listing pass that finds no
-//     active node ends with one, after every retirement.
+//     k(k + 19) sweeps for k ten-node cycles; and even its first round
+//     costs O(k) frontier nodes a sweep for ~2k sweeps, as every cycle's
+//     id floods down until a higher one overtakes it (k = 2,000: 174 ms
+//     on the H100 against 21 ms without it). So the round by id gives up
+//     with no member once kFirstRoundSweeps forward sweeps have not
+//     settled it, and the launch goes on by priority. A later round
+//     gives node v the colour prio(v) = v * kPrio mod 2^31, a bijection
+//     of the ids (kPrio is odd) that looks random along a run of ids; a
+//     root is a node whose colour is its own id (first round) or
+//     priority (later). Every cycle whose priority beats those of all
+//     the active cycles above it retires in the same round, and the
+//     retired cycles cut the chain into pieces that flood on their own:
+//     8 rounds and 705 sweeps for k = 100, 10 and 2,378 for k = 800.
+//   - Labels. A member retires holding its root's id (its colour in the
+//     first round, unprio(colour) after it) and raises that root's slot
+//     of `top` to its own id; a trimmed node is its own root. One pass
+//     after the last round sets each label to its root's slot, the max
+//     member id of the component, as scipy's labels are. It needs no
+//     sync of its own: the listing pass that finds no active node ends
+//     with one, after every retirement.
 //   - The one-block tail. The work left (nodes and CSR entries not yet
 //     retired) is counted from the slots after each sync; once it falls
 //     to tail_work, every block but block 0 leaves at the same sync, and
 //     block 0 finishes with __syncthreads only.
 // Its counts (rounds, sweeps, trim passes) are order-free, since the
-// priorities are fixed, so its plain version (gpu/kernels/scc.py) mirrors
-// them exactly. What the colouring still costs: a round floods each piece
-// of a chain from its top, so the sweeps of a round are the longest
-// piece's length, and a single cycle of L nodes still takes 2L sweeps.
+// colours of each round are fixed, so its plain version
+// (gpu/kernels/scc.py) mirrors them exactly. What the colouring still
+// costs: a round floods each piece of a chain from its top, so the sweeps
+// of a round are the longest piece's length; a first round that gives up
+// costs kFirstRoundSweeps sweeps; and a single cycle of L nodes still
+// takes 2L sweeps.
 
 enum { kActive = 0, kQueued = 1, kRetired = 2 };
 
 // prio(v) = v * kPrio mod 2^31 and its inverse, in unsigned arithmetic
-// (kPrioInv * kPrio = 1 mod 2^32); gpu/kernels/scc.py holds the same
+// (kPrioInv * kPrio = 1 mod 2^32), and the forward sweeps after which the
+// first round, by id, gives up; gpu/kernels/scc.py holds the same
 // constants.
 constexpr unsigned kPrio = 0x9E3779B1u, kPrioInv = 0x0E8B2F51u;
 constexpr unsigned kPrioMask = 0x7fffffffu;
+constexpr int kFirstRoundSweeps = 64;
 
 __device__ __forceinline__ int prio(int v) {
   return (int)(((unsigned)v * kPrio) & kPrioMask);
@@ -777,6 +791,7 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
     int A = 0;      // the active list is act[A]
     int n_act = n;  // round 1: every node, unlisted
     bool listed = false;
+    bool first = true;  // the first round colours by id
     while (true) {
       // 4. trim to a fixpoint
       while (n_trim > 0) {
@@ -796,7 +811,9 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
         p = 1 - p;
         if (leave()) return;
       }
-      // 5. list the nodes trim left, and set their colours
+      // 5. list the nodes trim left, and set their colours: ids in the
+      // first round, priorities after it
+      const bool by_id = first;
       for (int bb = S.tid - S.lane; bb < n_act; bb += S.stride) {
         const int i = bb + S.lane;
         int v = 0;
@@ -804,7 +821,7 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
         if (i < n_act) {
           v = listed ? a.act[A][i] : i;
           keep = a.state[v] == kActive;
-          if (keep) a.c[0][v] = a.c[1][v] = prio(v);
+          if (keep) a.c[0][v] = a.c[1][v] = by_id ? v : prio(v);
         }
         append(keep, S.lane, S.put(kCountB), a.act[1 - A], v);
       }
@@ -819,7 +836,7 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
       // that changed in the one before (the first: every listed node)
       int k = 0, q = 0, n_f = n_act;
       const int* fr = act;
-      while (n_f > 0) {
+      while (n_f > 0 && !(by_id && k == kFirstRoundSweeps)) {
         ++k;
         ++g;
         const int* xr = a.c[(k - 1) & 1];
@@ -846,6 +863,9 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
         if (leave()) return;
       }
       sweeps += k;
+      first = false;
+      // the round by id gave up: colour by priority from here
+      if (n_f > 0) continue;
       const int* c = a.c[k & 1];
       // 7. the roots seed membership
       for (int bb = S.tid - S.lane; bb < n_act; bb += S.stride) {
@@ -854,7 +874,7 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
         int v = 0;
         if (i < n_act) {
           v = act[i];
-          root = c[v] == prio(v);
+          root = c[v] == (by_id ? v : prio(v));
           a.m[0][v] = a.m[1][v] = root ? 1 : 0;
         }
         append(root, S.lane, S.put(kCountA), a.fr[0], v);
@@ -905,7 +925,8 @@ __global__ void __launch_bounds__(kThreads, 1) scc_converge_kernel(Conv a) {
           if (i < n_act) {
             const int v = act[i];
             if (m[v])
-              work += retire(a, v, unprio(c[v]), m, a.fr[0], S.put(kCountA));
+              work += retire(a, v, by_id ? c[v] : unprio(c[v]), m, a.fr[0],
+                             S.put(kCountA));
           }
         }
         add_work(S, work);

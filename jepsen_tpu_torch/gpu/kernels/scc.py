@@ -24,19 +24,26 @@ graph, ok always 1, no caps. It trims (a node with no live in- or
 out-edge is its own component) to a fixpoint before each colouring
 round, and its sweeps and trim passes work on frontiers over CSR rows
 built on the card, so a DAG such as a decreasing chain is retired by
-trim alone. Its colouring rounds colour by a fixed pseudo-random
-priority of each node, prio(v) = v * PRIO mod 2**31 (a bijection, PRIO
-being odd), not by its id: on a decreasing chain of non-trivial cycles
-every cycle whose priority beats those of all the active cycles above
-it retires in the same round, and the retired cycles cut the chain, so
-a chain of k cycles takes a few rounds (8 for 100 ten-node cycles, 10
-for 800) instead of k. The roots are the nodes whose colour is their own
-priority; each member's label is the max member id of its root's
-component, gathered once at the end, so the labels are scipy's. Its
-output is int32 [n + 4]: labels, ok, colouring rounds, sweeps, trim
-passes; the passes are level-synchronous, the sweeps Jacobi sweeps and
-the priorities fixed, so the counts are order-free and its plain version
-(scc_converge_reference) mirrors them exactly.
+trim alone. Its first colouring round colours by node id, as the capped
+launch does, which retires most components at once where ids follow a
+topological order (a wide graph of clusters joined by forward edges:
+1 round); if FIRST_ROUND_SWEEPS forward sweeps do not settle it, it
+gives up with no member, since a flood by id may then cost a sweep's
+frontier per component above (a decreasing chain of k cycles: O(k)
+nodes a sweep for ~2k sweeps). Later rounds colour by a fixed
+pseudo-random priority of each node, prio(v) = v * PRIO mod 2**31 (a
+bijection, PRIO being odd): on a decreasing chain of non-trivial
+cycles, which by id would retire one cycle a round, every cycle whose
+priority beats those of all the active cycles above it retires in the
+same round, and the retired cycles cut the chain, so a chain of k
+cycles takes a few rounds (8 for 100 ten-node cycles, 10 for 800)
+instead of k. The roots are the nodes whose colour is their own id or
+priority; each member's label is the max member id
+of its root's component, gathered once at the end, so the labels are
+scipy's. Its output is int32 [n + 4]: labels, ok, colouring rounds,
+sweeps, trim passes; the passes are level-synchronous, the sweeps Jacobi
+sweeps and each round's colours fixed, so the counts are order-free and
+its plain version (scc_converge_reference) mirrors them exactly.
 
 Both launch their kernel for CUDA tensors and run the plain version for
 CPU tensors; neither runs the plain version on the card. `launches` and
@@ -55,11 +62,14 @@ from . import build
 SWEEP_CAP = 512
 ROUND_CAP = 64
 # The convergence launch's priority multiplier (odd, so v -> v * PRIO mod
-# 2**31 is a bijection of the ids) and its inverse mod 2**32; csrc/scc.cu
-# holds the same two constants.
+# 2**31 is a bijection of the ids), its inverse mod 2**32, and the forward
+# sweeps after which its first round, coloured by id, gives up unsettled;
+# csrc/scc.cu holds the same three constants (kPrio, kPrioInv,
+# kFirstRoundSweeps), so changing one here alone breaks the mirror.
 PRIO = 0x9E3779B1
 PRIO_INV = 0x0E8B2F51
 _PRIO_MASK = (1 << 31) - 1
+FIRST_ROUND_SWEEPS = 64
 # Work left (nodes plus CSR entries not yet retired) at which the
 # convergence launch goes on in block 0 alone, with __syncthreads in
 # place of grid syncs. Measured by chip_smoke.py on the H100 with rounds
@@ -67,8 +77,9 @@ _PRIO_MASK = (1 << 31) - 1
 # decreasing chain or cycle (~300k items) in about half the time of the
 # whole grid, but a 100,000-node graph of large components with 600k
 # edges (~1.3M items) in 1.6 times its time; the threshold lies between
-# the two. Priority colouring leaves the chain's and the cycle's counts as
-# they were and gives the wide graph more rounds (PERF.md). Read at each
+# the two. Colouring later rounds by priority leaves the chain's and the
+# wide graph's counts as they were and adds the first round's 64 sweeps
+# to the cycle's (PERF.md). Read at each
 # launch: tests set it to -1 (never) or 2**31 - 1 (from the start) to
 # reach either schedule on a small graph.
 TAIL_WORK = 1 << 19
@@ -288,7 +299,8 @@ def _converge(src, dst, edge_on, n) -> torch.Tensor:
     by_src, by_dst = _Rows(s, d, n), _Rows(d, s, n)
     indeg = torch.bincount(d, minlength=n)
     outdeg = torch.bincount(s, minlength=n)
-    prio = _prio(torch.arange(n, dtype=torch.int64, device=dev))
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    prio = _prio(ids.long())
     active = torch.ones(n, dtype=torch.bool, device=dev)
     # the root of each retired node, then (at the end) its label
     out = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -304,6 +316,7 @@ def _converge(src, dst, edge_on, n) -> torch.Tensor:
         return near[active[near] & ((indeg[near] == 0) | (outdeg[near] == 0))]
 
     rounds = sweeps = passes = 0
+    by_id = True
     trim = torch.nonzero((indeg == 0) | (outdeg == 0)).flatten()
     while True:
         # trim to a fixpoint: each pass retires, with their own ids, the
@@ -315,20 +328,30 @@ def _converge(src, dst, edge_on, n) -> torch.Tensor:
             trim = lower(trim)
         if not bool(active.any()):
             break
-        # a colouring round over the live edges, with no caps: colours
-        # are priorities, and a root is a node whose colour is its own
+        # a colouring round over the live edges: colours are ids in the
+        # first round and priorities after it, and a root is a node whose
+        # colour is its own. The round by id gives up, with no member,
+        # when FIRST_ROUND_SWEEPS forward sweeps have not settled it;
+        # later rounds have no cap
         live = active[s] & active[d]
         ls, ld = s[live], d[live]
-        c, _ok, it_f = _fixpoint(torch.where(active, prio, -1), ls, ld,
-                                 None, -1, n)
+        colour = ids if by_id else prio
+        c, ok, it_f = _fixpoint(torch.where(active, colour, -1), ls, ld,
+                                None, -1, n,
+                                FIRST_ROUND_SWEEPS if by_id else None)
+        sweeps += it_f
+        if not ok:
+            by_id = False
+            continue
         same = c[ls] == c[ld]
-        m0 = (active & (c == prio)).to(torch.int32)
+        m0 = (active & (c == colour)).to(torch.int32)
         m, _ok, it_b = _fixpoint(m0, ld[same], ls[same], None, 0, n)
         member = active & (m > 0)
-        out = torch.where(member, _unprio(c), out)
+        out = torch.where(member, c if by_id else _unprio(c), out)
         active = active & ~member
         rounds += 1
-        sweeps += it_f + it_b
+        sweeps += it_b
+        by_id = False
         trim = lower(torch.nonzero(member).flatten())
     # each component's label is its max member id, gathered through the
     # root every member holds (a trimmed node is its own root)

@@ -829,10 +829,13 @@ def check_segmented(enc: Encoded, target_len: int | None = None,
     the first wave, so an interrupted long check resumes without
     searching finished segments again; a mask loaded is not launched.
     The log is keyed by a fingerprint of the history, model and cuts,
-    so a log of other data is ignored. checkpoint_path names one file;
-    checkpoint_dir derives a per-fingerprint file name in that
-    directory, so checkers sharing a store directory never share a
-    file."""
+    so a log of other data is ignored. checkpoint_dir derives a
+    per-fingerprint file name (frontier-<fp>.jlog) in that directory, so
+    checkers sharing a store directory never share a file; it is what
+    Linearizable.check passes. checkpoint_path names one file instead:
+    no caller in this package uses it, and it is kept so that this
+    signature is the JAX package's, whose check_segmented takes both (a
+    log at a path either package chose resumes in the other)."""
     device = resolve_device(device)
     if enc.n_states > 32:
         # the per-(segment, state) reach masks are uint32 bitmasks
@@ -1257,7 +1260,8 @@ def analysis(model, hist, algorithm: str = "gpu", W: int | None = None,
 
     certify=True additionally attaches a machine-checkable proof of the
     verdict as result['certificate'] (certify.py). checkpoint_path /
-    checkpoint_dir go to check_segmented on the segmented path."""
+    checkpoint_dir go to check_segmented on the segmented path (its
+    docstring says which caller takes which)."""
     if algorithm not in ALGORITHMS:
         raise ValueError(f"algorithm {algorithm!r} is not one of "
                          f"{ALGORITHMS}")

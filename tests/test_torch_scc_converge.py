@@ -98,34 +98,40 @@ def test_a_dag_is_retired_by_trim_alone():
 
 
 def test_cycle_counts():
-    """One cycle of 600: no trim pass, one round; the forward flood goes
-    once round the cycle (600 sweeps, the last changing nothing) and so
-    does the backward membership from the root."""
+    """One cycle of 600: no trim pass, one round. The first round, by id,
+    gives up unsettled after FIRST_ROUND_SWEEPS (64) forward sweeps; the
+    round by priority then floods once round the cycle (600 sweeps, the
+    last changing nothing) and so does the backward membership from the
+    root: 64 + 1,200 sweeps."""
     n, src, dst = _cycle(600)
     out = kscc.scc_labels_to_convergence(*_tensors(src, dst), n).numpy()
-    assert out[n:].tolist() == [1, 1, 1200, 0]
+    assert kscc.FIRST_ROUND_SWEEPS == 64
+    assert out[n:].tolist() == [1, 1, 1264, 0]
     assert (out[:n] == n - 1).all()
 
 
-def test_cycle_chain_costs_a_round_per_cycle():
+def test_cycle_chain_100_counts_by_id_then_priority():
     """What trim cannot touch, 100 ten-node cycles in a decreasing chain.
-    Coloured by id, each round retired the top cycle only, after a flood
-    down the rest of the chain: 100 rounds, 11,900 sweeps. Coloured by
-    priority, every cycle that beats all the active cycles above it
-    retires in the same round, and the retired cycles cut the chain:
-    exactly 8 rounds and 641 sweeps, no trim pass."""
+    Coloured by id in every round, each round retired the top cycle
+    only, after a flood down the rest of the chain: 100 rounds, 11,900
+    sweeps. The first round, by id, gives up after 64 forward sweeps;
+    later rounds colour by priority, every cycle that beats all the
+    active cycles above it retires in the same round, and the retired
+    cycles cut the chain: exactly 8 rounds and 705 sweeps (64 of them
+    the first round's), no trim pass."""
     n, src, dst = _cycle_chain(100, 10)
     out = kscc.scc_labels_to_convergence(*_tensors(src, dst), n).numpy()
     ok, rounds, sweeps, passes = out[n:].tolist()
-    assert (ok, rounds, sweeps, passes) == (1, 8, 641, 0)
+    assert (ok, rounds, sweeps, passes) == (1, 8, 705, 0)
     np.testing.assert_array_equal(out[:n], jscc._scc_host(n, src, dst))
 
 
-# (k, rounds, sweeps) of the plain version on _cycle_chain(k, 10); by id
-# the rounds were k and the sweeps k(k + 19): 11,900, 43,800, 167,600 and
+# (k, rounds, sweeps) of the plain version on _cycle_chain(k, 10), the
+# first round's 64 given-up sweeps included; by id in every round the
+# rounds were k and the sweeps k(k + 19): 11,900, 43,800, 167,600 and
 # 655,200
-CYCLE_CHAIN_COUNTS = [(100, 8, 641), (200, 9, 926), (400, 9, 938),
-                      (800, 10, 2314)]
+CYCLE_CHAIN_COUNTS = [(100, 8, 705), (200, 9, 990), (400, 9, 1002),
+                      (800, 10, 2378)]
 
 
 @pytest.mark.parametrize("k, rounds, sweeps", CYCLE_CHAIN_COUNTS)
@@ -141,6 +147,35 @@ def test_cycle_chain_sweeps_stay_linear(k, rounds, sweeps):
     np.testing.assert_array_equal(out[:n], want)
     np.testing.assert_array_equal(
         want, jscc.scc(*_with_forward_chain(n, src, dst))[:n])
+
+
+def _clustered(seed, n, cluster, inner, cross):
+    """Random edges inside clusters of `cluster` nodes plus forward
+    edges (to higher ids) between clusters: many large components whose
+    ids follow a topological order."""
+    rng = np.random.default_rng(seed)
+    blk = rng.integers(0, n // cluster, inner)
+    src = blk * cluster + rng.integers(0, cluster, inner)
+    dst = blk * cluster + rng.integers(0, cluster, inner)
+    cs = rng.integers(0, n - 2 * cluster, cross)
+    cd = cs + rng.integers(1, 2 * cluster, cross)
+    return n, np.concatenate([src, cs]), np.concatenate([dst, cd])
+
+
+def test_wide_clustered_graph_retires_in_the_first_round():
+    """6,000 nodes in clusters of 300, 30,000 edges inside them and
+    6,000 forward edges between them. The first round colours by id, and
+    every edge between components goes to higher ids, so no colour from
+    another component beats a component's own highest id: every
+    component left after trim retires in that one round (coloured by
+    priority from the start: 5 rounds, 92 sweeps).
+    Labels equal scipy's and JAX's scc()."""
+    n, src, dst = _clustered(7, 6000, 300, 30_000, 6000)
+    out = kscc.scc_converge_reference(*_tensors(src, dst), n).numpy()
+    assert out[n:].tolist() == [1, 1, 16, 2]
+    want = jscc._scc_host(n, src, dst)
+    np.testing.assert_array_equal(out[:n], want)
+    np.testing.assert_array_equal(out[:n], jscc.scc(n, src, dst))
 
 
 def test_priorities_are_a_bijection():
