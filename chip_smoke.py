@@ -113,8 +113,26 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      launch no kernel, with the same result;
  18. the linearizable checker with a store directory and extend? on the
      card: valid through analysis_extend, its certificate validated;
+ 19. the checker stacks a Jepsen test composes (checker.compose), each
+     into a fresh store directory, with every launch count set to 0 just
+     before each composed check: the register stack
+     (independent.checker(linearizable) + stats + unhandled_exceptions)
+     over phase 13's folded history must be valid with wgl_search
+     launched and write no file, and over its twin invalid with failures
+     [700] and a counterexample SVG equal, byte for byte, to the one key
+     700's subhistory leaves when checked alone on the CPU; the
+     list-append stack (append_checker + stats) over phase 8's history
+     valid with scc launched, over its twin invalid with G0 and its
+     elle/G0-<fp>.txt on disk, and phase 9's corrupted history through
+     the checker on the card and on the CPU with the same files and
+     bytes; the bank stack (bank.checker + stats) over phase 10's history
+     valid with bank_reduce launched, over its twin with phase 10's first
+     error; no sub-result may be "unknown" or carry an error; prints each
+     composed check's wall seconds beside the direct check's and the
+     rendering calls' seconds;
      then prints one `{"kernels": [...]}` line, whose wgl_search launches
-     include those of phases 16-18.
+     include those of phases 16-19, and whose scc and bank_reduce
+     launches include those of phase 19.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -128,6 +146,7 @@ import math
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -135,6 +154,7 @@ import torch
 
 import numpy as np
 
+from jepsen_tpu_torch import checker as chk
 from jepsen_tpu_torch import independent, telemetry
 from jepsen_tpu_torch.checker import cycle, linearizable, models
 from jepsen_tpu_torch.gpu import certify, ckpt, elle, ensemble, synth, wgl
@@ -145,6 +165,7 @@ from jepsen_tpu_torch.gpu.kernels import bank_reduce as kbank
 from jepsen_tpu_torch.gpu.kernels import build
 from jepsen_tpu_torch.gpu.kernels import scc as kscc
 from jepsen_tpu_torch.gpu.kernels import wgl_search as ws
+from jepsen_tpu_torch.reports import explain
 from jepsen_tpu_torch.store.format import jsonable
 from jepsen_tpu_torch.workloads import bank
 
@@ -642,9 +663,12 @@ def _recording(module, name, store):
     return original
 
 
-def elle_main_path(dev, on_card: bool, n_txns: int) -> tuple[list, dict]:
+def elle_main_path(dev, on_card: bool, n_txns: int
+                   ) -> tuple[list, dict, dict]:
     """Phase 8: the Elle checkers at full size. Returns the recorded scc
-    launches (check name, args, out) and the launches per check."""
+    launches (check name, args, out), the launches per check, and the
+    histories and wall seconds of each check (phase 19 checks them
+    again through compose)."""
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     la = synth.list_append_history(n_txns, seed=11)
     twin, bad_idx = synth.corrupt_list_append_history(la, at_frac=0.85)
@@ -655,6 +679,8 @@ def elle_main_path(dev, on_card: bool, n_txns: int) -> tuple[list, dict]:
                False),
               ("rw-register", rw, cycle.wr_checker(opts), True)]
     recorded, per_check = [], {}
+    direct = {"histories": {name: h for name, h, _c, _v in checks},
+              "check_s": {}}
     calls: list = []
     original = _recording(kscc, "scc_labels", calls)
     try:
@@ -702,6 +728,7 @@ def elle_main_path(dev, on_card: bool, n_txns: int) -> tuple[list, dict]:
                 if on_card and launches != 5:
                     raise AssertionError(f"twin: {launches} launches")
             per_check[name] = launches
+            direct["check_s"][name] = t1 - t0
             recorded += [(name, a, o) for a, _kw, o in calls]
             emit({"phase": "elle", "check": name, "txns": res["txn-count"],
                   "edges": res["edge-count"], "valid": res["valid?"],
@@ -719,17 +746,17 @@ def elle_main_path(dev, on_card: bool, n_txns: int) -> tuple[list, dict]:
                   "txns_per_s": res["txn-count"] / (t1 - t0)})
     finally:
         kscc.scc_labels = original
-    return recorded, per_check
+    return recorded, per_check, direct
 
 
-def elle_cross_check(dev, n_txns: int) -> None:
-    """Phase 9: card against CPU against the host engine."""
+def elle_cross_check(dev, n_txns: int) -> History:
+    """Phase 9: card against CPU against the host engine. Returns the
+    corrupted list-append history."""
     la = synth.list_append_history(n_txns, seed=11)
+    la_bad = synth.corrupt_list_append_history(la, 0.85)[0]
     rw = synth.rw_register_history(n_txns, seed=17)
     cases = [("list-append", la, elle.check_list_append),
-             ("list-append-corrupted",
-              synth.corrupt_list_append_history(la, 0.85)[0],
-              elle.check_list_append),
+             ("list-append-corrupted", la_bad, elle.check_list_append),
              ("rw-register", rw, elle.check_rw_register),
              ("rw-register-corrupted",
               synth.corrupt_rw_register_history(rw, 0.85)[0],
@@ -757,6 +784,7 @@ def elle_cross_check(dev, n_txns: int) -> None:
               "anomaly_types": card["anomaly-types"], "identical": True,
               "card_s": t1 - t0, "cpu_plain_s": t2 - t1,
               "host_engine_s": t3 - t2})
+    return la_bad
 
 
 def _raise_balance(hist, at_frac: float):
@@ -786,9 +814,12 @@ def _numpy_fold_first_error(hist, total: int):
             "found": [int(b) for b in mat[i] if b < 0], "op": reads[i]}
 
 
-def bank_path(dev, on_card: bool, n_txns: int) -> tuple[list, int]:
+def bank_path(dev, on_card: bool, n_txns: int
+              ) -> tuple[list, int, dict]:
     """Phase 10: the bank checker on the card. Returns the recorded
-    bank_reduce launches and the launch count of the valid check."""
+    bank_reduce launches, the launch count of the valid check, and the
+    histories, total, wall seconds and the twin's first error (phase 19
+    checks them again through compose)."""
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     accounts = 32
     total = accounts * 10
@@ -823,7 +854,8 @@ def bank_path(dev, on_card: bool, n_txns: int) -> tuple[list, int]:
               k: v for k, v in bres["first-error"].items() if k != "op"},
           "corrupted_error_count": bres["error-count"],
           "equals_numpy_fold": True})
-    return main, launches
+    return main, launches, {"history": h, "twin": twin, "total": total,
+                            "check_s": t1 - t0, "first_error": want}
 
 
 def _scc_jacobi_bytes(src, dst, on, n: int, out) -> tuple[int, float, list]:
@@ -1259,9 +1291,11 @@ def ensemble_path(dev, on_card: bool, hists, chunk: int, bad: int) -> dict:
 
 
 def independent_path(dev, on_card: bool, hists, bad: int,
-                     n_validate: int = 15) -> dict:
+                     n_validate: int = 15) -> tuple[dict, dict]:
     """Phase 13: the independent-key checker over the ensemble folded
-    into one multi-key history, and its twin."""
+    into one multi-key history, and its twin. Returns the launches per
+    check, and the two histories and each check's wall seconds (phase 19
+    checks them again through compose)."""
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     n = len(hists)
     t0 = time.perf_counter()
@@ -1274,6 +1308,8 @@ def independent_path(dev, on_card: bool, hists, bad: int,
     chk = independent.checker(linearizable({"model": models.cas_register(),
                                             "device": dev}))
     per_path = {}
+    direct = {"histories": {"independent": multi,
+                            "independent-twin": twin}, "check_s": {}}
     for name, h in (("independent", multi), ("independent-twin", twin)):
         ws.launches = 0
         telemetry.reset()
@@ -1316,6 +1352,7 @@ def independent_path(dev, on_card: bool, hists, bad: int,
             certify.validate(h, results[k]["certificate"], digest=digest)
         t3 = time.perf_counter()
         per_path[name] = launches
+        direct["check_s"][name] = t1 - t0
         emit({"phase": "independent", "check": name, "keys": n,
               "events": len(h), "valid": res["valid?"],
               "failures": res["failures"], "wgl_search_launches": launches,
@@ -1329,7 +1366,7 @@ def independent_path(dev, on_card: bool, hists, bad: int,
               "kernel_ms": [d["device_ms"] for d in _drains()],
               "certify_attach_s": _span_s("certify.attach"),
               **_ensemble_counters(c)})
-    return per_path
+    return per_path, direct
 
 
 def _slices_against_host(dev, on_card: bool, slices, seed: int):
@@ -1705,6 +1742,233 @@ def checker_extend(dev, on_card: bool, hist) -> dict:
     return {"checker-extend": ws.launches}
 
 
+RENDERERS = ("render_linear_svg", "write_linear_trace_excerpt",
+             "write_elle_artifacts", "write_trace_excerpts")
+
+
+def _files(d: Path) -> dict:
+    return {str(p.relative_to(d)): p.read_bytes()
+            for p in sorted(Path(d).rglob("*")) if p.is_file()}
+
+
+def _unsound(res, where: str = "") -> list[str]:
+    """Where a composed result holds valid? "unknown" or an error."""
+    out = []
+    if isinstance(res, dict):
+        if res.get("valid?") == "unknown" or "error" in res:
+            out.append(where or "/")
+        for k, v in res.items():
+            out += _unsound(v, f"{where}/{k}")
+    elif isinstance(res, (list, tuple)):
+        for i, v in enumerate(res):
+            out += _unsound(v, f"{where}/{i}")
+    return out
+
+
+def _rendering_timed(seconds: dict):
+    """Replaces explain's renderers with wrappers that add each call's
+    wall seconds to seconds[name] (the checkers call them from Compose's
+    worker threads); returns the originals."""
+    lock = threading.Lock()
+    originals = {name: getattr(explain, name) for name in RENDERERS}
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                with lock:
+                    seconds[name] = seconds.get(name, 0.0) + (
+                        time.perf_counter() - t0)
+        return wrapper
+
+    for name, fn in originals.items():
+        setattr(explain, name, timed(name, fn))
+    return originals
+
+
+def _composed(name: str, checker, history, store: Path, on_card: bool,
+              direct_s, kernel: str) -> tuple[dict, dict]:
+    """One composed check into `store`, every launch count set to 0 just
+    before and read just after. Returns (result, line)."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    render_s: dict = {}
+    originals = _rendering_timed(render_s)
+    ws.launches = kscc.launches = kscc.converge_launches = 0
+    kbank.launches = 0
+    telemetry.reset()
+    try:
+        t0 = time.perf_counter()
+        res = checker.check({"store_dir": str(store)}, history)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        for fn_name, fn in originals.items():
+            setattr(explain, fn_name, fn)
+    launches = {"wgl_search": ws.launches, "scc": kscc.launches,
+                "scc_converge": kscc.converge_launches,
+                "bank_reduce": kbank.launches}
+    bad = _unsound(res)
+    if bad:
+        raise AssertionError(f"{name}: unknown or error at {bad[:10]}")
+    if on_card and launches[kernel] < 1:
+        raise AssertionError(f"{name}: no {kernel} launch from compose")
+    spans = {sp["name"]: (sp["t1"] - sp["t0"]) / 1e9
+             for sp in telemetry.get().spans()
+             if sp["name"].startswith("checker:")}
+    line = {"phase": "composed", "check": name, "valid": res["valid?"],
+            "wall_s": wall, "direct_s": direct_s,
+            "checker_spans_s": spans, "render_s": render_s,
+            "launches": launches, "files": len(_files(store)),
+            "card": nvidia_smi_line() if on_card else "cpu"}
+    return res, line
+
+
+def composed_path(dev, on_card: bool, elle_direct: dict, la_bad_cross,
+                  bank_direct: dict, ind_direct: dict, bad: int) -> dict:
+    """Phase 19: the checker stacks a Jepsen test composes, on the card,
+    over the histories of phases 8-10 and 13, each into a fresh store
+    directory: (a) the register stack over the folded ensemble and its
+    twin, whose key `bad` must leave a counterexample SVG equal to the
+    one key `bad` checked alone on the CPU leaves; (b) the list-append
+    stack over the 100k history and its twin (G0 artifacts), and phase
+    9's corrupted history through the card and the CPU, with the same
+    files; (c) the bank stack. No sub-result may be "unknown" or carry
+    an error. Returns the launches per check."""
+    launches = {}
+    register = chk.compose({
+        "linear": independent.checker(linearizable(
+            {"model": models.cas_register(), "device": dev})),
+        "stats": chk.stats(), "exceptions": chk.unhandled_exceptions()})
+    append = chk.compose({"elle": cycle.append_checker({"device": dev}),
+                          "stats": chk.stats()})
+    bank_stack = chk.compose({
+        "bank": bank.checker({"total-amount": bank_direct["total"],
+                              "device": dev}),
+        "stats": chk.stats()})
+    checks = [
+        ("register", register, ind_direct["histories"]["independent"],
+         ind_direct["check_s"]["independent"], "wgl_search"),
+        ("register-twin", register,
+         ind_direct["histories"]["independent-twin"],
+         ind_direct["check_s"]["independent-twin"], "wgl_search"),
+        ("list-append", append, elle_direct["histories"]["list-append"],
+         elle_direct["check_s"]["list-append"], "scc"),
+        ("list-append-twin", append,
+         elle_direct["histories"]["list-append-corrupted"],
+         elle_direct["check_s"]["list-append-corrupted"], "scc"),
+        ("bank", bank_stack, bank_direct["history"],
+         bank_direct["check_s"], "bank_reduce"),
+        ("bank-twin", bank_stack, bank_direct["twin"], None,
+         "bank_reduce")]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, checker, h, direct_s, kernel in checks:
+            store = Path(tmp) / name
+            store.mkdir()
+            res, line = _composed(name, checker, h, store, on_card,
+                                  direct_s, kernel)
+            launches[f"composed-{name}"] = line["launches"][kernel]
+            twin = name.endswith("-twin")
+            if res["valid?"] is twin:
+                raise AssertionError(f"{name}: valid? {res['valid?']}")
+            if not twin and _files(store):
+                raise AssertionError(f"{name}: valid, but wrote "
+                                     f"{sorted(_files(store))[:5]}")
+            if name == "register-twin":
+                line.update(_register_twin(res, h, bad, store, Path(tmp)))
+            elif name == "list-append-twin":
+                line.update(_append_twin(res, store))
+            elif name == "bank-twin":
+                want = _norm(bank_direct["first_error"])
+                if _norm(res["bank"]["first-error"]) != want:
+                    raise AssertionError(f"bank twin: "
+                                         f"{res['bank']['first-error']} "
+                                         f"!= phase 10's {want}")
+                line["first_error_equals_phase_10"] = True
+            emit(line)
+        line = _append_card_against_cpu(dev, on_card, la_bad_cross,
+                                        Path(tmp))
+        emit(line)
+    return launches
+
+
+def _register_twin(res, h, bad: int, store: Path, tmp: Path) -> dict:
+    """(a): key `bad` invalid alone, its SVG on disk and byte-equal to
+    the one its subhistory leaves when checked alone on the CPU."""
+    linear = res["linear"]
+    if linear["failures"] != [bad]:
+        raise AssertionError(f"register twin: failures "
+                             f"{linear['failures'][:10]}")
+    svg = Path(linear["results"][bad]["counterexample-svg"])
+    body = svg.read_bytes()
+    if not body.startswith(b"<svg"):
+        raise AssertionError(f"{svg} is not an SVG")
+    alone = tmp / "register-key-alone"
+    alone.mkdir()
+    sub = independent.subhistories(h)[bad]
+    t0 = time.perf_counter()
+    cpu = linearizable({"model": models.cas_register(),
+                        "device": "cpu"}).check({"store_dir": str(alone)},
+                                                sub)
+    cpu_s = time.perf_counter() - t0
+    cpu_svg = Path(cpu["counterexample-svg"])
+    if cpu_svg.name != svg.name or cpu_svg.read_bytes() != body:
+        raise AssertionError(f"key {bad}: card {svg.name} != CPU alone "
+                             f"{cpu_svg.name}")
+    return {"failures": linear["failures"], "svg": svg.name,
+            "svg_bytes": len(body), "svg_equals_cpu_alone": True,
+            "cpu_alone_s": cpu_s}
+
+
+def _append_twin(res, store: Path) -> dict:
+    """(b): the twin's G0 and its artifacts on disk."""
+    elle_res = res["elle"]
+    # the full-size twin's known shape (smaller rehearsal sizes damage
+    # another read, as in phase 8)
+    want = ("G0" if elle_res["txn-count"] == 100_000
+            else elle_res["anomaly-types"][0])
+    if want not in elle_res["anomaly-types"]:
+        raise AssertionError(f"list-append twin: "
+                             f"{elle_res['anomaly-types']}")
+    paths = [Path(p) for p in elle_res.get("artifacts", [])]
+    rel = [str(p.relative_to(store)) for p in paths]
+    named = [r for r in rel
+             if r.startswith(f"elle/{want}-") and r.endswith(".txt")]
+    if not all(p.exists() for p in paths) or not named:
+        raise AssertionError(f"list-append twin artifacts: {rel[:10]}")
+    return {"anomaly_types": elle_res["anomaly-types"],
+            "artifacts": len(rel), "anomaly_file": named[0]}
+
+
+def _append_card_against_cpu(dev, on_card: bool, hist, tmp: Path) -> dict:
+    """(b): phase 9's corrupted history through the list-append checker on
+    the card and on the CPU: the same files, byte for byte, and the same
+    result."""
+    out = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        store = tmp / f"append-20k-{side}"
+        store.mkdir()
+        t0 = time.perf_counter()
+        res = cycle.append_checker({"device": d}).check(
+            {"store_dir": str(store)}, hist)
+        out[side] = (store, res, time.perf_counter() - t0)
+    (cs, cres, c_s), (ps, pres, p_s) = out["card"], out["cpu"]
+    cf, pf = _files(cs), _files(ps)
+    if cf != pf or not cf:
+        raise AssertionError(f"append 20k: card files {sorted(cf)[:5]} != "
+                             f"CPU files {sorted(pf)[:5]}")
+    strip = json.dumps(_norm(cres), default=repr).replace(str(cs), "")
+    if strip != json.dumps(_norm(pres), default=repr).replace(str(ps), ""):
+        raise AssertionError("append 20k: card and CPU results differ")
+    return {"phase": "composed", "check": "list-append-20k card vs cpu",
+            "anomaly_types": cres["anomaly-types"], "files": len(cf),
+            "bytes": sum(len(b) for b in cf.values()),
+            "identical_files": True, "identical_results": True,
+            "card_s": c_s, "cpu_s": p_s,
+            "card": nvidia_smi_line() if on_card else "cpu"}
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 20_000, n_elle: int = 100_000,
@@ -1902,9 +2166,11 @@ def run(dev: torch.device, n_headline: int = 500_000,
     adversarial = scc_adversarial(dev, on_card, n_adversarial,
                                   n_adversarial_chain)
     # 8-10. the Elle and bank paths; 11. their kernels on their launches
-    scc_recorded, scc_per_check = elle_main_path(dev, on_card, n_elle)
-    elle_cross_check(dev, n_elle_cross)
-    bank_recorded, bank_launches = bank_path(dev, on_card, n_bank)
+    scc_recorded, scc_per_check, elle_direct = elle_main_path(
+        dev, on_card, n_elle)
+    la_bad_cross = elle_cross_check(dev, n_elle_cross)
+    bank_recorded, bank_launches, bank_direct = bank_path(dev, on_card,
+                                                          n_bank)
     scc_entry = scc_timing(scc_recorded, scc_per_check, on_card, info)
     scc_entry["convergence_launch"] = adversarial
     bank_entry = bank_timing(bank_recorded, bank_launches, on_card, info)
@@ -1917,7 +2183,9 @@ def run(dev: torch.device, n_headline: int = 500_000,
           "generate_s": time.perf_counter() - t0})
     ens = ensemble_path(dev, on_card, hists, chunk, bad_member)
     per_path = {"headline": main_count, **ens["per_path"]}
-    per_path.update(independent_path(dev, on_card, hists, bad_member))
+    ind_launches, ind_direct = independent_path(dev, on_card, hists,
+                                                bad_member)
+    per_path.update(ind_launches)
     per_path["check_slices"] = slices_path(dev, on_card, hists, n_slices)
 
     # the ensemble launches replayed: the streamed run's chunks (B1) and
@@ -1942,6 +2210,20 @@ def run(dev: torch.device, n_headline: int = 500_000,
     per_path.update(ext["launches"])
     per_path.update(resumable_segmented(dev, on_card, enc, target_len))
     per_path.update(checker_extend(dev, on_card, hist))
+    # 19. the composed checker stacks, with the reports of invalid results
+    composed = composed_path(dev, on_card, elle_direct, la_bad_cross,
+                             bank_direct, ind_direct, bad_member)
+    per_path.update({k: v for k, v in composed.items()
+                     if k.startswith("composed-register")})
+    scc_composed = {k: v for k, v in composed.items()
+                    if k.startswith("composed-list-append")}
+    scc_entry["launches"] += sum(scc_composed.values())
+    scc_entry["launches_per_check"].update(scc_composed)
+    bank_composed = {k: v for k, v in composed.items()
+                     if k.startswith("composed-bank")}
+    bank_entry["launches_per_check"] = {"bank": bank_entry["launches"],
+                                        **bank_composed}
+    bank_entry["launches"] += sum(bank_composed.values())
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}

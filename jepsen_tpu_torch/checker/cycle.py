@@ -8,17 +8,42 @@ are lists of micro-ops; clients fill in read results on completion.
 
 The checkers run the port's elle engines (gpu/elle). opts["device"]
 picks the card (None, the default) or "cpu", as for the linearizable
-checker. Writing the elle artifact files of an invalid result into the
-test's store directory is not ported.
+checker. An invalid result with a test["store_dir"] leaves the elle/
+anomaly files, cycle plots and trace excerpts there (_with_artifacts),
+the same files as the JAX package's.
 """
 
 from __future__ import annotations
 
+import logging
 import random
 from typing import Iterator
 
 from . import Checker, _Fn
 from ..gpu import elle
+
+logger = logging.getLogger(__name__)
+
+
+def _with_artifacts(test, result: dict) -> dict:
+    """On an invalid result with a store directory, writes the elle/
+    anomaly files and cycle plots (the reference passes :directory to
+    elle so it drops the same artifacts, append.clj:17-27) and, when
+    the run was traced, each anomaly's trace excerpt. Best effort: an
+    exception is logged, and the result has no `artifacts`."""
+    store_dir = isinstance(test, dict) and test.get("store_dir")
+    if store_dir and result.get("anomalies"):
+        try:
+            from ..reports import explain
+
+            paths = explain.write_elle_artifacts(store_dir, result)
+            paths += explain.write_trace_excerpts(store_dir, result)
+            if paths:
+                result = dict(result)
+                result["artifacts"] = paths
+        except Exception:  # noqa: BLE001 — artifacts are best-effort
+            logger.exception("writing elle artifacts failed")
+    return result
 
 
 def append_checker(opts: dict | None = None) -> Checker:
@@ -30,7 +55,7 @@ def append_checker(opts: dict | None = None) -> Checker:
     o.setdefault("certify", True)
 
     def run(test, hist, copts):
-        return elle.check_list_append(hist, o)
+        return _with_artifacts(test, elle.check_list_append(hist, o))
 
     return _Fn(run)
 
@@ -42,7 +67,7 @@ def wr_checker(opts: dict | None = None) -> Checker:
     o.setdefault("certify", True)
 
     def run(test, hist, copts):
-        return elle.check_rw_register(hist, o)
+        return _with_artifacts(test, elle.check_rw_register(hist, o))
 
     return _Fn(run)
 

@@ -81,7 +81,9 @@ def bank_reduce(mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             f"({lib.bank_reduce_error_string(rc).decode()}); "
             f"rows={rows} cols={cols}")
     if rows:
-        launches += 1
+        # the checkers of a composed check launch from worker threads
+        with _lib_lock:
+            launches += 1
     return sums, negs
 
 

@@ -163,7 +163,9 @@ def scc_labels(src, dst, edge_on, n: int,
     out = torch.empty(n + 3, dtype=torch.int32, device=src.device)
     _launch(lib.scc_launch, lib.scc_scratch_bytes(n, E), src, dst,
             edge_on, n, E, (SWEEP_CAP, ROUND_CAP), out, syncs)
-    launches += 1
+    # the checkers of a composed check launch from worker threads
+    with _lib_lock:
+        launches += 1
     return out
 
 
@@ -183,7 +185,9 @@ def scc_labels_to_convergence(src, dst, edge_on, n: int,
     tail = max(-1, min(int(TAIL_WORK), 2 ** 31 - 1))
     _launch(lib.scc_converge_launch, lib.scc_converge_scratch_bytes(n, E),
             src, dst, edge_on, n, E, (tail,), out, syncs)
-    converge_launches += 1
+    # the checkers of a composed check launch from worker threads
+    with _lib_lock:
+        converge_launches += 1
     return out
 
 

@@ -143,7 +143,9 @@ def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
             f"S={S} W={W} F={F} shared memory "
             f"{lib.wgl_search_smem_bytes(W, F, int(crash_free))} bytes")
     if B:
-        launches += 1
+        # the checkers of a composed check launch from worker threads
+        with _lib_lock:
+            launches += 1
     lvl = lvl[:, :max_iters]
     if reach:
         return out_mask, unknown, it, lvl[0], lvl[1], lvl[2]

@@ -9,10 +9,12 @@ reset() clears it between runs.
 
 from __future__ import annotations
 
+import json
 import threading
 import time
 from contextlib import contextmanager
-from typing import Any
+from pathlib import Path
+from typing import Any, Iterator
 
 
 class Telemetry:
@@ -95,3 +97,22 @@ def span(name: str, **attrs):
 
 def reset() -> None:
     _global.reset()
+
+
+def read_jsonl(path) -> Iterator[dict]:
+    """Records from a JSONL artifact; a torn or corrupt trailing line
+    (the writer died, or is still writing) is dropped rather than
+    raised. The crash-tolerance contract of optrace.jsonl and
+    nodes.jsonl (tracing.read_records, nodeprobe.read_records)."""
+    p = Path(path)
+    if not p.exists():
+        return
+    with open(p) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                yield json.loads(line)
+            except ValueError:
+                return
