@@ -130,9 +130,36 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      error; no sub-result may be "unknown" or carry an error; prints each
      composed check's wall seconds beside the direct check's and the
      rendering calls' seconds;
+ 20. a generated test, the loop a Jepsen test runs: for the register
+     (300 keys, 5 threads a key, 100 ops a key, 50 threads: 30,000 ops),
+     bank (32 accounts, 40,000 ops), list-append and rw-register (30,000
+     txns each) and fenced-lock (2,000 ops) workloads, each with the
+     workload's generator on the port's interpreter (worker threads, the
+     in-memory clients of jepsen_tpu_torch/testing.py, under
+     util.with_relative_time), and each history the interpreter recorded
+     checked with the workload's checker twice, on the card and with
+     "device": "cpu"; each but the lock has a twin whose client is at
+     fault (stale reads of one key, a bank whose balances start at 11,
+     transactions that read from a snapshot refreshed every 16 txns).
+     Every valid run must be valid and every twin invalid (the register
+     twin's stale key in failures, with at least one stale read the
+     recorded history rules out, the bank twin's first error a wrong
+     total, the Elle twins with anomaly types), no result "unknown"; the
+     card's verdicts, failures, anomaly types, first errors and
+     certificates must equal the CPU's byte for byte, the calls through
+     each kernel wrapper must be the same on both, and on the card equal
+     each wrapper's launch counter: wgl_search 1 for the register run,
+     bank_reduce 1 for the bank run, scc at least 1 for each Elle run,
+     no kernel for the lock run; certificates are validated. Prints each
+     run's interpreter ops/s and counters, check_s split by spans, the
+     launches, the kernels' replayed ms and the card's idle share. One
+     register twin of 2,000 ops runs traced into a temporary store: its
+     optrace.jsonl must pass tracing.validate_records, its check must
+     launch wgl_search once, and the stale key's counterexample trace
+     excerpt must be the trace of its ops;
      then prints one `{"kernels": [...]}` line, whose wgl_search launches
-     include those of phases 16-19, and whose scc and bank_reduce
-     launches include those of phase 19.
+     include those of phases 16-20, and whose scc and bank_reduce
+     launches include those of phases 19 and 20.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -141,6 +168,7 @@ when no CUDA device is available.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -155,7 +183,9 @@ import torch
 import numpy as np
 
 from jepsen_tpu_torch import checker as chk
-from jepsen_tpu_torch import independent, telemetry
+from jepsen_tpu_torch import generator as gen
+from jepsen_tpu_torch import independent, interpreter, telemetry, testing
+from jepsen_tpu_torch import tracing, util
 from jepsen_tpu_torch.checker import cycle, linearizable, models
 from jepsen_tpu_torch.gpu import certify, ckpt, elle, ensemble, synth, wgl
 from jepsen_tpu_torch.gpu import scc as scc_mod
@@ -168,6 +198,10 @@ from jepsen_tpu_torch.gpu.kernels import wgl_search as ws
 from jepsen_tpu_torch.reports import explain
 from jepsen_tpu_torch.store.format import jsonable
 from jepsen_tpu_torch.workloads import bank
+from jepsen_tpu_torch.workloads import lock as wl_lock
+from jepsen_tpu_torch.workloads import register as wl_register
+from jepsen_tpu_torch.workloads import txn_append as wl_append
+from jepsen_tpu_torch.workloads import txn_wr as wl_wr
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bandwidth,
 # and the float32 CUDA-core rate, used as the rate of the kernel's 32-bit
@@ -1969,6 +2003,590 @@ def _append_card_against_cpu(dev, on_card: bool, hist, tmp: Path) -> dict:
             "card": nvidia_smi_line() if on_card else "cpu"}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: a generated test
+# ---------------------------------------------------------------------------
+
+class StaleReadKVClient(testing.KVClient):
+    """A KVClient at fault (a fixture of this script, not of the package):
+    after every `every`-th read of the run, the next read of `key` that
+    can be answered with a value the history has ruled out is answered
+    with it.
+
+    A read R answered v is ruled out when some write X of another value
+    completed before R was invoked and every write of v completed before
+    X was invoked. The client learns these orders from the processes, not
+    the clock: the interpreter journals an op's completion before it
+    hands that process its next op, so once the process of a write
+    invokes again, at time t, the write completed before t. Such a write
+    is settled. The client answers from settled writes only, with a
+    value that no unsettled write may restore. A write of v invoked but
+    not yet in the client when R is answered could still linearize R;
+    `forced_stale_reads` counts from the recorded history the stale
+    reads that no write saves, and phase 20 asks for at least one."""
+
+    def __init__(self, state, key, every: int = 50,
+                 latency_s: float = 0.0005):
+        super().__init__(state, latency_s)
+        self.key = key
+        self.every = every
+        self.reads = 0
+        self.due = False
+        self.meta = threading.Lock()
+        self.applied: dict = {}  # process -> (value, invoked at) it wrote
+        self.unsettled: dict = {}  # value -> writes of it not settled
+        self.settled: list = []  # (value, invoked at, completed before)
+        self.done_by: dict = {}  # value -> its settled writes completed
+        self.stale = 0
+
+    def _settle(self, op) -> None:
+        """op's process invoked again: its last write completed before
+        op.time."""
+        x = self.applied.pop(op.process, None)
+        if x is None:
+            return
+        value, invoked = x
+        self.unsettled[value] -= 1
+        self.settled = self.settled[-63:] + [(value, invoked, op.time)]
+        self.done_by[value] = max(self.done_by.get(value, -1), op.time)
+
+    def _stale_value(self, op, cur):
+        """A value the history rules out for read op, or cur."""
+        for x, invoked, completed in reversed(self.settled):
+            if completed > op.time:  # op's own invoke may settle X
+                continue
+            vs = [v for v, done in self.done_by.items()
+                  if v not in (cur, x) and done <= invoked
+                  and not self.unsettled.get(v)]
+            if vs:
+                return max(vs, key=lambda v: (self.done_by[v], repr(v)))
+        return cur
+
+    def invoke(self, test, op):
+        k, v = op.value
+        new = v if op.f == "write" else v[1] if op.f == "cas" else None
+        mine = k == self.key and op.f != "read"
+        with self.meta:
+            self._settle(op)
+            if mine:
+                self.unsettled[new] = self.unsettled.get(new, 0) + 1
+        wrote = False
+        try:
+            if self.latency_s:
+                time.sleep(self.latency_s)
+            with self.state.lock:
+                cur = self.state.data.get(k)
+                if op.f == "read":
+                    self.reads += 1
+                    if self.reads % self.every == 0:
+                        self.due = True
+                    if k == self.key and self.due:
+                        with self.meta:
+                            old = self._stale_value(op, cur)
+                        if old != cur:
+                            self.due = False
+                            self.stale += 1
+                            return op.copy(type="ok", value=(k, old))
+                    return op.copy(type="ok", value=(k, cur))
+                if op.f == "write" or (op.f == "cas" and cur == v[0]):
+                    wrote = mine
+                    self.state.data[k] = new
+                    return op.copy(type="ok")
+                if op.f == "cas":
+                    return op.copy(type="fail")
+        finally:
+            if mine:
+                with self.meta:
+                    if wrote:
+                        self.applied[op.process] = (new, op.time)
+                    else:
+                        self.unsettled[new] -= 1
+        raise ValueError(f"unknown f {op.f!r}")
+
+
+def forced_stale_reads(hist, key) -> int:
+    """The reads of `key` in a recorded history that no linearization
+    answers: a read of v, not nil, such that some write X of another
+    value completed before the read was invoked, and every write of v
+    completed before X was invoked or was invoked after the read
+    completed. Positions in the history give the order; a successful
+    cas writes its new value."""
+    invoked: dict = {}
+    writes, reads = [], []  # (value, invoke position, completion position)
+    for pos, o in enumerate(hist):
+        kv = o.value
+        if not (isinstance(kv, (tuple, list)) and len(kv) == 2
+                and kv[0] == key):
+            continue
+        if o.type == "invoke":
+            invoked[o.process] = (pos, kv[1])
+            continue
+        inv, arg = invoked.pop(o.process)
+        if o.type != "ok":
+            continue
+        if o.f == "read" and kv[1] is not None:
+            reads.append((kv[1], inv, pos))
+        elif o.f in ("write", "cas"):
+            writes.append((arg if o.f == "write" else arg[1], inv, pos))
+    forced = 0
+    for v, r_inv, r_ok in reads:
+        of_v = [(w_inv, w_ok) for w, w_inv, w_ok in writes if w == v]
+        if any(x != v and x_ok < r_inv and all(
+                w_ok < x_inv or w_inv > r_ok for w_inv, w_ok in of_v)
+               for x, x_inv, x_ok in writes):
+            forced += 1
+    return forced
+
+
+class SnapshotTxnClient(testing.TxnClient):
+    """A TxnClient at fault (a fixture of this script): writes apply to
+    the store, but reads come from a snapshot of it that is refreshed
+    every `every` txns."""
+
+    def __init__(self, every: int = 16, latency_s: float = 0.0003):
+        super().__init__(latency_s=latency_s)
+        self.every = every
+        self.txns = 0
+        self.snapshot: dict = {}
+
+    def invoke(self, test, op):
+        if self.latency_s:
+            time.sleep(self.latency_s)
+        out = []
+        with self.state.lock:
+            if self.txns % self.every == 0:
+                self.snapshot = {k: (list(v) if isinstance(v, list) else v)
+                                 for k, v in self.state.data.items()}
+            self.txns += 1
+            for f, k, v in op.value:
+                if f == "r":
+                    cur = self.snapshot.get(k)
+                    out.append([f, k, list(cur) if isinstance(cur, list)
+                                else cur])
+                elif f == "append":
+                    self.state.data.setdefault(k, []).append(v)
+                    out.append([f, k, v])
+                elif f == "w":
+                    self.state.data[k] = v
+                    out.append([f, k, v])
+                else:
+                    raise ValueError(f"unknown mop {f!r}")
+        return op.copy(type="ok", value=out)
+
+
+def generated_runs(sizes: dict) -> list[dict]:
+    """The runs of phase 20, each a workload, a client factory, the
+    concurrency, the kernel it must launch and whether it is a twin.
+    `sizes` scales them: the full sizes are GENERATED_SIZES."""
+    reg = {"keys": range(sizes["register_keys"]), "group-size": 5,
+           "ops_per_key": 100, "seed": 8}
+    bad_key = sizes["register_keys"] // 2
+    accounts = list(range(32))
+    bank_o = {"accounts": accounts, "ops": sizes["bank_ops"], "seed": 11}
+    txn_o = {"ops": sizes["txn_ops"], "seed": 9}
+    return [
+        {"name": "register", "workload": wl_register.workload, "opts": reg,
+         "client": lambda: testing.KVClient(testing.KVState()),
+         "concurrency": sizes["register_concurrency"],
+         "kernel": "wgl_search", "twin": False},
+        {"name": "register-twin", "workload": wl_register.workload,
+         "opts": reg, "bad_key": bad_key,
+         "client": lambda: StaleReadKVClient(testing.KVState(), bad_key),
+         "concurrency": sizes["register_concurrency"],
+         "kernel": "wgl_search", "twin": True},
+        {"name": "bank", "workload": bank.workload, "opts": bank_o,
+         "client": lambda: testing.BankClient(testing.BankState(accounts)),
+         "concurrency": 10, "kernel": "bank_reduce", "twin": False},
+        {"name": "bank-twin", "workload": bank.workload, "opts": bank_o,
+         "client": lambda: testing.BankClient(
+             testing.BankState(accounts, initial=11)),
+         "concurrency": 10, "kernel": "bank_reduce", "twin": True},
+        {"name": "list-append", "workload": wl_append.workload,
+         "opts": txn_o, "client": testing.TxnClient, "concurrency": 10,
+         "kernel": "scc", "twin": False},
+        {"name": "list-append-twin", "workload": wl_append.workload,
+         "opts": txn_o, "client": SnapshotTxnClient, "concurrency": 10,
+         "kernel": "scc", "twin": True},
+        {"name": "rw-register", "workload": wl_wr.workload, "opts": txn_o,
+         "client": testing.TxnClient, "concurrency": 10, "kernel": "scc",
+         "twin": False},
+        {"name": "rw-register-twin", "workload": wl_wr.workload,
+         "opts": txn_o, "client": SnapshotTxnClient, "concurrency": 10,
+         "kernel": "scc", "twin": True},
+        {"name": "lock", "workload": wl_lock.fenced_lock_workload,
+         "opts": {"ops": sizes["lock_ops"]},
+         "client": testing.LockClient, "concurrency": 5, "kernel": None,
+         "twin": False},
+    ]
+
+
+GENERATED_SIZES = {"register_keys": 300, "register_concurrency": 50,
+                   "bank_ops": 40_000, "txn_ops": 30_000, "lock_ops": 2_000,
+                   "traced_keys": 20}
+
+# the wrappers phase 20 counts calls through, and the kernel each counts
+WRAPPERS = ((ws, "wgl_search", "wgl_search"),
+            (kscc, "scc_labels", "scc"),
+            (kscc, "scc_labels_to_convergence", "scc_converge"),
+            (kbank, "bank_reduce", "bank_reduce"))
+
+
+def generated_test(workload: dict, client, concurrency: int) -> dict:
+    """A clusterless test map: the noop test with the workload's
+    generator on the client threads, its checker and its other keys."""
+    test = testing.noop_test()
+    test.update(concurrency=concurrency, client=client,
+                checker=workload["checker"],
+                generator=gen.clients(workload["generator"]))
+    for k, v in workload.items():
+        if k not in ("generator", "checker"):
+            test[k] = v
+    return test
+
+
+def interpret(test: dict) -> tuple[dict, float, dict]:
+    """interpreter.run on the test under a fresh relative-time origin;
+    returns the test with its history, the wall seconds and the
+    interpreter's counters."""
+    telemetry.reset()
+    with util.with_relative_time():
+        t0 = time.perf_counter()
+        out = interpreter.run(test)
+        seconds = time.perf_counter() - t0
+    c = telemetry.get().counters()
+    return out, seconds, {k: v for k, v in c.items()
+                          if k.startswith("interpreter.")}
+
+
+def _counted_check(checker, test, hist, on_card: bool):
+    """checker.check with a call counter around every kernel wrapper (the
+    same count on the card and on the CPU, where the plain versions run)
+    and each wrapper's own launch counter set to 0 just before and read
+    just after. Returns (result, seconds, calls, launches, recorded,
+    spans, counters)."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    # each side checks its own copy, from a collected heap, so neither
+    # reuses what the other built or pays for the other's garbage
+    hist = History(list(hist), assign_indices=False)
+    gc.collect()
+    recorded = {label: [] for _m, _n, label in WRAPPERS}
+    originals = [(m, n, _recording(m, n, recorded[label]))
+                 for m, n, label in WRAPPERS]
+    ws.launches = kscc.launches = kscc.converge_launches = 0
+    kbank.launches = 0
+    telemetry.reset()
+    try:
+        t0 = time.perf_counter()
+        res = chk.check(checker, test, hist)
+        sync()
+        seconds = time.perf_counter() - t0
+    finally:
+        for m, n, fn in originals:
+            setattr(m, n, fn)
+    launches = {"wgl_search": ws.launches, "scc": kscc.launches,
+                "scc_converge": kscc.converge_launches,
+                "bank_reduce": kbank.launches}
+    calls = {label: len(v) for label, v in recorded.items()}
+    spans: dict = {}
+    for sp in telemetry.get().spans():
+        spans[sp["name"]] = spans.get(sp["name"], 0.0) + (
+            sp["t1"] - sp["t0"]) / 1e9
+    return (res, seconds, calls, launches, recorded, spans,
+            telemetry.get().counters())
+
+
+def _certificates(res) -> dict:
+    """Every certificate in a result tree, by where it sits, as bytes."""
+    out = {}
+
+    def walk(x, where):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                if k == "certificate":
+                    out[where or "/"] = json.dumps(jsonable(v),
+                                                   sort_keys=True).encode()
+                else:
+                    walk(v, f"{where}/{k}")
+
+    walk(res, "")
+    return out
+
+
+def _compared(res) -> dict:
+    """The parts of a result the card and the CPU must agree on: the
+    verdict, failures, anomaly types and first error, wherever they sit
+    in the tree."""
+    out = {}
+
+    def walk(x, where):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                if k in ("valid?", "failures", "anomaly-types",
+                         "first-error"):
+                    out[f"{where}/{k}"] = _norm(v)
+                elif k != "certificate":
+                    walk(v, f"{where}/{k}")
+
+    walk(res, "")
+    return out
+
+
+def _replayed_kernel_ms(recorded: dict, on_card: bool) -> float | None:
+    """CUDA-event ms of every recorded kernel launch, replayed."""
+    if not on_card:
+        return None
+    ms = 0.0
+    fns = {"wgl_search": ws.wgl_search, "scc": kscc.scc_labels,
+           "scc_converge": kscc.scc_labels_to_convergence,
+           "bank_reduce": kbank.bank_reduce}
+    for label, calls in recorded.items():
+        for args, kw, _out in calls:
+            ms += _event_ms(lambda: fns[label](*args, **kw), reps=3)
+    return ms
+
+
+def _check_spans(run: str, spans: dict, counters: dict) -> dict:
+    """check_s split into host encode, kernel path and certificate."""
+    if run.startswith(("list-append", "rw-register")):
+        fam = "list-append" if run.startswith("list") else "rw-register"
+        return {"host_encode_s": spans.get(f"elle:{fam}", 0.0),
+                "cycle_search_s": spans.get("elle:cycles", 0.0),
+                "scc_device_s": spans.get("scc:device", 0.0),
+                "certify_s": spans.get("certify.attach", 0.0)}
+    if run.startswith("register"):
+        return {"host_encode_s": counters.get("encode.ns", 0) / 1e9,
+                "pack_s": counters.get("wgl.batch.pack_ns", 0) / 1e9,
+                "drain_s": spans.get("wgl:drain", 0.0),
+                "host_resolved_rows": counters.get(
+                    "wgl.host-resolved-rows", 0),
+                "certify_s": spans.get("certify.attach", 0.0)}
+    return {}
+
+
+def _validate_certs(run: str, hist, res, bad_key) -> int:
+    """certify.validate over the card's certificates: elle's one, the
+    register's first 16 keys and the twin's bad key (each against the
+    whole history)."""
+    if run.startswith(("list-append", "rw-register")):
+        certify.validate(hist, res["certificate"])
+        return 1
+    if run.startswith("register"):
+        keys = sorted(res["results"], key=str)[:16]
+        if bad_key is not None and bad_key not in keys:
+            keys.append(bad_key)
+        for k in keys:
+            certify.validate(hist, res["results"][k]["certificate"])
+        return len(keys)
+    return 0
+
+
+def generated_path(dev, on_card: bool, sizes: dict | None = None) -> dict:
+    """Phase 20: a generated test. Each run builds its workload with
+    device=None (the card) or "cpu", drives the port's interpreter with
+    worker threads over the in-memory client, and checks the history it
+    recorded twice: on the card and with "device": "cpu" (the kernels'
+    plain versions). Returns the launches per run, by kernel.
+
+    The heap of the earlier phases is frozen out of the collector for
+    the phase, so the collection before each check scans this phase's
+    objects only."""
+    gc.collect()
+    gc.freeze()
+    try:
+        return _generated_path(dev, on_card, sizes)
+    finally:
+        gc.unfreeze()
+
+
+def _generated_path(dev, on_card: bool, sizes: dict | None) -> dict:
+    sizes = dict(GENERATED_SIZES, **(sizes or {}))
+    card_dev = None if on_card else dev
+    t_phase = time.perf_counter()
+    per_kernel: dict = {"wgl_search": {}, "scc": {}, "bank_reduce": {}}
+    for spec in generated_runs(sizes):
+        name = spec["name"]
+        w = spec["workload"](dict(spec["opts"], device=card_dev))
+        test, interp_s, icount = interpret(generated_test(
+            w, spec["client"](), spec["concurrency"]))
+        hist = test["history"]
+        invokes = sum(1 for o in hist if o.type == "invoke")
+        card = _counted_check(w["checker"], test, hist, on_card)
+        wcpu = spec["workload"](dict(spec["opts"], device="cpu"))
+        cpu = _counted_check(wcpu["checker"], test, hist, False)
+        res, check_s, calls, launches, recorded, spans, counters = card
+        cres, cpu_s, ccalls = cpu[0], cpu[1], cpu[2]
+        bad = _unsound(res) + _unsound(cres)
+        if bad:
+            raise AssertionError(f"{name}: unknown or error at {bad[:10]}")
+        if res["valid?"] is spec["twin"]:
+            raise AssertionError(f"{name}: valid? {res['valid?']}")
+        if _compared(res) != _compared(cres):
+            raise AssertionError(f"{name}: card {_compared(res)} != "
+                                 f"cpu {_compared(cres)}")
+        certs, ccerts = _certificates(res), _certificates(cres)
+        if certs != ccerts:
+            diff = [k for k in set(certs) | set(ccerts)
+                    if certs.get(k) != ccerts.get(k)]
+            raise AssertionError(f"{name}: certificates differ at "
+                                 f"{diff[:10]}")
+        if calls != ccalls:
+            raise AssertionError(f"{name}: wrapper calls card {calls} != "
+                                 f"cpu {ccalls}")
+        kernel = spec["kernel"]
+        if on_card:
+            if {k: launches[k] for k in calls} != calls:
+                raise AssertionError(f"{name}: launch counters {launches} "
+                                     f"!= wrapper calls {calls}")
+            if kernel is None and any(launches.values()):
+                raise AssertionError(f"{name}: launched {launches}")
+            if kernel is not None and launches[kernel] < 1:
+                raise AssertionError(f"{name}: no {kernel} launch")
+            if name in ("register", "bank") and launches[kernel] != 1:
+                raise AssertionError(f"{name}: {launches[kernel]} "
+                                     f"{kernel} launches, want 1")
+        scc_paths = {k: counters.get(k, 0) for k in (
+            "scc.path.device", "scc.path.host", "scc.device-nonconverged")}
+        # a valid run's one graph is past DEVICE_MIN_EDGES; a twin's
+        # smaller graded edge subsets may fall under it and go to scipy
+        # by size, the reference's rule
+        if kernel == "scc" and not spec["twin"] and \
+                scc_paths["scc.path.host"]:
+            raise AssertionError(f"{name}: an SCC off the card {scc_paths}")
+        line = {"phase": "generated", "run": name,
+                "invokes": invokes, "events": len(hist),
+                "concurrency": spec["concurrency"],
+                "interpreter_s": interp_s,
+                "interpreter_ops_per_s": invokes / interp_s,
+                **{k.removeprefix("interpreter."): v
+                   for k, v in icount.items()},
+                "valid": res["valid?"], "check_s": check_s,
+                **_check_spans(name, spans, counters),
+                "cpu_check_s": cpu_s, "launches": launches,
+                "wrapper_calls": calls}
+        if kernel == "scc":
+            line["scc_paths"] = scc_paths
+        if spec["twin"]:
+            line.update(_twin_facts(spec, test, res))
+        t0 = time.perf_counter()
+        line["certificates_validated"] = _validate_certs(
+            name, hist, res, spec.get("bad_key"))
+        line["validate_s"] = time.perf_counter() - t0
+        kernel_ms = _replayed_kernel_ms(recorded, on_card)
+        wall_ms = 1e3 * (interp_s + check_s)
+        line.update({"kernel_ms": kernel_ms,
+                     "card_busy_share": (kernel_ms / wall_ms
+                                         if kernel_ms is not None
+                                         else None),
+                     "card_idle_share": (1 - kernel_ms / wall_ms
+                                         if kernel_ms is not None
+                                         else None),
+                     "card": nvidia_smi_line() if on_card else "cpu"})
+        emit(line)
+        if kernel is not None:
+            per_kernel[kernel][f"generated-{name}"] = calls[kernel]
+    per_kernel["wgl_search"]["generated-register-traced"] = \
+        traced_register_run(dev, on_card, sizes)
+    emit({"phase": "generated-total",
+          "seconds": time.perf_counter() - t_phase,
+          "card": nvidia_smi_line() if on_card else "cpu"})
+    return per_kernel
+
+
+def _twin_facts(spec: dict, test: dict, res: dict) -> dict:
+    """What each twin must show besides valid? False."""
+    name = spec["name"]
+    if name == "register-twin":
+        if spec["bad_key"] not in res["failures"]:
+            raise AssertionError(f"{name}: failures {res['failures'][:10]}"
+                                 f" lack key {spec['bad_key']}")
+        forced = forced_stale_reads(test["history"], spec["bad_key"])
+        if forced < 1:
+            raise AssertionError(f"{name}: {test['client'].stale} stale "
+                                 f"reads, none ruled out by the history")
+        return {"failures": res["failures"],
+                "stale_reads": test["client"].stale,
+                "forced_stale_reads": forced}
+    if name == "bank-twin":
+        fe = res["bank"]["first-error"]
+        if fe["type"] != "wrong-total":
+            raise AssertionError(f"{name}: first error {fe}")
+        return {"first_error": {k: v for k, v in fe.items() if k != "op"},
+                "error_count": res["bank"]["error-count"]}
+    if not res.get("anomaly-types"):
+        raise AssertionError(f"{name}: no anomaly types")
+    return {"anomaly_types": res["anomaly-types"]}
+
+
+def traced_register_run(dev, on_card: bool, sizes: dict) -> int:
+    """The register twin traced (test["trace?"]) into a temporary store
+    directory: the tracer writes optrace.jsonl while the interpreter runs,
+    the file must pass tracing.validate_records, and the invalid key's
+    counterexample trace excerpt must be written from it. Returns the
+    wgl_search launches of its check."""
+    n_keys = sizes["traced_keys"]
+    bad_key = n_keys // 3
+    opts = {"keys": range(n_keys), "group-size": 5, "ops_per_key": 100,
+            "seed": 8, "device": None if on_card else dev}
+    w = wl_register.workload(opts)
+    client = StaleReadKVClient(testing.KVState(), bad_key, every=10)
+    tracer = tracing.get()
+    with tempfile.TemporaryDirectory() as tmp:
+        test = generated_test(w, client, 10)
+        test.update({"trace?": True, "store_dir": tmp})
+        tracer.reset(enabled=True)
+        try:
+            tracer.open(Path(tmp) / tracing.TRACE_FILE)
+            test, interp_s, icount = interpret(test)
+            tracer.flush()
+        finally:
+            tracer.reset(enabled=False)
+        recs = list(tracing.read_records(Path(tmp) / tracing.TRACE_FILE))
+        n_recs = tracing.validate_records(recs)
+        hist = test["history"]
+        forced = forced_stale_reads(hist, bad_key)
+        if forced < 1:
+            raise AssertionError(f"traced twin: {client.stale} stale reads,"
+                                 f" none ruled out by the history")
+        res, check_s, calls, launches, _rec, _sp, _c = _counted_check(
+            w["checker"], test, hist, on_card)
+        if res["valid?"] is not False or bad_key not in res["failures"]:
+            raise AssertionError(f"traced twin: {res['valid?']} "
+                                 f"{res['failures']}")
+        if on_card and (launches["wgl_search"] != calls["wgl_search"]
+                        or launches["wgl_search"] != 1):
+            raise AssertionError(f"traced twin: launch counters {launches}"
+                                 f", wrapper calls {calls}, want 1 "
+                                 f"wgl_search")
+        excerpt = res["results"][bad_key].get("trace-excerpt")
+        if not excerpt or not Path(excerpt).exists():
+            raise AssertionError(f"traced twin: no trace excerpt {excerpt}")
+        # the excerpt's lines are the records of optrace.jsonl behind the
+        # counterexample's ops
+        body = Path(excerpt).read_text().splitlines()
+        by_op = tracing.by_op(recs)
+        idxs = sorted(res["results"][bad_key]["op-indices"])
+        want = explain.trace_excerpt_lines(by_op, idxs)
+        if not any(i in by_op for i in idxs) or any(
+                line not in body for line in want):
+            raise AssertionError(f"traced twin: the excerpt is not the "
+                                 f"trace of ops {idxs}")
+        invokes = sum(1 for o in hist if o.type == "invoke")
+        if len(by_op) != invokes:
+            raise AssertionError(f"traced twin: {len(by_op)} traced ops for "
+                                 f"{invokes} invocations")
+        emit({"phase": "generated-traced", "run": "register-twin",
+              "invokes": invokes, "interpreter_s": interp_s,
+              "interpreter_ops_per_s": invokes / interp_s,
+              **{k.removeprefix("interpreter."): v
+                 for k, v in icount.items()},
+              "trace_records": n_recs, "traced_ops": len(by_op),
+              "failures": res["failures"], "stale_reads": client.stale,
+              "forced_stale_reads": forced,
+              "excerpt": Path(excerpt).name, "check_s": check_s,
+              "launches": launches})
+        return calls["wgl_search"]
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 20_000, n_elle: int = 100_000,
@@ -1976,7 +2594,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
         n_ensemble: int = ENSEMBLE_N, chunk: int = ENSEMBLE_CHUNK,
         bad_member: int = ENSEMBLE_BAD, n_plain_rows: int = 128,
         n_slices: int = 64, n_adversarial: int = 100_000,
-        n_adversarial_chain: int = 20_001) -> dict:
+        n_adversarial_chain: int = 20_001,
+        generated_sizes: dict | None = None) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
 
@@ -2224,6 +2843,13 @@ def run(dev: torch.device, n_headline: int = 500_000,
     bank_entry["launches_per_check"] = {"bank": bank_entry["launches"],
                                         **bank_composed}
     bank_entry["launches"] += sum(bank_composed.values())
+    # 20. a generated test: the port's interpreter records each history
+    generated = generated_path(dev, on_card, generated_sizes)
+    per_path.update(generated["wgl_search"])
+    scc_entry["launches"] += sum(generated["scc"].values())
+    scc_entry["launches_per_check"].update(generated["scc"])
+    bank_entry["launches"] += sum(generated["bank_reduce"].values())
+    bank_entry["launches_per_check"].update(generated["bank_reduce"])
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}

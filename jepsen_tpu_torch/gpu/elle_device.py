@@ -587,16 +587,26 @@ def cycle_anomalies_arrays(n: int, src, dst, ty, txns,
         mask = np.isin(ty, sub)
         if not mask.any():
             continue
-        if sub == _SUBSETS[-1]:
-            groups = scc_mod.nontrivial_from_labels(full)
-        else:
-            groups = scc_mod.nontrivial_from_labels(graph.scc(mask))
+        labels = full if sub == _SUBSETS[-1] else graph.scc(mask)
+        groups = scc_mod.nontrivial_from_labels(labels)
+        if not groups:
+            continue
+        # a group is every node of one label, so its edges are the
+        # subset's edges whose ends both carry that label: one pass over
+        # the edges, grouped by label in edge order (the reference tests
+        # membership of every edge for every group)
+        lab = np.asarray(labels)
+        inner = np.flatnonzero(mask & (lab[src] == lab[dst]))
+        inner = inner[np.argsort(lab[src[inner]], kind="stable")]
+        inner_lab = lab[src[inner]]
         for members in groups:
             key = frozenset(int(x) for x in members)
             if key in seen:
                 continue
             seen.add(key)
-            em = mask & np.isin(src, members) & np.isin(dst, members)
+            g = lab[members[0]]
+            em = inner[np.searchsorted(inner_lab, g, "left"):
+                       np.searchsorted(inner_lab, g, "right")]
             edges = [(int(a), int(b), int(c))
                      for a, b, c in zip(src[em], dst[em], ty[em])]
             cycle = _find_cycle(sorted(int(x) for x in members), edges)

@@ -4,17 +4,19 @@ The subset of jepsen_tpu/telemetry.py that encode, wgl and certify
 report through, under the same metric names (`wgl.kernel.launches`,
 `wgl.search.states`, ...), so a run of the port reads like a run of the
 JAX package. Thread-safe; get() returns the process-wide recorder and
-reset() clears it between runs.
+reset() clears it between runs. Spans are stamped on the test's linear
+clock (util.relative_time_nanos, the clock ops are stamped with).
 """
 
 from __future__ import annotations
 
 import json
 import threading
-import time
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Any, Iterator
+
+from . import util
 
 
 class Telemetry:
@@ -25,6 +27,7 @@ class Telemetry:
         self._counters: dict[str, int] = {}
         self._gauges: dict[str, Any] = {}
         self._spans: list[dict] = []
+        self._epoch = 0
 
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -42,14 +45,15 @@ class Telemetry:
 
     @contextmanager
     def span(self, name: str, **attrs):
-        """Records a named interval (monotonic ns) once the block ends."""
-        rec: dict = {"name": name, "t0": time.monotonic_ns()}
+        """Records a named interval (relative-time ns) once the block
+        ends."""
+        rec: dict = {"name": name, "t0": util.relative_time_nanos()}
         if attrs:
             rec["attrs"] = attrs
         try:
             yield rec
         finally:
-            rec["t1"] = time.monotonic_ns()
+            rec["t1"] = util.relative_time_nanos()
             with self._lock:
                 self._spans.append(rec)
 
@@ -65,8 +69,17 @@ class Telemetry:
         with self._lock:
             return list(self._spans)
 
+    @property
+    def epoch(self) -> int:
+        """Bumped by every reset(): a worker thread that flushes its
+        tallies at exit drops them when a reset intervened since it
+        started, so a straggler from an earlier run cannot leak into the
+        next run's counters."""
+        return self._epoch
+
     def reset(self) -> None:
         with self._lock:
+            self._epoch += 1
             self._counters.clear()
             self._gauges.clear()
             self._spans.clear()

@@ -1,7 +1,7 @@
 """Bank workload: concurrent transfers between accounts must conserve
-the total balance at every read (jepsen_tpu/workloads/bank.py, ported:
-the generator and the checker; the workload bundle with its balance
-plot is not).
+the total balance at every read (the port's copy of
+jepsen_tpu/workloads/bank.py: the generator, the checker and the
+workload bundle with its balance plot).
 
 Capability reference: jepsen/src/jepsen/tests/bank.clj — generators
 (19-43: transfer with random from/to/amount, read), checker (56-120:
@@ -152,3 +152,29 @@ def checker(opts: dict | None = None) -> chk.Checker:
             out, bank_imbalance=bool(out.get("error-count")))
 
     return _Fn(run)
+
+
+def workload(opts: dict | None = None) -> dict:
+    """The bank bundle (bank.clj:178-191): the generator, the accounts
+    and total, and a checker composing the conservation verdict, the
+    balance-over-time plot and stats. opts["device"] picks the card
+    (None, the default) or "cpu" for the conservation checker."""
+    from .. import generator as gen
+    from ..reports.perf import balance_graph
+
+    o = dict(opts or {})
+    accounts = o.get("accounts", list(range(8)))
+    g = generator(accounts, o.get("max-transfer", 5), o.get("seed"))
+    if o.get("ops"):
+        g = gen.limit(o["ops"], g)
+    return {
+        "accounts": accounts,
+        "total-amount": o.get("total-amount",
+                              len(accounts) * o.get("initial", 10)),
+        "generator": g,
+        # the balance-over-time plot rides next to the conservation
+        # verdict (bank.clj:150-176's plot entry in the bundle)
+        "checker": chk.compose({"bank": checker(o),
+                                "balance-plot": balance_graph(),
+                                "stats": chk.stats()}),
+    }
