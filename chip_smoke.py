@@ -157,9 +157,44 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      optrace.jsonl must pass tracing.validate_records, its check must
      launch wgl_search once, and the stale key's counterexample trace
      excerpt must be the trace of its ops;
+ 21. the test lifecycle: four full Jepsen runs through core.run, each a
+     named test in a temporary store over the dummy remote (the five
+     nodes of the noop test, a responder chain answering node addresses,
+     the network device, the fixture DB's pid file, node clocks and the
+     node probe's seeded synthetic state), with FixtureDB's daemon
+     started, killed, paused and resumed through control.exec_, the
+     combined nemesis package's partition, kill, pause and clock faults
+     at a 1 s interval and its final generator, the monitor at 1 s and
+     the node probe on: the register (50 threads, the register
+     watchdog adapter; 200 keys, 20,000 ops, the cut that keeps the
+     phase near 130 s) must be valid with 1 wgl_search launch; its twin
+     (StaleReadKVClient, trace? on) invalid with the stale key in
+     failures, at least one stale read the history rules out and an
+     optrace.jsonl that passes tracing.validate_records; list-append
+     (30,000 txns) valid with scc launched; bank (32 accounts, 40,000
+     ops; conservation and stats) valid with 1 bank_reduce launch. Each
+     run directory must hold the run: history.jlog read back by
+     store.load equal to the history op for op, results.json equal to
+     the results, a `certified` stamp on every certificate, the
+     clock-skew bound of the stored nodes.jsonl (whose records pass
+     validate_records), a metrics.json that passes validate_metrics, a
+     monitor point a second of the case span (one fewer allowed: the
+     sampler's period is 1 s plus its own time) and every kernel
+     gauge of the analysis in the time series, a coverage.json that
+     passes validate_record with the fault activations of the history,
+     one more atlas line, a -j DROP and the final iptables -F -w in every
+     node's session log, a non-empty jepsen.log; the run directory is
+     analysed again with core.analyze and the checker built with
+     "device": "cpu", whose verdicts, failures, anomaly types, first
+     errors and certificates must equal the card's byte for byte, with
+     the same calls through each kernel wrapper; no result may be
+     "unknown" or carry an error, and no thread or log handler may
+     outlive the phase. Prints each run's lifecycle spans, ops/s, fault
+     activations, check seconds on the card and the CPU, launches,
+     kernel ms and the card's idle share over the whole core.run;
      then prints one `{"kernels": [...]}` line, whose wgl_search launches
-     include those of phases 16-20, and whose scc and bank_reduce
-     launches include those of phases 19 and 20.
+     include those of phases 16-21, and whose scc and bank_reduce
+     launches include those of phases 19-21.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -170,6 +205,7 @@ from __future__ import annotations
 
 import gc
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -183,9 +219,14 @@ import torch
 import numpy as np
 
 from jepsen_tpu_torch import checker as chk
+from jepsen_tpu_torch import control, core, coverage
+from jepsen_tpu_torch import db as jdb
 from jepsen_tpu_torch import generator as gen
-from jepsen_tpu_torch import independent, interpreter, telemetry, testing
-from jepsen_tpu_torch import tracing, util
+from jepsen_tpu_torch import independent, interpreter, nodeprobe, store
+from jepsen_tpu_torch import telemetry, testing, tracing, util
+from jepsen_tpu_torch.control import util as cu
+from jepsen_tpu_torch.control.dummy import DummyRemote
+from jepsen_tpu_torch.nemesis import combined
 from jepsen_tpu_torch.checker import cycle, linearizable, models
 from jepsen_tpu_torch.gpu import certify, ckpt, elle, ensemble, synth, wgl
 from jepsen_tpu_torch.gpu import scc as scc_mod
@@ -2587,6 +2628,495 @@ def traced_register_run(dev, on_card: bool, sizes: dict) -> int:
         return calls["wgl_search"]
 
 
+# ---------------------------------------------------------------------------
+# 21. the test lifecycle: core.run over the dummy remote
+# ---------------------------------------------------------------------------
+
+# phase 20's run sizes, but for the register runs: 200 keys (20,000
+# ops) instead of 300, which keeps the phase near 130 s on the card (at
+# 300 keys it took 177 s there, each register run ~35 s of core.run and
+# ~16 s of re-analysis on the CPU). nemesis_ops bounds the fault
+# schedule (four packages at a 1 s interval give about four nemesis ops
+# a second). stale_every is the twin's StaleReadKVClient's `every`: a
+# small run needs a stale read due after every read to be sure of one
+# the history rules out.
+LIFECYCLE_SIZES = {"register_keys": 200, "register_concurrency": 50,
+                   "bank_ops": 40_000, "txn_ops": 30_000,
+                   "nemesis_ops": 24, "stale_every": 50}
+LIFECYCLE_FAULTS = ["partition", "kill", "pause", "clock"]
+FIXTURE_PIDFILE = "/run/fixture-db.pid"
+FIXTURE_PID = "4242"
+FIXTURE_LOG = "/var/log/fixture-db.log"
+FIXTURE_DIR = "/opt/fixture-db"
+
+
+class FixtureDB(jdb.DB):
+    """The database a lifecycle run installs on every node. Its daemon's
+    start, kill, pause and resume are commands through control.exec_ on
+    the node's dummy session (the in-memory client holds the data), and
+    its log is the file the node probe tails and snarf_logs downloads."""
+
+    supports_kill = True
+    supports_pause = True
+
+    def setup(self, test, node):
+        self.start(test, node)
+
+    def teardown(self, test, node):
+        self.kill(test, node)
+
+    def start(self, test, node):
+        return cu.start_daemon(
+            {"logfile": FIXTURE_LOG, "pidfile": FIXTURE_PIDFILE,
+             "chdir": FIXTURE_DIR}, f"{FIXTURE_DIR}/bin/fixture-db")
+
+    def kill(self, test, node):
+        cu.stop_daemon(FIXTURE_PIDFILE)
+        return "killed"
+
+    def pause(self, test, node):
+        with control.su():
+            control.exec_("kill", "-STOP",
+                          control.exec_("cat", FIXTURE_PIDFILE))
+        return "paused"
+
+    def resume(self, test, node):
+        with control.su():
+            control.exec_("kill", "-CONT",
+                          control.exec_("cat", FIXTURE_PIDFILE))
+        return "resumed"
+
+    def log_files(self, test, node):
+        return [FIXTURE_LOG]
+
+
+def lifecycle_responder():
+    """The dummy remote's answers: node addresses (getent), the network
+    device (ip link), the fixture DB's pid file, the node clock (date,
+    bump-time), and the node probe's compound command with seeded
+    synthetic node state. A fresh chain per run keeps the synthetic
+    state run-scoped."""
+    probe = nodeprobe.synthetic_responder(seed=7)
+
+    def respond(node, action):
+        cmd = action.cmd
+        if cmd.startswith("getent ahostsv4"):
+            host = cmd.split()[-1]
+            digits = "".join(ch for ch in str(host) if ch.isdigit())
+            return f"10.0.0.{int(digits or 0) % 250 + 1}   STREAM {host}"
+        if cmd == "ip -o link show":
+            return ("1: lo: <LOOPBACK,UP> mtu 65536\n"
+                    "2: eth0: <BROADCAST,MULTICAST,UP> mtu 1500")
+        if cmd == f"cat {FIXTURE_PIDFILE}":
+            return FIXTURE_PID
+        if cmd.startswith(("date +%s.%N", "/opt/jepsen/bump-time")):
+            return f"{time.time():.9f}"
+        return probe(node, action)
+
+    return respond
+
+
+def lifecycle_test(name: str, workload: dict, client, concurrency: int,
+                   store_base, nemesis_ops: int) -> dict:
+    """A named test over the dummy remote: the fixture DB on the five
+    nodes of the noop test, the combined nemesis package's partition,
+    kill, pause and clock faults at a 1 s interval (nemesis_ops of them
+    beside the workload's client ops, then the package's final
+    generator), the monitor at 1 s and the node probe on."""
+    db = FixtureDB()
+    pkg = combined.nemesis_package({"db": db, "faults": LIFECYCLE_FAULTS,
+                                    "interval": 1})
+    test = testing.noop_test()
+    test.update({
+        "name": f"lifecycle-{name}", "store_base": str(store_base),
+        "remote": DummyRemote(lifecycle_responder()), "db": db,
+        "client": client, "concurrency": concurrency,
+        "nemesis": pkg["nemesis"], "checker": workload["checker"],
+        "generator": gen.phases(
+            gen.clients(workload["generator"],
+                        gen.limit(nemesis_ops, pkg["generator"])),
+            gen.nemesis(pkg["final_generator"])),
+        "plot": {"nemeses": pkg["perf"]},
+        "monitor_interval_s": 1, "nodeprobe?": True})
+    for k, v in workload.items():
+        if k not in ("generator", "checker"):
+            test[k] = v
+    return test
+
+
+def lifecycle_runs(sizes: dict) -> list[dict]:
+    """The runs of phase 21 on phase 20's workloads. The bank run checks
+    the conservation verdict and stats: the bundle's balance plot needs
+    matplotlib, which the card machine lacks, and a stored run would
+    report it "unknown"."""
+    reg = {"keys": range(sizes["register_keys"]), "group-size": 5,
+           "ops_per_key": 100, "seed": 8}
+    bad_key = sizes["register_keys"] // 2
+    accounts = list(range(32))
+
+    def bank_workload(o):
+        w = bank.workload(o)
+        w["checker"] = chk.compose({"bank": bank.checker(o),
+                                    "stats": chk.stats()})
+        return w
+
+    return [
+        {"name": "register", "workload": wl_register.workload, "opts": reg,
+         "client": lambda: testing.KVClient(testing.KVState()),
+         "concurrency": sizes["register_concurrency"],
+         "kernel": "wgl_search", "twin": False, "watchdog": True},
+        {"name": "register-twin", "workload": wl_register.workload,
+         "opts": reg, "bad_key": bad_key,
+         "client": lambda: StaleReadKVClient(testing.KVState(), bad_key,
+                                             every=sizes["stale_every"]),
+         "concurrency": sizes["register_concurrency"],
+         "kernel": "wgl_search", "twin": True, "watchdog": True,
+         "trace": True},
+        {"name": "list-append", "workload": wl_append.workload,
+         "opts": {"ops": sizes["txn_ops"], "seed": 9},
+         "client": testing.TxnClient, "concurrency": 10,
+         "kernel": "scc", "twin": False, "watchdog": False},
+        {"name": "bank", "workload": bank_workload,
+         "opts": {"accounts": accounts, "ops": sizes["bank_ops"],
+                  "seed": 11},
+         "client": lambda: testing.BankClient(testing.BankState(accounts)),
+         "concurrency": 10, "kernel": "bank_reduce", "twin": False,
+         "watchdog": False},
+    ]
+
+
+def _wrapped_kernels():
+    """Replaces every kernel wrapper with a recording one and sets each
+    launch counter to 0; returns (recorded, restore)."""
+    recorded = {label: [] for _m, _n, label in WRAPPERS}
+    originals = [(m, n, _recording(m, n, recorded[label]))
+                 for m, n, label in WRAPPERS]
+    ws.launches = kscc.launches = kscc.converge_launches = 0
+    kbank.launches = 0
+
+    def restore():
+        for m, n, fn in originals:
+            setattr(m, n, fn)
+
+    return recorded, restore
+
+
+def _stamping_timed():
+    """Wraps certify.stamp_results, which core.analyze calls after the
+    `analyze` span to validate every certificate again; returns (the
+    list its calls' seconds go to, restore)."""
+    seconds: list = []
+    original = certify.stamp_results
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return original(*args, **kw)
+        finally:
+            seconds.append(time.perf_counter() - t0)
+
+    certify.stamp_results = timed
+
+    def restore():
+        certify.stamp_results = original
+
+    return seconds, restore
+
+
+def _launch_counts() -> dict:
+    return {"wgl_search": ws.launches, "scc": kscc.launches,
+            "scc_converge": kscc.converge_launches,
+            "bank_reduce": kbank.launches}
+
+
+def _checked(res) -> dict:
+    """A run's results without the entries core.analyze puts beside the
+    checkers' (the watchdog's and the telemetry summary)."""
+    return {k: v for k, v in res.items()
+            if k not in ("watchdog", "telemetry")}
+
+
+def _results_unsound(res) -> list[str]:
+    """Where the checkers' results hold "unknown", an error or a failed
+    certificate."""
+    out = []
+
+    def walk(x, where):
+        if isinstance(x, dict):
+            if x.get("valid?") == "unknown" or "error" in x \
+                    or "certificate-error" in x:
+                out.append(where or "/")
+            for k, v in x.items():
+                walk(v, f"{where}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{where}/{i}")
+
+    walk(_checked(res), "")
+    return out
+
+
+def _uncertified(res) -> list[str]:
+    """Where a result carries a certificate without a `certified`
+    stamp."""
+    out = []
+
+    def walk(x, where):
+        if isinstance(x, dict):
+            if "certificate" in x and x.get("certified") is not True:
+                out.append(where or "/")
+            for k, v in x.items():
+                walk(v, f"{where}/{k}")
+
+    walk(res, "")
+    return out
+
+
+def _fault_counts(faults, kinds) -> dict:
+    """{kind: activations} of the kinds named (an end without its begin
+    folds to a count of 0 and is left out)."""
+    return {f["kind"]: f["count"] for f in faults
+            if f["kind"] in kinds and f["count"]}
+
+
+def _check_run_dir(spec: dict, out: dict, atlas_before: int) -> dict:
+    """The run directory against the run in memory: history, results,
+    certificates, the clock-skew bound, metrics, the time series,
+    coverage and the atlas, the session logs, jepsen.log."""
+    name = spec["name"]
+    d = Path(out["store_dir"])
+    loaded = store.load(d)
+    hist = out["history"]
+    if [jsonable(o) for o in loaded["history"]] != \
+            [jsonable(o) for o in hist]:
+        raise AssertionError(f"{name}: history.jlog differs from the run")
+    with open(d / "results.json") as f:
+        if json.load(f) != jsonable(out["results"]):
+            raise AssertionError(f"{name}: results.json differs")
+    res = out["results"]
+    missing = _uncertified(res)
+    if missing:
+        raise AssertionError(f"{name}: certificates without a stamp at "
+                             f"{missing[:10]}")
+    recs = nodeprobe.load_records(d)
+    n_recs = nodeprobe.validate_records(recs)
+    bound = nodeprobe.clock_skew_bound(recs, loaded["history"])
+    if bound is None or res.get("clock-skew-bound") != bound:
+        raise AssertionError(f"{name}: clock-skew-bound "
+                             f"{res.get('clock-skew-bound')} != {bound}")
+    events, metrics = store.load_telemetry(d)
+    telemetry.validate_metrics(metrics)
+    case = [e for e in events if e["name"] == "case"]
+    if len(case) != 1:
+        raise AssertionError(f"{name}: {len(case)} case spans")
+    c0, c1 = case[0]["t0"], case[0]["t1"]
+    points = store.load_timeseries(d)
+    in_case = [p["t"] for p in points if c0 <= p["t"] <= c1]
+    case_s = (c1 - c0) / 1e9
+    # one point a second of the case: the sampler waits a whole second
+    # after each point, so its period is 1 s plus the sample's own time
+    # and the wake-up under the GIL, and over a 20 s case that drift can
+    # cost one point
+    if len(in_case) < int(case_s) - 1:
+        raise AssertionError(f"{name}: {len(in_case)} monitor points in "
+                             f"a {case_s:.2f} s case")
+    period_s = (float(np.median(np.diff(in_case))) / 1e9
+                if len(in_case) > 1 else None)
+    # every kernel gauge the analysis set streams in the time series
+    want_gauges = {k for k in res["telemetry"]["gauges"]
+                   if k.startswith(("wgl.", "elle.", "scc."))}
+    shown = set()
+    for p in points:
+        shown |= set(p.get("gauges") or ())
+    if not want_gauges <= shown:
+        raise AssertionError(f"{name}: gauges {sorted(want_gauges)} not "
+                             f"in the time series ({sorted(shown)})")
+    rec = coverage.load_record(d)
+    coverage.validate_record(rec)
+    kinds = ("partition", "db-kill", "db-pause", "clock-bump",
+             "clock-strobe", "clock-reset")
+    live = _fault_counts(rec["faults"], kinds)
+    # a bare start/stop is the history fallback's documented ambiguity
+    # (coverage.F_KINDS reads it as a partition): the db package's start
+    # ends a kill, so it is left out of the fallback's count
+    from_hist = _fault_counts(coverage.faults_from_history(
+        [o for o in hist if o.f not in ("start", "stop")]), kinds)
+    if live != from_hist:
+        raise AssertionError(f"{name}: coverage {live} != history "
+                             f"{from_hist}")
+    if not live.get("partition"):
+        raise AssertionError(f"{name}: no partition: {live}")
+    atlas = coverage.read_atlas(Path(out["store_base"])
+                                / coverage.ATLAS_FILE)
+    coverage.validate_atlas(atlas)
+    if len(atlas) != atlas_before + 1 or atlas[-1]["run"] != rec["run"]:
+        raise AssertionError(f"{name}: atlas {atlas_before} -> "
+                             f"{len(atlas)} lines")
+    for node, sess in out["sessions"].items():
+        cmds = [a.cmd for a in sess.log if hasattr(a, "cmd")]
+        if not any("-j DROP" in c for c in cmds):
+            raise AssertionError(f"{name}: no -j DROP on {node}")
+        if "iptables -F -w" not in cmds:
+            raise AssertionError(f"{name}: no final heal on {node}")
+    if not (d / "jepsen.log").stat().st_size:
+        raise AssertionError(f"{name}: empty jepsen.log")
+    return {"nodes_records": n_recs, "clock_skew_bound": bound,
+            "monitor_points": len(points), "monitor_points_in_case":
+            len(in_case), "monitor_period_s": period_s, "case_s": case_s,
+            "faults": live,
+            "atlas_lines": len(atlas), "loaded": loaded}
+
+
+def lifecycle_path(dev, on_card: bool, sizes: dict | None = None) -> dict:
+    """Phase 21: full Jepsen runs through core.run, each analysed on the
+    card and its run directory analysed again on the CPU. Returns the
+    launches per run, by kernel. The earlier phases' heap is frozen out
+    of the collector, as in phase 20."""
+    gc.collect()
+    gc.freeze()
+    log = logging.getLogger("jepsen_tpu_torch")
+    level = log.level
+    log.setLevel(logging.INFO)
+    try:
+        return _lifecycle_path(dev, on_card, sizes)
+    finally:
+        log.setLevel(level)
+        gc.unfreeze()
+
+
+def _lifecycle_path(dev, on_card: bool, sizes: dict | None) -> dict:
+    sizes = dict(LIFECYCLE_SIZES, **(sizes or {}))
+    card_dev = None if on_card else dev
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    threads0 = threading.active_count()
+    handlers0 = list(logging.getLogger().handlers)
+    per_kernel: dict = {"wgl_search": {}, "scc": {}, "bank_reduce": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for spec in lifecycle_runs(sizes):
+            name = spec["name"]
+            w = spec["workload"](dict(spec["opts"], device=card_dev))
+            test = lifecycle_test(name, w, spec["client"](),
+                                  spec["concurrency"], tmp,
+                                  sizes["nemesis_ops"])
+            if spec["watchdog"]:
+                test["watchdog"] = ["register"]
+            if spec.get("trace"):
+                test["trace?"] = True
+            atlas_before = len(coverage.read_atlas(
+                Path(tmp) / coverage.ATLAS_FILE))
+            recorded, restore = _wrapped_kernels()
+            stamp_s, unstamp = _stamping_timed()
+            try:
+                t0 = time.perf_counter()
+                out = core.run(test)
+                sync()
+                run_s = time.perf_counter() - t0
+            finally:
+                restore()
+                unstamp()
+            launches = _launch_counts()
+            calls = {label: len(v) for label, v in recorded.items()}
+            if logging.getLogger().handlers != handlers0:
+                raise AssertionError(f"{name}: the run's log handler was "
+                                     f"not released")
+            res = out["results"]
+            bad = _results_unsound(res)
+            if bad:
+                raise AssertionError(f"{name}: unknown or error at "
+                                     f"{bad[:10]}")
+            if res["valid?"] is spec["twin"]:
+                raise AssertionError(f"{name}: valid? {res['valid?']}")
+            kernel = spec["kernel"]
+            if on_card:
+                if {k: launches[k] for k in calls} != calls:
+                    raise AssertionError(f"{name}: launch counters "
+                                         f"{launches} != wrapper calls "
+                                         f"{calls}")
+                if launches[kernel] < 1 or (
+                        kernel != "scc" and launches[kernel] != 1):
+                    raise AssertionError(f"{name}: {launches[kernel]} "
+                                         f"{kernel} launches")
+            facts = _check_run_dir(spec, out, atlas_before)
+            loaded = facts.pop("loaded")
+            line_twin = {}
+            if spec["twin"]:
+                line_twin = _twin_facts(
+                    {"name": "register-twin", "bad_key": spec["bad_key"]},
+                    out, res)
+                recs = list(tracing.read_records(
+                    Path(out["store_dir"]) / tracing.TRACE_FILE))
+                line_twin["trace_records"] = tracing.validate_records(recs)
+            # the stored run analysed again on the CPU
+            wcpu = spec["workload"](dict(spec["opts"], device="cpu"))
+            again = dict(loaded, checker=wcpu["checker"])
+            crecorded, crestore = _wrapped_kernels()
+            cpu_stamp_s, cunstamp = _stamping_timed()
+            try:
+                t0 = time.perf_counter()
+                cres = core.analyze(again)["results"]
+                cpu_s = time.perf_counter() - t0
+            finally:
+                crestore()
+                cunstamp()
+            ccalls = {label: len(v) for label, v in crecorded.items()}
+            bad = _results_unsound(cres)
+            if bad:
+                raise AssertionError(f"{name} (cpu): unknown or error at "
+                                     f"{bad[:10]}")
+            if _compared(jsonable(_checked(res))) != \
+                    _compared(jsonable(_checked(cres))):
+                raise AssertionError(f"{name}: card and cpu verdicts "
+                                     f"differ")
+            certs, ccerts = _certificates(res), _certificates(cres)
+            if certs != ccerts:
+                diff = [k for k in set(certs) | set(ccerts)
+                        if certs.get(k) != ccerts.get(k)]
+                raise AssertionError(f"{name}: certificates differ at "
+                                     f"{diff[:10]}")
+            if calls != ccalls:
+                raise AssertionError(f"{name}: wrapper calls card {calls} "
+                                     f"!= cpu {ccalls}")
+            tel = res["telemetry"]
+            hist = out["history"]
+            invokes = sum(1 for o in hist
+                          if o.type == "invoke" and isinstance(o.process,
+                                                               int))
+            kernel_ms = _replayed_kernel_ms(recorded, on_card)
+            emit({"phase": "lifecycle", "run": name,
+                  "valid": res["valid?"], "invokes": invokes,
+                  "events": len(hist), "run_s": run_s,
+                  "spans_ms": {k: v for k, v in tel["phases"].items()
+                               if k in ("os-setup", "db-cycle", "case",
+                                        "snarf-logs", "analyze", "run")
+                               or k.startswith("teardown-")},
+                  "interpreter_ops_per_s": invokes / facts["case_s"],
+                  "check_s": tel["phases"].get("analyze", 0.0) / 1e3,
+                  "stamp_s": sum(stamp_s), "cpu_analyze_s": cpu_s,
+                  "cpu_stamp_s": sum(cpu_stamp_s), "launches": launches,
+                  "wrapper_calls": calls, **facts, **line_twin,
+                  "watchdog": {k: v for k, v in (res.get("watchdog")
+                                                 or {}).items()
+                               if k != "violations"},
+                  "kernel_ms": kernel_ms,
+                  "card_idle_share": (1 - kernel_ms / (1e3 * run_s)
+                                      if kernel_ms is not None else None),
+                  "card": nvidia_smi_line() if on_card else "cpu"})
+            per_kernel[kernel][f"lifecycle-{name}"] = calls[kernel]
+            del out, loaded, again
+    if threading.active_count() != threads0:
+        raise AssertionError(f"threads: {threads0} before the phase, "
+                             f"{threading.active_count()} after "
+                             f"({[t.name for t in threading.enumerate()]})")
+    if logging.getLogger().handlers != handlers0:
+        raise AssertionError(f"log handlers left behind: "
+                             f"{logging.getLogger().handlers}")
+    emit({"phase": "lifecycle-total",
+          "seconds": time.perf_counter() - t_phase,
+          "card": nvidia_smi_line() if on_card else "cpu"})
+    return per_kernel
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 20_000, n_elle: int = 100_000,
@@ -2595,7 +3125,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
         bad_member: int = ENSEMBLE_BAD, n_plain_rows: int = 128,
         n_slices: int = 64, n_adversarial: int = 100_000,
         n_adversarial_chain: int = 20_001,
-        generated_sizes: dict | None = None) -> dict:
+        generated_sizes: dict | None = None,
+        lifecycle_sizes: dict | None = None) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
 
@@ -2850,6 +3381,13 @@ def run(dev: torch.device, n_headline: int = 500_000,
     scc_entry["launches_per_check"].update(generated["scc"])
     bank_entry["launches"] += sum(generated["bank_reduce"].values())
     bank_entry["launches_per_check"].update(generated["bank_reduce"])
+    # 21. the test lifecycle: core.run, analysed on the card
+    lifecycle = lifecycle_path(dev, on_card, lifecycle_sizes)
+    per_path.update(lifecycle["wgl_search"])
+    scc_entry["launches"] += sum(lifecycle["scc"].values())
+    scc_entry["launches_per_check"].update(lifecycle["scc"])
+    bank_entry["launches"] += sum(lifecycle["bank_reduce"].values())
+    bank_entry["launches_per_check"].update(lifecycle["bank_reduce"])
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}

@@ -10,10 +10,11 @@ latency-sensitive), then ask the generator, dispatch with a 1-slot
 inbound queue per worker, crash-to-:info conversion, process
 reincarnation on :info, and incremental history writes.
 
-The live monitor and the online watchdog are optional, duck-typed
-objects (test["monitor"]: on_dispatch/on_complete/on_stall;
-test["watchdog"]: observe/tripped/early_abort); their modules come with
-the test lifecycle and are not ported yet.
+The live monitor (monitor.Monitor: on_dispatch/on_complete/on_stall)
+and the online watchdog (watchdog.Watchdog: observe/tripped/
+early_abort) are optional: core.run builds them from the test map and
+puts them under test["monitor"] and test["watchdog"], and the main loop
+calls their hooks when they are there.
 """
 
 from __future__ import annotations
@@ -194,8 +195,8 @@ def spawn_worker(test, out: queue.Queue, worker: Worker, wid):
 
 
 class MemoryHistoryWriter:
-    """In-memory history sink (the disk-backed writer comes with the run
-    store of the test lifecycle)."""
+    """In-memory history sink (the disk-backed writer is
+    store.format.HistoryWriter, which store.start_test attaches)."""
 
     def __init__(self):
         self.ops: list[Op] = []
@@ -231,7 +232,7 @@ def run(test: dict) -> dict:
     mon = test.get("monitor")
     wd = test.get("watchdog")
     if wd is not None and not hasattr(wd, "observe"):
-        wd = None  # an unbuilt spec (the test lifecycle builds it)
+        wd = None  # an unbuilt spec (core.run builds the object)
 
     op_index = 0
     outstanding = 0

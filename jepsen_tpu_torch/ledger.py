@@ -1,6 +1,6 @@
-"""The crash-safe write primitive the port's checkpoint store uses: the
-part of jepsen_tpu/ledger.py that gpu/ckpt.py needs (the run ledger
-itself is not ported)."""
+"""The crash-safe write primitives of the port's checkpoint store and
+coverage atlas: the part of jepsen_tpu/ledger.py that gpu/ckpt.py and
+coverage.py need (the run ledger itself is not ported)."""
 
 from __future__ import annotations
 
@@ -17,3 +17,17 @@ def write_all(fd: int, buf: bytes) -> None:
         if n <= 0:
             raise OSError("short write")
         view = view[n:]
+
+
+def atomic_append_line(path, line: str) -> None:
+    """One whole line, one os.write, O_APPEND: the shared-journal
+    append primitive of the coverage atlas. Short writes (ENOSPC,
+    signals) are continued rather than silently torn; the continuation
+    can interleave with another writer only in the already-degraded
+    disk-full case, where the torn-tail read rule still drops the
+    damage."""
+    fd = os.open(path, os.O_APPEND | os.O_CREAT | os.O_WRONLY, 0o644)
+    try:
+        write_all(fd, (line + "\n").encode())
+    finally:
+        os.close(fd)

@@ -1,15 +1,15 @@
-"""Host C helpers of the elle engines and their loader: the
-`elle_flatten` and `realtime_edges` parts of jepsen_tpu/native, copied
-for the port (the history-log codec is not ported).
+"""Host C helpers and their loader: the port's copy of jepsen_tpu/native
+(`jlog`, `scan`, `frame`, `elle_flatten`, `realtime_edges`).
 
-This is host code, not a device kernel: `elleflat.c` flattens a
+This is host code, not a device kernel: `jlog.c` scans and frames the
+CRC-framed history log (store/format.py), `elleflat.c` flattens a
 history's op list into the dense int64 arrays the elle device engine
 consumes, and `order.c` is the realtime-order sweep. Each source is
 compiled with the system C compiler at first use into `build/` beside
 this file (listed in .gitignore), named by a hash of its contents, and
-loaded over ctypes. Both have a pure Python fallback: a missing
+loaded over ctypes. Each has a pure Python fallback: a missing
 toolchain raises RuntimeError here, and the callers then take the
-Python path, which computes the same arrays.
+Python path, which computes the same bytes and arrays.
 """
 
 from __future__ import annotations
@@ -102,6 +102,57 @@ def _bind_elleflat(lib) -> None:
     lib.ef_keys.argtypes = [ctypes.c_void_p]
     lib.ef_free.restype = None
     lib.ef_free.argtypes = [ctypes.c_void_p]
+
+
+def _bind_jlog(lib) -> None:
+    lib.jlog_scan.restype = ctypes.c_int64
+    lib.jlog_scan.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64)]
+    lib.jlog_frame.restype = ctypes.c_int64
+    lib.jlog_frame.argtypes = [
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64, ctypes.c_char_p]
+
+
+def jlog() -> ctypes.CDLL | None:
+    """The compiled history-log codec (jlog.c), or None (callers use
+    the Python path)."""
+    return _load("jlog", ctypes.CDLL, _bind_jlog, ("-lz",))
+
+
+def scan(buf: bytes, start: int) -> tuple[list[tuple[int, int]], int]:
+    """(payload (start, end) offsets, valid_prefix_end) via the C
+    codec; raises RuntimeError if the codec is unavailable."""
+    import numpy as np
+
+    lib = jlog()
+    if lib is None:
+        raise RuntimeError("native jlog codec unavailable")
+    # generous bound: every record needs >= 8 bytes of header
+    max_records = max((len(buf) - start) // 8 + 1, 1)
+    offsets = (ctypes.c_int64 * (2 * max_records))()
+    valid_end = ctypes.c_int64(start)
+    n = lib.jlog_scan(buf, len(buf), start, offsets, max_records,
+                      ctypes.byref(valid_end))
+    # one C-speed materialization: per-item ctypes access costs more
+    # than the scan itself
+    arr = np.ctypeslib.as_array(offsets)[:2 * n].reshape(-1, 2)
+    return arr.tolist(), int(valid_end.value)
+
+
+def frame(payloads: list[bytes]) -> bytes:
+    """Concatenated framed records for payloads via the C codec;
+    raises RuntimeError if unavailable."""
+    lib = jlog()
+    if lib is None:
+        raise RuntimeError("native jlog codec unavailable")
+    blob = b"".join(payloads)
+    lens = (ctypes.c_int64 * len(payloads))(*map(len, payloads))
+    out = ctypes.create_string_buffer(len(blob) + 8 * len(payloads))
+    written = lib.jlog_frame(blob, lens, len(payloads), out)
+    return out.raw[:written]
 
 
 def order() -> ctypes.CDLL | None:

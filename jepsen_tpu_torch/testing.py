@@ -1,6 +1,7 @@
 """Clusterless test fixtures: the noop test and in-memory clients (the
-port's copy of the part of jepsen_tpu/testing.py that the register, bank,
-list-append, rw-register and lock workloads run against).
+port's copy of the part of jepsen_tpu/testing.py that core.run and the
+register, bank, list-append, rw-register and lock workloads run
+against).
 
 Capability reference: jepsen/src/jepsen/tests.clj (noop-test 11-24,
 atom-db 26-32, atom-client 34-66). These power the reference's own
@@ -15,18 +16,20 @@ import time
 from . import client as jclient
 from . import db as jdb
 from . import nemesis as jnemesis
+from . import net as jnet
+from . import os_setup
 
 
 def noop_test() -> dict:
     """A boring test stub, basis for writing real tests
-    (tests.clj:11-24): the keys the interpreter reads. The JAX package's
-    stub also carries "os", "net" and "ssh", which the test lifecycle
-    (OS setup, network heal, control sessions) reads; they come with
-    that slice and are left out here."""
+    (tests.clj:11-24)."""
     return {
         "nodes": ["n1", "n2", "n3", "n4", "n5"],
         "name": None,  # no store dir by default in unit tests
+        "os": os_setup.noop,
         "db": jdb.noop,
+        "net": jnet.iptables,
+        "ssh": {"dummy": True},
         "client": jclient.noop,
         "nemesis": jnemesis.noop,
         "generator": None,

@@ -29,11 +29,11 @@ complete; a torn trailing line is dropped on read. The reader half
 (reports/explain.py) and the timeline's hover titles
 (reports/timeline.py).
 
-The recorder is OFF by default. A caller that runs a test traced resets
-the global tracer with enabled=True, opens it on the store directory's
-optrace.jsonl, runs the interpreter and then flushes and closes it (the
-lifecycle that core.run wires in the JAX package, which is not ported
-yet). Every record call begins with one `enabled` check.
+The recorder is OFF by default: `test["trace?"] = True` opts a run in
+(core.run resets the global tracer with enabled=True, opens it on the
+store directory's optrace.jsonl, flushes it before the analysis and
+closes it at the end), and every record call begins with one `enabled`
+check.
 """
 
 from __future__ import annotations

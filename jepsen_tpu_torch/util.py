@@ -1,16 +1,20 @@
 """Host helpers of the port: the part of jepsen_tpu/util.py that the
-checkers, the generators and the interpreter need (the port keeps its own
-copy and imports nothing of the JAX package).
+checkers, the generators, the interpreter and the test lifecycle need
+(the port keeps its own copy and imports nothing of the JAX package).
 
 Mirrors the roles of jepsen/src/jepsen/util.clj (relative-time-nanos
 util.clj:388-407, real-pmap util.clj:71-83, timeout util.clj:430,
-with-retry util.clj:487-529, nemesis-intervals util.clj:780). The
+await-fn util.clj:443-486, with-retry util.clj:487-529, named-locks
+util.clj:855-943, rand-distribution util.clj:140-184, nemesis-intervals
+util.clj:780). The xprof hook (profile_trace) is not ported: a profiled
+run is ROADMAP A5 (torch.profiler). The
 relative-time origin is this module's own state: ops, telemetry spans
 and trace records of the port are stamped on it.
 """
 
 from __future__ import annotations
 
+import math
 import random
 import threading
 import time as _time
@@ -168,6 +172,35 @@ def integer_interval_set_str(xs: Iterable[int]) -> str:
     return "#{" + " ".join(parts) + "}"
 
 
+def await_fn(
+    f: Callable[[], Any],
+    *,
+    retry_interval: float = 1.0,
+    log_interval: float = 10.0,
+    log_message: str | None = None,
+    timeout_secs: float = 60.0,
+) -> Any:
+    """Calls f repeatedly until it returns without raising; raises Timeout
+    after timeout_secs. Mirrors jepsen.util/await-fn (util.clj:443-486)."""
+    deadline = _time.monotonic() + timeout_secs
+    last_log = _time.monotonic()
+    while True:
+        try:
+            return f()
+        except Exception as e:  # noqa: BLE001
+            now = _time.monotonic()
+            if now > deadline:
+                raise Timeout(
+                    f"await_fn timed out after {timeout_secs}s: {e!r}"
+                ) from e
+            if log_message and now - last_log >= log_interval:
+                import logging
+
+                logging.getLogger(__name__).info("%s (%r)", log_message, e)
+                last_log = now
+            _time.sleep(retry_interval)
+
+
 def with_retry(
     f: Callable[[], Any],
     *,
@@ -194,6 +227,35 @@ def with_retry(
 # ---------------------------------------------------------------------------
 
 
+class NamedLocks:
+    """A family of locks keyed by name (jepsen.util/named-locks,
+    util.clj:855-943): with_named_lock serializes bodies per key."""
+
+    def __init__(self):
+        self._guard = threading.Lock()
+        self._locks: dict = {}
+
+    @contextmanager
+    def hold(self, name):
+        with self._guard:
+            lock = self._locks.setdefault(name, threading.Lock())
+        with lock:
+            yield
+
+
+def named_locks() -> NamedLocks:
+    return NamedLocks()
+
+
+def meh(f: Callable[[], Any]) -> Any:
+    """Calls f, returning its value, or the exception it raised instead
+    of propagating it (jepsen.util/meh)."""
+    try:
+        return f()
+    except Exception as e:  # noqa: BLE001
+        return e
+
+
 def name_str(x: Any) -> str:
     """Printable name for a thread/process id (int or str like 'nemesis')."""
     return str(x)
@@ -208,6 +270,58 @@ def seeded_rng(seed, *key):
     "no seed = fresh randomness" convention.
     """
     return random.Random(None if seed is None else repr((seed,) + key))
+
+
+def majority(n: int) -> int:
+    """Smallest majority of n nodes (util.clj)."""
+    return n // 2 + 1
+
+
+def minority_third(n: int) -> int:
+    """Largest integer strictly less than n/3 (util.clj:95-99), for
+    byzantine-fault thresholds."""
+    return (n - 1) // 3
+
+
+def random_nonempty_subset(coll, rng: Any = None) -> list | None:
+    """A randomly selected, randomly ordered, non-empty subset; None for
+    an empty collection (util.clj:51-56)."""
+
+    rng = rng or random
+    coll = list(coll)
+    if not coll:
+        return None
+    rng.shuffle(coll)
+    return coll[:1 + rng.randrange(len(coll))]
+
+
+def rand_distribution(dist_map: dict | None = None, rng: Any = None):
+    """Random value from a distribution spec (util.clj:140-184):
+    {'distribution': 'uniform', 'min': 0, 'max': 1024} |
+    {'distribution': 'geometric', 'p': 1e-3} |
+    {'distribution': 'one-of', 'values': [...]} |
+    {'distribution': 'weighted', 'weights': {value: weight, ...}}"""
+
+    rng = rng or random
+    d = dict(dist_map or {})
+    kind = d.get("distribution", "uniform")
+    if kind == "uniform":
+        lo = d.get("min", 0)
+        hi = d.get("max", 2 ** 63 - 1)
+        assert lo < hi, f"invalid distribution-map: {d}"
+        return int(math.floor(lo + rng.random() * (hi - lo)))
+    if kind == "geometric":
+        p = d["p"]
+        return int(math.ceil(math.log(rng.random()) / math.log(1.0 - p)))
+    if kind == "one-of":
+        values = list(d["values"])
+        assert values, f"invalid distribution-map: {d}"
+        return rng.choice(values)
+    if kind == "weighted":
+        weights = d["weights"]
+        values = list(weights.keys())
+        return rng.choices(values, weights=[weights[v] for v in values])[0]
+    raise AssertionError(f"invalid distribution-map: {d}")
 
 
 def nemesis_intervals(history, specs=None) -> list:
