@@ -12,8 +12,8 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
   3. holds the wgl_search kernel against its plain PyTorch version on the
      card, on seeded histories (verdict and reach mode, with and without
      crashes, a window/frontier overflow case, segment rows with an empty
-     segment, one long segment of ~12k entries at M = 16384 crash-free
-     at W=32 and crashed, so the kernel's shared-memory ring wraps ~93
+     segment, one long segment of ~6k entries at M = 8192 crash-free
+     at W=32 and crashed, so the kernel's shared-memory ring wraps ~46
      times, a register over 600 values, so S = 512 states), prints the
      levels each case finished on the kernel's warp path and on its
      block path and the warp-path levels that sorted, and fails unless
@@ -28,7 +28,7 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      valid with >= 40 segments, and the same history corrupted at 85%
      must come back invalid, with the failed segment unreachable from its
      composed start state under the host search;
-  5. cross-checks the slice on a ~40k-event history: check_segmented on
+  5. cross-checks the slice on a ~20k-event history: check_segmented on
      the card equals check_segmented on the CPU (the plain kernel), and
      analysis(certify=True) / the linearizable checker on the card give
      certificates the port's validator accepts;
@@ -131,8 +131,8 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      composed check's wall seconds beside the direct check's and the
      rendering calls' seconds;
  20. a generated test, the loop a Jepsen test runs: for the register
-     (300 keys, 5 threads a key, 100 ops a key, 50 threads: 30,000 ops),
-     bank (32 accounts, 40,000 ops), list-append and rw-register (30,000
+     (200 keys, 5 threads a key, 100 ops a key, 50 threads: 20,000 ops),
+     bank (32 accounts, 40,000 ops), list-append and rw-register (20,000
      txns each) and fenced-lock (2,000 ops) workloads, each with the
      workload's generator on the port's interpreter (worker threads, the
      in-memory clients of jepsen_tpu_torch/testing.py, under
@@ -171,7 +171,7 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      (StaleReadKVClient, trace? on) invalid with the stale key in
      failures, at least one stale read the history rules out and an
      optrace.jsonl that passes tracing.validate_records; list-append
-     (30,000 txns) valid with scc launched; bank (32 accounts, 40,000
+     (20,000 txns) valid with scc launched; bank (32 accounts, 40,000
      ops; conservation and stats) valid with 1 bank_reduce launch. Each
      run directory must hold the run: history.jlog read back by
      store.load equal to the history op for op, results.json equal to
@@ -192,9 +192,41 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      outlive the phase. Prints each run's lifecycle spans, ops/s, fault
      activations, check seconds on the card and the CPU, launches,
      kernel ms and the card's idle share over the whole core.run;
+ 22. checking-as-a-service: one port FleetServer on 127.0.0.1 with the
+     card as its device, 36 tenants streaming at once in chunks of 512
+     ops over the wire (each chunk journaled to the WAL before its ack,
+     stream checks on): 32 cas-register tenants at bench.py's fleet
+     shape (register_history(3_000, seed=3000 + i); tenants 7 and 23
+     corrupted at 30%; tenant 0 of weight 2), two list-append and two
+     rw-register tenants of 10,000 txns (past Elle's device dispatch,
+     so scc runs on the card), all finishing together. Every verdict
+     must equal the same history's solo check on the card
+     (wgl.analysis(certify=True), or the Elle check) and the check on
+     the CPU (the register histories in one analysis_batch, the plain
+     kernel paying per level), every certificate must validate, a
+     valid run's certificate must equal the solo one byte for byte; at
+     least one check_slices launch and one final launch must hold two
+     or more tenants (the flight recorder's launch records); every
+     fleet slice launch is replayed against the plain version (0
+     mismatches); the launch counters must equal the wrapper calls; no
+     launch may fail and no item may be kept from a shared launch
+     (bisect_launches, fleet.quarantine.attributions, host_floor,
+     quarantine_items, the breaker, client fallback), and no verdict
+     may carry an error. One tenant's server is then kill()ed
+     mid-stream and restarted on the same WAL directory and port: its
+     verdict file must equal the clean run's byte for byte, and
+     neither server may show a failed launch.
+     Last, phase 21's lifecycle with a single-register workload (the
+     shape the fleet's cas-register model checks) streams to the same
+     server through test["fleet"]: results["fleet"] must carry the local
+     verdict, with a certificate equal to the local one. Prints the
+     fleet's and the solo checks' ops/s, slice launches and rows per
+     launch, histories per final launch, the flight recorder's verdict
+     latency quantiles and mean slices, the replayed kernel ms and the
+     card's idle share of the fleet's wall time;
      then prints one `{"kernels": [...]}` line, whose wgl_search launches
-     include those of phases 16-21, and whose scc and bank_reduce
-     launches include those of phases 19-21.
+     include those of phases 16-22, and whose scc and bank_reduce
+     launches include those of phases 19-22.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -226,6 +258,12 @@ from jepsen_tpu_torch import independent, interpreter, nodeprobe, store
 from jepsen_tpu_torch import telemetry, testing, tracing, util
 from jepsen_tpu_torch.control import util as cu
 from jepsen_tpu_torch.control.dummy import DummyRemote
+from jepsen_tpu_torch import fleet
+from jepsen_tpu_torch.fleet import client as fclient
+from jepsen_tpu_torch.fleet import flightrec as fflightrec
+from jepsen_tpu_torch.fleet import scheduler as fsched
+from jepsen_tpu_torch.fleet import server as fserver
+from jepsen_tpu_torch.fleet import wal as fwal
 from jepsen_tpu_torch.nemesis import combined
 from jepsen_tpu_torch.checker import cycle, linearizable, models
 from jepsen_tpu_torch.gpu import certify, ckpt, elle, ensemble, synth, wgl
@@ -295,7 +333,7 @@ def nvidia_smi_line() -> str:
 
 
 def _seeded_cases():
-    """(name, encodes, rows, W, F, reach) launches of 2-20k entries."""
+    """(name, encodes, rows, W, F, reach) launches of 2-10k entries."""
     m = models.cas_register()
     out = []
     for crash_p in (0.0, 0.15):
@@ -322,13 +360,14 @@ def _seeded_cases():
         rows = [(k, s) for k in range(9) for s in range(enc.n_states)]
         out.append((f"segments-crash{crash_p / 10}-reach", segs, rows, 24,
                     48, True))
-    # one long segment (11,951 / 11,908 entries, M = 16384), one row: the
-    # kernel's ring of R = 128 entries wraps ~93 times; W=32 crash-free
+    # one long segment (~6k entries, M = 8192; cut from 15,000 ops,
+    # M = 16384, to keep the script inside its time limit), one row: the
+    # kernel's ring of R = 128 entries wraps ~46 times; W=32 crash-free
     # fills the window (no hole left in the mask), and the crashed
     # segment's levels give up to 168 successors (the block path)
     for crash_p, W, F, reach in ((0.0, 32, 64, False), (0.02, 32, 64, False),
                                  (0.02, 24, 48, True)):
-        enc = encode(m, synth.register_history(15_000, n_procs=5, seed=21,
+        enc = encode(m, synth.register_history(7_500, n_procs=5, seed=21,
                                                crash_p=crash_p))
         out.append((f"long-crash{crash_p}-W{W}-"
                     f"{'reach' if reach else 'verdict'}", [enc],
@@ -2261,8 +2300,8 @@ def generated_runs(sizes: dict) -> list[dict]:
     ]
 
 
-GENERATED_SIZES = {"register_keys": 300, "register_concurrency": 50,
-                   "bank_ops": 40_000, "txn_ops": 30_000, "lock_ops": 2_000,
+GENERATED_SIZES = {"register_keys": 200, "register_concurrency": 50,
+                   "bank_ops": 40_000, "txn_ops": 20_000, "lock_ops": 2_000,
                    "traced_keys": 20}
 
 # the wrappers phase 20 counts calls through, and the kernel each counts
@@ -2372,6 +2411,12 @@ def _compared(res) -> dict:
     return out
 
 
+def _untimed(kw: dict) -> dict:
+    """A kernel wrapper's keyword arguments without the timing events
+    the main path passes (a replay times itself)."""
+    return {k: v for k, v in kw.items() if k != "events"}
+
+
 def _replayed_kernel_ms(recorded: dict, on_card: bool) -> float | None:
     """CUDA-event ms of every recorded kernel launch, replayed."""
     if not on_card:
@@ -2382,7 +2427,8 @@ def _replayed_kernel_ms(recorded: dict, on_card: bool) -> float | None:
            "bank_reduce": kbank.bank_reduce}
     for label, calls in recorded.items():
         for args, kw, _out in calls:
-            ms += _event_ms(lambda: fns[label](*args, **kw), reps=3)
+            ms += _event_ms(lambda: fns[label](*args, **_untimed(kw)),
+                            reps=3)
     return ms
 
 
@@ -2632,16 +2678,17 @@ def traced_register_run(dev, on_card: bool, sizes: dict) -> int:
 # 21. the test lifecycle: core.run over the dummy remote
 # ---------------------------------------------------------------------------
 
-# phase 20's run sizes, but for the register runs: 200 keys (20,000
-# ops) instead of 300, which keeps the phase near 130 s on the card (at
-# 300 keys it took 177 s there, each register run ~35 s of core.run and
-# ~16 s of re-analysis on the CPU). nemesis_ops bounds the fault
+# phase 20's run sizes: register 200 keys (20,000 ops; at 300 keys the
+# phase took 177 s on the card, each register run ~35 s of core.run and
+# ~16 s of re-analysis on the CPU), list-append 20,000 txns (cut from
+# 30,000 with phase 20's, to keep the script inside its time limit as
+# phase 22 joined it). nemesis_ops bounds the fault
 # schedule (four packages at a 1 s interval give about four nemesis ops
 # a second). stale_every is the twin's StaleReadKVClient's `every`: a
 # small run needs a stale read due after every read to be sure of one
 # the history rules out.
 LIFECYCLE_SIZES = {"register_keys": 200, "register_concurrency": 50,
-                   "bank_ops": 40_000, "txn_ops": 30_000,
+                   "bank_ops": 40_000, "txn_ops": 20_000,
                    "nemesis_ops": 24, "stale_every": 50}
 LIFECYCLE_FAULTS = ["partition", "kill", "pause", "clock"]
 FIXTURE_PIDFILE = "/run/fixture-db.pid"
@@ -3117,18 +3164,444 @@ def _lifecycle_path(dev, on_card: bool, sizes: dict | None) -> dict:
     return per_kernel
 
 
+FLEET_SIZES = {"register_tenants": 32, "register_ops": 3_000, "chunk": 512,
+               "corrupt": (7, 23), "elle_txns": 10_000,
+               "core_run_ops": 2_000, "nemesis_ops": 8}
+
+
+def fleet_histories(sizes: dict) -> dict:
+    """{tenant: (model, history)}: bench.py's fleet shape for the register
+    tenants (register_history(n, seed=3000 + i)), the ones listed in
+    `corrupt` damaged at TWIN_AT_FRAC (where the witness search stays
+    cheap, ROADMAP C3), and two list-append and two rw-register
+    tenants past Elle's device dispatch."""
+    out = {}
+    for i in range(sizes["register_tenants"]):
+        h = synth.register_history(sizes["register_ops"], seed=3000 + i)
+        if i in sizes["corrupt"]:
+            h = synth.corrupt_register_history(h, at_frac=TWIN_AT_FRAC)[0]
+        out[f"reg{i:02d}"] = ("cas-register", h)
+    for j in range(2):
+        out[f"la{j}"] = ("list-append", synth.list_append_history(
+            sizes["elle_txns"], seed=2200 + j))
+        out[f"rw{j}"] = ("rw-register", synth.rw_register_history(
+            sizes["elle_txns"], seed=2300 + j))
+    return out
+
+
+def _stream_tenant(addr, tenant: str, model: str, hist, chunk: int,
+                   weight: float = 1.0, barrier=None) -> dict:
+    """One tenant's stream: chunks of `chunk` ops, each acked once
+    journaled, then (after the barrier, so the finals land together)
+    fin and the verdict envelope."""
+    c = fclient.FleetClient(addr, tenant, "r", model=model, weight=weight,
+                            io_timeout_s=120.0)
+    try:
+        ops = list(hist)
+        for i in range(0, len(ops), chunk):
+            c.send_chunk(ops[i:i + chunk])
+        if barrier is not None:
+            barrier.wait(timeout=600)
+        return c.finish(timeout_s=600)
+    finally:
+        c.close()
+
+
+def _launch_records(recs: list, cls: str) -> list:
+    return [r for r in recs if r["kind"] == "launch" and r["cls"] == cls]
+
+
+def _fleet_solo(dev, hists: dict, sync) -> tuple[dict, dict]:
+    """Each history's solo check on `dev` with its certificate
+    (wgl.analysis, or the Elle family's check), one after another as a
+    pool without the fleet would run them; returns the results and the
+    wall seconds by model."""
+    out, seconds = {}, {}
+    for t, (model, h) in hists.items():
+        t0 = time.perf_counter()
+        if model == "cas-register":
+            out[t] = wgl.analysis(models.cas_register(), h, certify=True,
+                                  device=dev)
+        else:
+            out[t] = fleet.elle_checks()[model](
+                h, {"certify": True, "device": dev})
+        sync()
+        seconds[model] = seconds.get(model, 0.0) + (time.perf_counter()
+                                                    - t0)
+    return out, seconds
+
+
+def _fleet_cpu(hists: dict) -> dict:
+    """The same checks with the kernels' plain versions on the CPU: the
+    register histories in one analysis_batch (the plain kernel pays per
+    level, so one batched launch instead of one per history), the Elle
+    histories one by one."""
+    regs = [t for t, (m, _h) in hists.items() if m == "cas-register"]
+    res = wgl.analysis_batch(models.cas_register(),
+                             [hists[t][1] for t in regs], certify=True,
+                             device="cpu")
+    out = dict(zip(regs, res))
+    for t, (model, h) in hists.items():
+        if model != "cas-register":
+            out[t] = fleet.elle_checks()[model](
+                h, {"certify": True, "device": "cpu"})
+    return out
+
+
+def _verdict_against(t: str, model: str, h, got: dict, want: dict,
+                     where: str) -> None:
+    """A fleet verdict against a check of the same history: the verdict
+    (and Elle's anomaly types), and for a valid run the certificate byte
+    for byte."""
+    if got["valid?"] != want["valid?"]:
+        raise AssertionError(f"{t}: fleet valid? {got['valid?']} != "
+                             f"{where} {want['valid?']}")
+    if model != "cas-register" and sorted(got.get("anomaly-types") or []) \
+            != sorted(want.get("anomaly-types") or []):
+        raise AssertionError(f"{t}: anomaly types differ from {where}")
+    if got["valid?"] is True and json.dumps(got["certificate"],
+                                            sort_keys=True).encode() \
+            != _cert_bytes(want):
+        raise AssertionError(f"{t}: certificate differs from {where}'s")
+
+
+def fleet_core_run(dev, on_card: bool, addr, tmp, sizes: dict) -> dict:
+    """Phase 21's lifecycle (the fixture DB over the dummy remote, the
+    combined package's faults, monitor and node probe) with a
+    single-register workload, the shape the fleet's cas-register model
+    checks, and test["fleet"] pointing at the fleet. Returns the run's
+    results."""
+    card_dev = None if on_card else dev
+    rng = util.seeded_rng(12, "fleet-core-run")
+    w = {"generator": gen.limit(sizes["core_run_ops"],
+                                lambda: wl_register.cas_op_mix(rng)),
+         "checker": linearizable({"model": models.cas_register(0),
+                                  "device": card_dev})}
+    test = lifecycle_test("fleet-register", w,
+                          testing.AtomClient(testing.AtomState(0),
+                                             latency_s=0.0005),
+                          5, tmp, sizes["nemesis_ops"])
+    host, port = addr
+    test["fleet"] = {"addr": f"{host}:{port}", "tenant": "core-run",
+                     "model": "cas-register", "initial": 0}
+    out = core.run(test)
+    res = out["results"]
+    fl = res.get("fleet") or {}
+    if "verdict" not in fl:
+        raise AssertionError(f"results['fleet'] without a verdict: {fl}")
+    got = fl["verdict"]["result"]
+    if got["valid?"] is not res["valid?"] or res["valid?"] is not True:
+        raise AssertionError(f"core.run: fleet {got['valid?']} vs local "
+                             f"{res['valid?']}")
+    certify.validate(out["history"], got["certificate"])
+    if json.dumps(got["certificate"], sort_keys=True).encode() \
+            != _cert_bytes(res):
+        raise AssertionError("core.run: the fleet's certificate differs "
+                             "from the local checker's")
+    fallback = res["telemetry"]["counters"].get("fleet.client.fallback", 0)
+    if fallback:
+        raise AssertionError(f"core.run: {fallback} client fallbacks")
+    return {"valid": res["valid?"], "events": len(out["history"]),
+            "fleet_ack_ms": fl.get("ack_ms"),
+            "fleet_latency": fl["verdict"].get("latency"),
+            "client_fallback": fallback}
+
+
+def fleet_crash(dev, tenant: str, model: str, hist, chunk: int, base,
+                want: bytes) -> dict:
+    """One tenant's server kill()ed mid-stream and restarted on the same
+    WAL directory and port; the verdict file must equal the clean run's
+    byte for byte."""
+    ops = list(hist)
+    chunks = [ops[i:i + chunk] for i in range(0, len(ops), chunk)]
+    srv = fserver.FleetServer(base, device=dev).start()
+    c = fclient.FleetClient(srv.addr, tenant, "r", model=model,
+                            io_timeout_s=30.0)
+    half = len(chunks) // 2
+    for ch in chunks[:half]:
+        c.send_chunk(ch)
+    port = srv.addr[1]
+    srv.kill()
+    srv2 = fserver.FleetServer(base, port=port, device=dev).start()
+    try:
+        for ch in chunks[half:]:
+            c.send_chunk(ch)
+        c.finish(timeout_s=300)
+        c.close()
+        got = fwal.verdict_path(base, tenant, "r").read_bytes()
+        for s in (srv, srv2):
+            _fleet_failures("fleet crash", s.stats()["scheduler"],
+                            telemetry.get().counters())
+    finally:
+        srv2.stop()
+    if got != want:
+        raise AssertionError(f"{tenant}: the verdict after kill() differs "
+                             f"from the clean run's")
+    return {"tenant": tenant, "chunks_before_kill": half,
+            "chunks": len(chunks), "verdict_bytes": len(got)}
+
+
+def fleet_path(dev, on_card: bool, sizes: dict | None = None) -> dict:
+    """Phase 22: checking-as-a-service. Returns the launches per path, by
+    kernel. The earlier phases' heap is frozen out of the collector, as
+    in phases 20-21."""
+    gc.collect()
+    gc.freeze()
+    try:
+        return _fleet_path(dev, on_card, sizes)
+    finally:
+        gc.unfreeze()
+
+
+def _check_launches(what: str, calls: dict, on_card: bool) -> None:
+    """On the card, each wrapper's launch counter must equal the calls
+    through it."""
+    launches = _launch_counts()
+    if on_card and {k: launches[k] for k in calls} != calls:
+        raise AssertionError(f"{what}: launch counters {launches} != "
+                             f"wrapper calls {calls}")
+
+
+def _fleet_failures(what: str, sch: dict, counters: dict) -> dict:
+    """A scheduler's stats and the run's telemetry counters must show no
+    failed launch and no item kept from a shared device launch: no
+    bisection, attribution, quarantine, breaker or host-lane item, and
+    no client fallback. Returns what was read."""
+    out = {"host_floor": sch["host_floor"],
+           "quarantine_items": sch["quarantine_items"],
+           "quarantined_runs": len(sch["quarantine"]),
+           "bisect_launches": sch["bisect_launches"],
+           "breaker_open": sch["breaker_open"]}
+    for k in ("fleet.breaker.opened", "fleet.quarantine.added",
+              "fleet.quarantine.attributions", "fleet.client.fallback"):
+        out[k] = counters.get(k, 0)
+    if any(out.values()):
+        raise AssertionError(f"{what}: a failed launch or a host lane: "
+                             f"{out}")
+    return out
+
+
+def _fleet_path(dev, on_card: bool, sizes: dict | None) -> dict:
+    sizes = dict(FLEET_SIZES, **(sizes or {}))
+    card_dev = None if on_card else dev
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card = nvidia_smi_line() if on_card else "cpu"
+    t_phase = time.perf_counter()
+    hists = fleet_histories(sizes)
+    generate_s = time.perf_counter() - t_phase
+    total_ops = sum(len(h) for _m, h in hists.values())
+    per_kernel: dict = {"wgl_search": {}, "scc": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp) / "fleet"
+        sched = fsched.Scheduler(window_s=0.1, device=card_dev)
+        srv = fserver.FleetServer(
+            base, scheduler=sched,
+            quotas=fserver.Quotas(max_tenants=len(hists) + 2,
+                                  max_total_streams=2 * len(hists) + 4))
+        runs: list = []
+        run_orig = _recording(wgl, "_run", runs)
+        recorded, restore = _wrapped_kernels()
+        telemetry.reset()
+        envs, errs = {}, []
+        barrier = threading.Barrier(len(hists))
+
+        def tenant(t, model, h):
+            try:
+                envs[t] = _stream_tenant(
+                    srv.addr, t, model, h, sizes["chunk"],
+                    weight=2.0 if t == "reg00" else 1.0, barrier=barrier)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errs.append((t, repr(e)))
+                barrier.abort()
+
+        try:  # the server stops however the phase ends
+            try:
+                srv.start()
+                t0 = time.perf_counter()
+                workers = [threading.Thread(target=tenant, args=(t, m, h),
+                                            name=f"tenant-{t}")
+                           for t, (m, h) in hists.items()]
+                for w in workers:
+                    w.start()
+                for w in workers:
+                    w.join(timeout=900)
+                sync()
+                fleet_s = time.perf_counter() - t0
+                stats = srv.stats()
+                recs = srv.flightrec.records()
+                counters = telemetry.get().counters()
+                # each launch's kernel time between the CUDA events its
+                # launcher recorded just around it during the run
+                drain_ms = [(sp.get("attrs") or {}).get("device_ms")
+                            for sp in telemetry.get().spans()
+                            if sp["name"] == "wgl:drain"]
+                scc_ms = [(sp.get("attrs") or {}).get("device_ms")
+                          for sp in telemetry.get().spans()
+                          if sp["name"] == "scc:device"]
+            finally:
+                restore()
+                wgl._run = run_orig
+            launches = _launch_counts()
+            calls = {label: len(v) for label, v in recorded.items()}
+            if errs:
+                raise AssertionError(f"fleet tenants failed: {errs[:5]}")
+            sch = stats["scheduler"]
+            host_lanes = _fleet_failures("fleet", sch, counters)
+            _check_launches("fleet", calls, on_card)
+            errors = [t for t, e in envs.items() if "error" in e["result"]]
+            if errors:
+                raise AssertionError(f"fleet verdicts with an error: {errors}")
+            slice_recs = _launch_records(recs, "slice")
+            final_recs = _launch_records(recs, "final")
+            cross_slices = sum(1 for r in slice_recs if len(r["tenants"]) > 1)
+            cross_finals = sum(1 for r in final_recs if len(r["tenants"]) > 1)
+            if not cross_slices or not cross_finals:
+                raise AssertionError(f"no cross-tenant launch: slices "
+                                     f"{cross_slices}, finals {cross_finals}")
+            frec_snap = stats["flightrec"]
+            lat = [e["latency"] for e in envs.values()]
+            for b in lat:
+                fflightrec.validate_latency(b)
+            fflightrec.validate_records(recs)
+            # the fleet's slice launches against the plain version
+            t0 = time.perf_counter()
+            slices = [_replay(r, on_card) for r in runs if r[0][6]]
+            mism = sum(x["mismatches"] for x in slices)
+            if mism:
+                raise AssertionError(f"fleet slice launches differ from the "
+                                     f"plain version in {mism} values")
+            kernel_ms = _replayed_kernel_ms(recorded, on_card)
+            replay_s = time.perf_counter() - t0
+            # every verdict against its solo check on the card and the CPU
+            results = {t: e["result"] for t, e in envs.items()}
+            solo, solo_s = _fleet_solo(dev, hists, sync)
+            t0 = time.perf_counter()
+            cpu = _fleet_cpu(hists)
+            cpu_s = time.perf_counter() - t0
+            for t, (model, h) in hists.items():
+                got = results[t]
+                if got["valid?"] is not (int(t[3:]) not in sizes["corrupt"]
+                                         if model == "cas-register" else True):
+                    raise AssertionError(f"{t}: fleet valid? {got['valid?']}")
+                certify.validate(h, got["certificate"])
+                _verdict_against(t, model, h, got, solo[t], "solo card")
+                _verdict_against(t, model, h, got, cpu[t], "CPU")
+            n_reg = sizes["register_tenants"]
+            solo_total = sum(solo_s.values())
+            emit({"phase": "fleet", "tenants": len(hists),
+                  "register_tenants": n_reg, "events": total_ops,
+                  "fleet_s": fleet_s,
+                  "fleet_ops_per_s": total_ops / fleet_s,
+                  "solo_s": solo_s, "solo_ops_per_s": total_ops / solo_total,
+                  "fleet_over_solo": solo_total / fleet_s,
+                  "launches": launches, "wrapper_calls": calls,
+                  "slice_launches": sch["slice_launches"],
+                  "slice_rows": sch["slice_rows"],
+                  "rows_per_slice_launch": (sch["slice_rows"]
+                                            / max(sch["slice_launches"], 1)),
+                  "final_launches": sch["final_launches"],
+                  "final_hists": sch["final_hists"],
+                  "hists_per_final_launch": (sch["final_hists"]
+                                             / max(sch["final_launches"], 1)),
+                  "cross_tenant_slice_launches": cross_slices,
+                  "cross_tenant_final_launches": cross_finals,
+                  "max_tenants_in_launch": sch["max_tenants_in_launch"],
+                  "slice_mismatches": mism,
+                  "slice_kernel_ms": (sum(x["kernel_ms"] for x in slices)
+                                      if on_card else None),
+                  "slice_replays": [{k: x[k] for k in (
+                      "rows", "M", "levels", "kernel_ms", "us_per_level",
+                      "plain_ms", "bound_ms", "mismatches")} for x in slices],
+                  "in_run_drain_device_ms": drain_ms,
+                  "in_run_scc_device_ms": scc_ms,
+                  "in_run_device_ms_total": (
+                      sum(drain_ms) + sum(scc_ms) if on_card else None),
+                  "verdict_ms": frec_snap["verdict_ms"],
+                  "latency_mean_ms": {k: sum(b[k] for b in lat) / len(lat)
+                                      for k in fflightrec.LATENCY_KEYS},
+                  "decisions": frec_snap["decisions"],
+                  "occupancy": {c: v["occupancy"] for c, v
+                                in frec_snap["classes"].items()},
+                  "host_lanes": host_lanes, "kernel_ms": kernel_ms,
+                  "card_idle_share": (1 - kernel_ms / (1e3 * fleet_s)
+                                      if kernel_ms is not None else None),
+                  "invalid": sorted(t for t, r in results.items()
+                                    if r["valid?"] is not True),
+                  "generate_s": generate_s, "replay_s": replay_s,
+                  "cpu_s": cpu_s, "card": card})
+            per_kernel["wgl_search"]["fleet"] = calls["wgl_search"]
+            per_kernel["scc"]["fleet"] = calls["scc"]
+            # one tenant's server killed mid-stream, restarted, byte-equal
+            crash_t = f"reg{min(3, n_reg - 1):02d}"
+            want = fwal.verdict_path(base, crash_t, "r").read_bytes()
+            recorded, restore = _wrapped_kernels()
+            t0 = time.perf_counter()
+            try:
+                crash = fleet_crash(card_dev, crash_t, "cas-register",
+                                    hists[crash_t][1], sizes["chunk"],
+                                    Path(tmp) / "fleet-crash", want)
+            finally:
+                restore()
+            crash["seconds"] = time.perf_counter() - t0
+            calls = {label: len(v) for label, v in recorded.items()}
+            _check_launches("fleet crash", calls, on_card)
+            per_kernel["wgl_search"]["fleet-crash"] = calls["wgl_search"]
+            emit({"phase": "fleet-crash", **crash, "wrapper_calls": calls,
+                  "card": card})
+            # core.run streaming to the same server
+            recorded, restore = _wrapped_kernels()
+            try:
+                t0 = time.perf_counter()
+                cr = fleet_core_run(dev, on_card, srv.addr, tmp, sizes)
+                sync()
+                cr_s = time.perf_counter() - t0
+                _fleet_failures("fleet core.run", srv.stats()["scheduler"],
+                                {})
+            finally:
+                # stopped before the wrappers go: no launch uncounted
+                srv.stop()
+                restore()
+            calls = {label: len(v) for label, v in recorded.items()}
+            _check_launches("fleet core.run", calls, on_card)
+            per_kernel["wgl_search"]["fleet-core-run"] = calls["wgl_search"]
+            emit({"phase": "fleet-core-run", **cr, "run_s": cr_s,
+                  "wrapper_calls": calls, "card": card})
+        finally:
+            srv.stop()
+    # the servers' threads are daemons; a killed server's stream steps
+    # wait out their slices' timeout, as a dead process's would never
+    # return. No other thread may outlive the phase.
+    leaked = [t.name for t in threading.enumerate()
+              if not t.daemon and t is not threading.main_thread()]
+    if leaked:
+        raise AssertionError(f"threads left behind: {leaked}")
+    emit({"phase": "fleet-total", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    return per_kernel
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
-        n_cross: int = 20_000, n_elle: int = 100_000,
+        n_cross: int = 10_000, n_elle: int = 100_000,
         n_elle_cross: int = 20_000, n_bank: int = 500_000,
         n_ensemble: int = ENSEMBLE_N, chunk: int = ENSEMBLE_CHUNK,
         bad_member: int = ENSEMBLE_BAD, n_plain_rows: int = 128,
         n_slices: int = 64, n_adversarial: int = 100_000,
         n_adversarial_chain: int = 20_001,
         generated_sizes: dict | None = None,
-        lifecycle_sizes: dict | None = None) -> dict:
+        lifecycle_sizes: dict | None = None,
+        fleet_sizes: dict | None = None) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    # wall seconds of each group of phases, printed before the kernels
+    # line: where the script's time limit goes
+    seconds: dict = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name] = now - t_mark[0]
+        t_mark[0] = now
 
     # 2. build
     info = None
@@ -3138,6 +3611,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
               "libraries": info["libraries"],
               "ptxas": {n: _ptxas(info, n) for n in info["ptxas"]}})
 
+    mark("2 build")
     # 3. kernel against its plain version on the same tensors
     total_mism = 0
     path_total = {"warp": 0, "block": 0, "warp_sorted": 0}
@@ -3175,6 +3649,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
         raise AssertionError(f"kernel disagrees with its plain version "
                              f"in {total_mism} values")
 
+    mark("3 kernel-vs-plain")
     # 4. the main path at full size: the 1M-event headline history
     t0 = time.perf_counter()
     hist = synth.register_history(n_headline, n_procs=5, seed=42)
@@ -3184,7 +3659,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
 
     def recording(packed, rs, s0, **kw):
         out = original(packed, rs, s0, **kw)
-        recorded.append((packed, rs, s0, kw, out))
+        # replayed below without the launch's own timing events
+        recorded.append((packed, rs, s0, _untimed(kw), out))
         return out
 
     runs = []
@@ -3252,6 +3728,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
           "failed_segment": k, "segment_range": [lo, hi],
           "check_s": bad_s, "host_reach_of_failed_segment": reach})
 
+    mark("4 headline")
     # 5. slice cross-check: card against the CPU's plain kernel
     cross = synth.register_history(n_cross, n_procs=5, seed=7)
     cross_bad = synth.corrupt_register_history(cross, at_frac=0.5)[0]
@@ -3279,6 +3756,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
               "card_s": t1 - t0, "cpu_plain_s": t2 - t1,
               "analyzer": res["analyzer"], "certified": True})
 
+    mark("5 cross-check")
     # 6. the kernel on the main path's own launches
     per_launch = []
     max_err = 0
@@ -3308,6 +3786,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
     kernel_ms = (sum(x["kernel_ms"] for x in per_launch)
                  if on_card else None)
 
+    mark("6 headline launches")
     # 7. scc and bank_reduce against their plain versions
     mism = kernels_against_plain(dev, on_card)
     if mism:
@@ -3315,6 +3794,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
                              f"versions in {mism} values")
     adversarial = scc_adversarial(dev, on_card, n_adversarial,
                                   n_adversarial_chain)
+    mark("7 scc/bank vs plain, adversarial")
     # 8-10. the Elle and bank paths; 11. their kernels on their launches
     scc_recorded, scc_per_check, elle_direct = elle_main_path(
         dev, on_card, n_elle)
@@ -3325,6 +3805,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
     scc_entry["convergence_launch"] = adversarial
     bank_entry = bank_timing(bank_recorded, bank_launches, on_card, info)
 
+    mark("8-11 elle, bank")
     # 12-14. the batch path at BASELINE config 5's size
     t0 = time.perf_counter()
     hists = [ensemble_hist(i) for i in range(n_ensemble)]
@@ -3355,11 +3836,13 @@ def run(dev: torch.device, n_headline: int = 500_000,
                              f"version by up to {max(max_err, sh_err)}")
     sh_bytes = sum(x["bytes"] for x in sharded)
     sh_ops = sum(x["operations"] for x in sharded)
+    mark("12-15 ensemble, independent, slices")
     # 16-18. checkpoint-and-extend on the headline history
     ext = extend_path(dev, on_card, hist, bad)
     per_path.update(ext["launches"])
     per_path.update(resumable_segmented(dev, on_card, enc, target_len))
     per_path.update(checker_extend(dev, on_card, hist))
+    mark("16-18 extend, checkpoint")
     # 19. the composed checker stacks, with the reports of invalid results
     composed = composed_path(dev, on_card, elle_direct, la_bad_cross,
                              bank_direct, ind_direct, bad_member)
@@ -3374,6 +3857,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
     bank_entry["launches_per_check"] = {"bank": bank_entry["launches"],
                                         **bank_composed}
     bank_entry["launches"] += sum(bank_composed.values())
+    mark("19 composed")
     # 20. a generated test: the port's interpreter records each history
     generated = generated_path(dev, on_card, generated_sizes)
     per_path.update(generated["wgl_search"])
@@ -3381,6 +3865,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
     scc_entry["launches_per_check"].update(generated["scc"])
     bank_entry["launches"] += sum(generated["bank_reduce"].values())
     bank_entry["launches_per_check"].update(generated["bank_reduce"])
+    mark("20 generated")
     # 21. the test lifecycle: core.run, analysed on the card
     lifecycle = lifecycle_path(dev, on_card, lifecycle_sizes)
     per_path.update(lifecycle["wgl_search"])
@@ -3388,6 +3873,13 @@ def run(dev: torch.device, n_headline: int = 500_000,
     scc_entry["launches_per_check"].update(lifecycle["scc"])
     bank_entry["launches"] += sum(lifecycle["bank_reduce"].values())
     bank_entry["launches_per_check"].update(lifecycle["bank_reduce"])
+    mark("21 lifecycle")
+    # 22. checking-as-a-service: many tenants' streams in shared launches
+    fleet_launches = fleet_path(dev, on_card, fleet_sizes)
+    per_path.update(fleet_launches["wgl_search"])
+    scc_entry["launches"] += sum(fleet_launches["scc"].values())
+    scc_entry["launches_per_check"].update(fleet_launches["scc"])
+    mark("22 fleet")
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}
@@ -3431,6 +3923,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
             "main_path_launches": sharded,
         }, scc_entry, bank_entry],
         "headline_runs": runs,
+        "phase_seconds": seconds,
     }
 
 
@@ -3449,6 +3942,8 @@ def main() -> int:
     if cap != (9, 0):
         raise AssertionError(f"compute capability {cap}, want (9, 0)")
     summary = run(torch.device("cuda"))
+    emit({"phase": "seconds", **summary["phase_seconds"],
+          "card": card})
     emit({"kernels": summary["kernels"]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {

@@ -12,10 +12,12 @@ Usage:
 
     control.on_nodes(test, lambda test, node: control.exec_("date"))
 
-The port drives nodes through the dummy remote only: test["remote"], or
-test["ssh"]["dummy"]. The SSH transport, its scp and retry wrappers and
-the quarantine breakers (GuardedRemote) are ROADMAP A3c; a test that
-needs them raises NotImplementedError.
+The port drives nodes through test["remote"] (any Remote: the dummy
+remote, the retry wrapper of control/retry.py, the chaos rig's) or
+test["ssh"]["dummy"], behind the quarantine breakers of
+control/health.py when test["health"] is set. The default SSH stack
+(ssh, scp and retry) is ROADMAP A3c: a test that needs it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -57,20 +59,32 @@ def conn_spec(test: dict, node) -> dict:
     }
 
 
-def remote_for(test: dict) -> Remote:
+def remote_for(test: dict, guarded: bool = True) -> Remote:
     r = test.get("remote")
     if r is None:
         if not (test.get("ssh") or {}).get("dummy"):
             raise NotImplementedError(
-                "the SSH remote (control/ssh.py, scp.py, retry.py) is "
-                "not ported (ROADMAP A3c): pass test['remote'] or "
-                "test['ssh'] = {'dummy': True}")
+                "the default SSH stack (control/ssh.py, scp.py under "
+                "retry.py) is not ported (ROADMAP A3c): pass "
+                "test['remote'] or test['ssh'] = {'dummy': True}")
         r = dummy
+    hr = test.get("health")
+    if hr is not None and guarded:
+        # per-node circuit breakers (control/health.py): commands to a
+        # quarantined node fail fast instead of burning retry budgets,
+        # and the run continues :degraded instead of aborting.
+        # guarded=False bypasses the wrapper for OBSERVERS (the node
+        # probe): background traffic must neither trip a breaker nor
+        # reset its consecutive-failure count — only real work feeds
+        # the circuit
+        from .health import GuardedRemote
+        r = GuardedRemote(r, hr)
     return r
 
 
-def session(test: dict, node) -> Session:
-    return remote_for(test).connect(conn_spec(test, node))
+def session(test: dict, node, guarded: bool = True) -> Session:
+    return remote_for(test, guarded=guarded).connect(
+        conn_spec(test, node))
 
 
 def disconnect(sess: Session) -> None:
@@ -199,11 +213,31 @@ def on_nodes(test: dict, f: Callable[[dict, Any], Any],
 
 def open_sessions(test: dict) -> dict:
     """Opens one session per node in parallel; returns test with
-    :sessions {node: session} (core.clj with-sessions, 266-286)."""
+    :sessions {node: session} (core.clj with-sessions, 266-286).
+    With quarantine enabled (test["health"]), a node that is dead at
+    open time gets a lazy placeholder session instead of aborting the
+    run: its commands retry the connect (feeding the circuit breaker)
+    and fail fast once quarantined (control/health.py)."""
     from .. import util as _util
 
     nodes = list(test.get("nodes") or [])
-    sessions = _util.real_pmap(lambda n: session(test, n), nodes)
+    hr = test.get("health")
+
+    def open_one(n):
+        try:
+            return session(test, n)
+        except RemoteError:
+            if hr is None:
+                raise
+            from .health import LazyConnectSession
+
+            logger.warning(
+                "couldn't open a session to %s; deferring (quarantine "
+                "active — the run continues :degraded)", n)
+            return LazyConnectSession(remote_for(test),
+                                      conn_spec(test, n))
+
+    sessions = _util.real_pmap(open_one, nodes)
     test = dict(test)
     test["sessions"] = dict(zip(nodes, sessions))
     return test

@@ -11,20 +11,23 @@ prepare-test 302-320, with-resources 69-90, with-os 92-99, with-db
 analyze! 215-228, snarf-logs! 101-162, synchronize 43-56).
 
 The analysis runs on the card through the checkers' own device switch
-(each workload's checker takes opts["device"]; None is the card). Four
-switches of the JAX package's run are not ported, and each raises
+(each workload's checker takes opts["device"]; None is the card). The
+quarantine breakers (test["quarantine?"], control/health.py) and the
+fleet stream (test["fleet"], fleet/client.py) run as in the JAX package.
+Two switches of the JAX package's run are not ported, and each raises
 NotImplementedError naming its ROADMAP item instead of being ignored:
 multi-host initialization (JAX_COORDINATOR_ADDRESS / JEPSEN_TPU_MULTIHOST,
-A6), a profiled analysis (profile?, xla-trace?, profile_dir: A5,
-torch.profiler), the fleet stream (fleet: A4) and the quarantine breakers
-(quarantine?: A3c).
+A6) and a profiled analysis (profile?, xla-trace?, profile_dir: A5,
+torch.profiler).
 """
 
 from __future__ import annotations
 
 import datetime
+import errno
 import logging
 import os
+import socket
 import threading
 from pathlib import Path
 
@@ -83,13 +86,32 @@ def _teardown_os(test: dict) -> None:
                              lambda t, n: os_.teardown(t, n))
 
 
+def _transport_failure(e: BaseException) -> bool:
+    """Couldn't REACH the node: SSH transport errors, refused/reset
+    connections, DNS failures, and the network-errno family of raw
+    OSErrors (EHOSTUNREACH etc., which Python does NOT map onto
+    ConnectionError). Local misconfiguration — FileNotFoundError for a
+    missing binary, TypeError from a client bug — is never transport."""
+    from .control.core import TransportError
+
+    if isinstance(e, (TransportError, ConnectionError, TimeoutError,
+                      socket.gaierror)):
+        return True
+    return (isinstance(e, OSError) and not isinstance(e, socket.herror)
+            and e.errno in (errno.EHOSTUNREACH, errno.ENETUNREACH,
+                            errno.ENETDOWN, errno.EHOSTDOWN,
+                            errno.ETIMEDOUT))
+
+
 def _teardown_tolerantly(test: dict, what: str, node_fn) -> None:
-    """Runs a per-node teardown phase on all nodes. Every node's
-    teardown is attempted (a bare on_nodes call would surface only the
-    FIRST node's failure, letting one node mask a teardown bug on
-    another); the failures raise together. (The JAX package lets a
-    quarantined node's transport failure degrade instead; quarantine
-    is ROADMAP A3c.)"""
+    """Runs a per-node teardown phase on all nodes; with quarantine
+    active, a dead node's transport failure degrades (logged + counted)
+    instead of aborting the run between history capture and analysis —
+    the history is already safe on disk and is worth analyzing. Every
+    node's teardown is attempted (a bare on_nodes call would surface
+    only the FIRST node's failure, letting a dead node mask a genuine
+    teardown bug on a live one); non-transport failures still raise,
+    carrying all of them."""
     errs: dict = {}
 
     def one(t, n):
@@ -101,10 +123,16 @@ def _teardown_tolerantly(test: dict, what: str, node_fn) -> None:
     control.on_nodes(test, one)
     if not errs:
         return
-    failures = [errs[n] for n in sorted(errs, key=str)]
-    if len(failures) == 1:
-        raise failures[0]
-    raise util.RealPmapError(failures)
+    if (test.get("health") is None
+            or not all(_transport_failure(x) for x in errs.values())):
+        failures = [errs[n] for n in sorted(errs, key=str)]
+        if len(failures) == 1:
+            raise failures[0]
+        raise util.RealPmapError(failures)
+    telemetry.count("core.degraded-teardowns")
+    logger.warning("%s teardown failed on unreachable node(s) %s; "
+                   "continuing :degraded", what,
+                   sorted(map(str, errs)))
 
 
 def _db_cycle(test: dict) -> None:
@@ -175,6 +203,14 @@ def final_heal(test: dict) -> None:
     the next one. Best-effort: failures are logged, never raised."""
     if not test.get("sessions"):
         return
+    # a quarantined node can't be healed and must not abort healing
+    # the nodes that ARE reachable
+    hr = test.get("health")
+    if hr is not None and hr.quarantined():
+        test = dict(test)
+        dead = set(hr.quarantined())
+        test["nodes"] = [n for n in (test.get("nodes") or [])
+                         if n not in dead]
     net = test.get("net")
     if net is not None:
         try:
@@ -214,11 +250,37 @@ def run_case(test: dict) -> dict:
     nem_thread.start()
 
     def open_one(node):
-        c = jclient.validate(client).open(test, node)
-        c.setup(test)
-        return c
+        c = None
+        try:
+            c = jclient.validate(client).open(test, node)
+            c.setup(test)
+            return c
+        except Exception as e:  # noqa: BLE001 — classified below
+            # couldn't REACH the node (_transport_failure: ssh
+            # transport, connect/timeout, DNS, network errnos) —
+            # degradable under quarantine; a client bug or local
+            # misconfiguration (TypeError, FileNotFoundError for a
+            # missing client binary) still raises and fails the run
+            if test.get("health") is None or not _transport_failure(e):
+                raise
+            if c is not None:
+                # open() succeeded, setup() died: close the half-open
+                # client instead of leaking its connection for the
+                # rest of the (continuing) run
+                try:
+                    c.close(test)
+                except Exception:  # noqa: BLE001 — best-effort
+                    pass
+            # the node's worker will retry opens per-op (ClientWorker
+            # fails ops "no-client" until then); the run continues
+            telemetry.count("core.degraded-client-opens")
+            logger.warning("client open/setup failed on %s; continuing "
+                           ":degraded (quarantine active)", node)
+            return None
 
-    clients = util.real_pmap(open_one, test.get("nodes") or [])
+    clients = [c for c in util.real_pmap(open_one,
+                                         test.get("nodes") or [])
+               if c is not None]
     nem_thread.join()
     if "error" in nem_box:
         raise nem_box["error"]
@@ -331,6 +393,25 @@ def analyze(test: dict, store_ctx=None, extra_opts: dict | None = None
             test["results"]["watchdog"] = wd.results()
             if test.get("aborted"):
                 test["results"]["watchdog"]["aborted"] = test["aborted"]
+        # quarantined-node runs finish with a :degraded marker instead
+        # of aborting: the verdict stands, but readers see which nodes
+        # the control plane gave up on (control/health.py)
+        hr = test.get("health")
+        if hr is not None and hr.ever_quarantined():
+            test["results"]["degraded"] = {
+                "quarantined-nodes": sorted(
+                    map(str, hr.ever_quarantined())),
+                "still-quarantined": sorted(
+                    map(str, hr.quarantined()))}
+        # the fleet's verdict (with its certificate) rides next to the
+        # local one — informational: a tenant compares, it never
+        # replaces local checking (fleet/)
+        streamer = test.get("_fleet_streamer")
+        if streamer is not None:
+            try:
+                test["results"]["fleet"] = streamer.result_summary()
+            except Exception:  # noqa: BLE001 — best-effort
+                logger.exception("collecting fleet verdict failed")
         # realtime-order verdicts (wgl linearizability, elle strict
         # variants) carry the clock skew actually measured during the
         # run: the node probe's per-tick offsets merged with the
@@ -384,13 +465,6 @@ def _refuse_unported(test: dict) -> None:
             "multi-host analysis is not ported: one process, one card "
             "(ROADMAP A6)")
     _refuse_profiling(test)
-    if test.get("fleet"):
-        raise NotImplementedError(
-            "test['fleet']: the fleet stream is not ported (ROADMAP A4)")
-    if test.get("quarantine?"):
-        raise NotImplementedError(
-            "test['quarantine?']: the quarantine breakers "
-            "(control/health.py) are not ported (ROADMAP A3c)")
 
 
 def run(test: dict) -> dict:
@@ -406,6 +480,31 @@ def run(test: dict) -> dict:
             test = jstore.start_test(test)
         except ImportError:
             store_ctx = None
+
+    if test.get("fleet"):
+        # checking-as-a-service (fleet/): mirror the op log
+        # to the fleet mid-run; its verdict+certificate ride in the
+        # results as results['fleet'] NEXT to the authoritative local
+        # checkers. Best-effort — but never silent: a fleet that was
+        # requested and couldn't attach still yields an honest
+        # results['fleet'] = {'unavailable': reason}.
+        try:
+            from .fleet import client as jfleet_client
+            if test.get("history_writer") is None:
+                test["_fleet_streamer"] = jfleet_client.NoStream(
+                    "no history writer (unnamed test: no store)")
+            else:
+                writer, streamer = jfleet_client.attach(test)
+                test["history_writer"] = writer
+                test["_fleet_streamer"] = streamer
+        except Exception as e:  # noqa: BLE001 — never sink a run
+            logger.exception("attaching fleet streamer failed")
+            try:
+                from .fleet import client as jfleet_client
+                test["_fleet_streamer"] = jfleet_client.NoStream(
+                    f"attach failed: {e!r}"[:200])
+            except Exception:  # noqa: BLE001
+                pass
 
     try:
         # analyze runs INSIDE the relative-time scope so its telemetry
@@ -436,6 +535,14 @@ def run(test: dict) -> dict:
                       if test.get("store_dir") else None)
             try:
                 with telemetry.span("run", test=test.get("name")):
+                    if test.get("quarantine?"):
+                        # per-node circuit breakers: a persistently
+                        # dead node is quarantined (its ops crash fast
+                        # to :info) and the run continues :degraded
+                        # instead of aborting (control/health.py)
+                        from .control import health as jhealth
+                        test["health"] = jhealth.HealthRegistry.from_test(
+                            test)
                     test = control.open_sessions(test)
                     # the node observability plane: a per-node
                     # resource/clock-skew/DB-log sampler over its own

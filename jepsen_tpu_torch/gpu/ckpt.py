@@ -185,6 +185,15 @@ def validate_record(rec) -> None:
 # Paths
 # ---------------------------------------------------------------------------
 
+def fleet_path(base, tenant: str, run: str) -> Path:
+    """The fleet's per-(tenant, run) stream checkpoint file."""
+    from ..fleet import wal as fwal
+
+    assert fwal.safe_name(tenant) and fwal.safe_name(run), (tenant,
+                                                            run)
+    return Path(base) / "ckpt" / tenant / f"{run}.ckpt"
+
+
 def run_dir_path(d, name: str) -> Path:
     """A stored run directory's checkpoint file."""
     return Path(d) / "ckpt" / f"{name}.ckpt"

@@ -121,6 +121,23 @@ def build_all() -> dict:
             "ptxas": logs}
 
 
+def event_handles(events) -> tuple:
+    """The raw cudaEvent_t handles of `events`, a (start, end) pair of
+    torch.cuda.Event(enable_timing=True), for a launcher that records
+    them on its stream just around its kernel; (None, None) without
+    events. A torch event makes its handle at its first record, so an
+    event without one is recorded once here, on the current stream (the
+    launcher records it again)."""
+    if events is None:
+        return None, None
+    out = []
+    for ev in events:
+        if not ev.cuda_event:
+            ev.record()
+        out.append(ev.cuda_event)
+    return tuple(out)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The kernel library `name`, built first if it is missing or its
     sources changed. The caller sets argtypes/restype."""

@@ -989,16 +989,24 @@ int check_device(int* dev) {
   return supported ? 0 : (int)cudaErrorNotSupported;
 }
 
-int launch(const void* kernel, int blocks, void* args, void* stream) {
+int launch(const void* kernel, int blocks, void* args, void* stream,
+           void* ev_start, void* ev_end) {
   if (blocks < 1) {
     cudaError_t err = cudaGetLastError();
     return (int)(err != cudaSuccess ? err : cudaErrorInvalidDevice);
   }
   void* params[] = {args};
-  cudaError_t err = cudaLaunchCooperativeKernel(
+  cudaError_t err;
+  if (ev_start) {
+    err = cudaEventRecord((cudaEvent_t)ev_start, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  err = cudaLaunchCooperativeKernel(
       kernel, dim3(blocks), dim3(kThreads), params, 0, (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !ev_end) return (int)err;
+  return (int)cudaEventRecord((cudaEvent_t)ev_end, (cudaStream_t)stream);
 }
 
 // Carves 16-byte-aligned arrays out of one scratch buffer.
@@ -1067,11 +1075,13 @@ long long scc_scratch_bytes(int n, int e) {
 }
 
 // Launches the capped peeling loop on `stream`. out int32 [n + 3];
-// syncs, when not null, int32 [2] (grid syncs, tail barriers). Returns
-// the CUDA error code of the launch (0 = launched).
+// syncs, when not null, int32 [2] (grid syncs, tail barriers). ev_start
+// and ev_end (cudaEvent_t, or NULL) are recorded on `stream` just before
+// and just after the kernel. Returns the CUDA error code of the launch
+// (0 = launched).
 int scc_launch(const int* src, const int* dst, const uint8_t* edge_on, int n,
                int e, int sweep_cap, int round_cap, void* scratch, int* out,
-               int* syncs, void* stream) {
+               int* syncs, void* stream, void* ev_start, void* ev_end) {
   if (bad_size(n, e) || sweep_cap < 0 || round_cap < 0)
     return (int)cudaErrorInvalidValue;
   int dev = 0;
@@ -1091,7 +1101,8 @@ int scc_launch(const int* src, const int* dst, const uint8_t* edge_on, int n,
   carve_capped(a, cv);
   const int blocks = grid_blocks((const void*)scc_kernel, 0, dev,
                                  n > e ? n : e);
-  return launch((const void*)scc_kernel, blocks, &a, stream);
+  return launch((const void*)scc_kernel, blocks, &a, stream, ev_start,
+                ev_end);
 }
 
 // Bytes of uninitialised device scratch that scc_converge_launch needs.
@@ -1105,11 +1116,12 @@ long long scc_converge_scratch_bytes(int n, int e) {
 }
 
 // Launches the convergence kernel on `stream`. out int32 [n + 4]; syncs
-// as for scc_launch. tail_work: the work left (nodes plus CSR entries)
-// at which block 0 goes on alone (negative: never).
+// and events as for scc_launch. tail_work: the work left (nodes plus CSR
+// entries) at which block 0 goes on alone (negative: never).
 int scc_converge_launch(const int* src, const int* dst,
                         const uint8_t* edge_on, int n, int e, int tail_work,
-                        void* scratch, int* out, int* syncs, void* stream) {
+                        void* scratch, int* out, int* syncs, void* stream,
+                        void* ev_start, void* ev_end) {
   if (bad_size(n, e)) return (int)cudaErrorInvalidValue;
   int dev = 0;
   int err = check_device(&dev);
@@ -1127,7 +1139,8 @@ int scc_converge_launch(const int* src, const int* dst,
   carve_conv(a, cv);
   const int blocks = grid_blocks((const void*)scc_converge_kernel, 1, dev,
                                  n > e ? n : e);
-  return launch((const void*)scc_converge_kernel, blocks, &a, stream);
+  return launch((const void*)scc_converge_kernel, blocks, &a, stream,
+                ev_start, ev_end);
 }
 
 const char* scc_error_string(int code) {

@@ -786,7 +786,10 @@ size_t wgl_search_smem_bytes(int W, int F, int crash_free) {
 // caller. path_levels (int32 [3], or NULL) gets, summed over the rows,
 // the levels finished on the warp path, those finished on the block path
 // and those of the warp path that sorted (more than F unique) added.
-// Returns the CUDA error code of the launch (0 = launched).
+// ev_start and ev_end (cudaEvent_t, or NULL) are recorded on `stream`
+// just before and just after the kernel, so that the time between them
+// is the kernel's alone. Returns the CUDA error code of the launch
+// (0 = launched).
 int wgl_search_launch(const int* inv_t, const int* ret_t, const int* trans,
                       const int* mseg, const int* sufmin,
                       const int* row_seg, const int* st0, int B, int M,
@@ -794,7 +797,7 @@ int wgl_search_launch(const int* inv_t, const int* ret_t, const int* trans,
                       int crash_free, int8_t* result, uint32_t* out_mask,
                       uint8_t* unknown, int* it_out, int* lvl_live,
                       int* lvl_new, int* lvl_dup, int* path_levels,
-                      void* stream) {
+                      void* stream, void* ev_start, void* ev_end) {
   if (B <= 0) return 0;
   if (W < 1 || W > 32 || F < 1 || M < 1 || S < 1)
     return (int)cudaErrorInvalidValue;
@@ -812,11 +815,17 @@ int wgl_search_launch(const int* inv_t, const int* ret_t, const int* trans,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  if (ev_start) {
+    e = cudaEventRecord((cudaEvent_t)ev_start, (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   wgl_search_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       inv_t, ret_t, trans, mseg, sufmin, row_seg, st0, M, S, W, F, N, R,
       max_iters, reach, crash_free, result, out_mask, unknown, it_out,
       lvl_live, lvl_new, lvl_dup, path_levels);
-  return (int)cudaGetLastError();
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !ev_end) return (int)e;
+  return (int)cudaEventRecord((cudaEvent_t)ev_end, (cudaStream_t)stream);
 }
 
 const char* wgl_search_error_string(int code) {

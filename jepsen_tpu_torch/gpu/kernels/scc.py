@@ -100,9 +100,9 @@ def _lib() -> ctypes.CDLL:
             lib.scc_scratch_bytes.restype = ll
             lib.scc_converge_scratch_bytes.argtypes = [i, i]
             lib.scc_converge_scratch_bytes.restype = ll
-            lib.scc_launch.argtypes = [p, p, p, i, i, i, i, p, p, p, p]
+            lib.scc_launch.argtypes = [p, p, p, i, i, i, i] + [p] * 6
             lib.scc_launch.restype = i
-            lib.scc_converge_launch.argtypes = [p, p, p, i, i, i, p, p, p, p]
+            lib.scc_converge_launch.argtypes = [p, p, p, i, i, i] + [p] * 6
             lib.scc_converge_launch.restype = i
             lib.scc_error_string.argtypes = [i]
             lib.scc_error_string.restype = ctypes.c_char_p
@@ -110,7 +110,7 @@ def _lib() -> ctypes.CDLL:
         return _lib_cache[0]
 
 
-def _check(src, dst, edge_on, n, syncs):
+def _check(src, dst, edge_on, n, syncs, events=None):
     if src.dtype != torch.int32 or dst.dtype != torch.int32:
         raise TypeError(f"src and dst must be int32, got {src.dtype}, "
                         f"{dst.dtype}")
@@ -141,10 +141,14 @@ def _check(src, dst, edge_on, n, syncs):
                          f"on {src.device})")
     if src.device.type not in ("cuda", "cpu"):
         raise ValueError(f"scc runs on cuda or cpu, not {src.device}")
+    if events is not None and src.device.type != "cuda":
+        raise ValueError(f"events time a launch on the card, not on "
+                         f"{src.device}")
 
 
 def scc_labels(src, dst, edge_on, n: int,
-               syncs: torch.Tensor | None = None) -> torch.Tensor:
+               syncs: torch.Tensor | None = None,
+               events=None) -> torch.Tensor:
     """Labels, ok, rounds and sweeps in one int32 [n + 3] tensor (see
     the module docstring), with the caps SWEEP_CAP and ROUND_CAP.
     Endpoints must lie in [0, n): the kernel does not check them.
@@ -153,16 +157,21 @@ def scc_labels(src, dst, edge_on, n: int,
     launch's grid syncs ([0]) and tail barriers ([1], always 0 here)
     written. It describes the kernel's schedule, not the algorithm, so
     the plain version has no such count: it is refused with CPU
-    tensors."""
+    tensors.
+
+    events, a (start, end) pair of torch.cuda.Event(enable_timing=True),
+    are recorded on the stream just before and just after the kernel, so
+    that start.elapsed_time(end) is the kernel's time alone. Refused
+    with CPU tensors."""
     global launches
-    _check(src, dst, edge_on, n, syncs)
+    _check(src, dst, edge_on, n, syncs, events)
     if src.device.type == "cpu":
         return _reference(src, dst, edge_on, n, SWEEP_CAP, ROUND_CAP)
     lib = _lib()
     E = src.shape[0]
     out = torch.empty(n + 3, dtype=torch.int32, device=src.device)
     _launch(lib.scc_launch, lib.scc_scratch_bytes(n, E), src, dst,
-            edge_on, n, E, (SWEEP_CAP, ROUND_CAP), out, syncs)
+            edge_on, n, E, (SWEEP_CAP, ROUND_CAP), out, syncs, events)
     # the checkers of a composed check launch from worker threads
     with _lib_lock:
         launches += 1
@@ -170,13 +179,14 @@ def scc_labels(src, dst, edge_on, n: int,
 
 
 def scc_labels_to_convergence(src, dst, edge_on, n: int,
-                              syncs: torch.Tensor | None = None
-                              ) -> torch.Tensor:
+                              syncs: torch.Tensor | None = None,
+                              events=None) -> torch.Tensor:
     """Labels, ok (always 1), colouring rounds, sweeps and trim passes in
-    one int32 [n + 4] tensor (see the module docstring). syncs as for
-    scc_labels(). TAIL_WORK changes the schedule, not the result."""
+    one int32 [n + 4] tensor (see the module docstring). syncs and
+    events as for scc_labels(). TAIL_WORK changes the schedule, not the
+    result."""
     global converge_launches
-    _check(src, dst, edge_on, n, syncs)
+    _check(src, dst, edge_on, n, syncs, events)
     if src.device.type == "cpu":
         return _converge(src, dst, edge_on, n)
     lib = _lib()
@@ -184,7 +194,7 @@ def scc_labels_to_convergence(src, dst, edge_on, n: int,
     out = torch.empty(n + 4, dtype=torch.int32, device=src.device)
     tail = max(-1, min(int(TAIL_WORK), 2 ** 31 - 1))
     _launch(lib.scc_converge_launch, lib.scc_converge_scratch_bytes(n, E),
-            src, dst, edge_on, n, E, (tail,), out, syncs)
+            src, dst, edge_on, n, E, (tail,), out, syncs, events)
     # the checkers of a composed check launch from worker threads
     with _lib_lock:
         converge_launches += 1
@@ -192,15 +202,17 @@ def scc_labels_to_convergence(src, dst, edge_on, n: int,
 
 
 def _launch(fn, scratch_bytes, src, dst, edge_on, n, E, params, out,
-            syncs):
+            syncs, events):
     dev = src.device
     # uninitialised: the kernel sets up its own state
     scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ev_start, ev_end = build.event_handles(events)
         rc = fn(src.data_ptr(), dst.data_ptr(), edge_on.data_ptr(), n, E,
                 *params, scratch.data_ptr(), out.data_ptr(),
-                None if syncs is None else syncs.data_ptr(), stream)
+                None if syncs is None else syncs.data_ptr(), stream,
+                ev_start, ev_end)
     if rc != 0:
         raise RuntimeError(
             f"scc launch failed: CUDA error {rc} "

@@ -48,7 +48,7 @@ def _lib() -> ctypes.CDLL:
         if not _lib_cache:
             lib = build.load("wgl_search")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.wgl_search_launch.argtypes = [p] * 7 + [i] * 8 + [p] * 9
+            lib.wgl_search_launch.argtypes = [p] * 7 + [i] * 8 + [p] * 11
             lib.wgl_search_launch.restype = i
             lib.wgl_search_smem_bytes.argtypes = [i, i, i]
             lib.wgl_search_smem_bytes.restype = ctypes.c_size_t
@@ -91,7 +91,7 @@ def _check(packed, row_seg, st0, W, F, max_iters, reach):
 
 def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
                reach: bool = False, crash_free: bool = False,
-               path_levels: torch.Tensor | None = None):
+               path_levels: torch.Tensor | None = None, events=None):
     """The batched frontier search (see the module docstring).
 
     path_levels, an int32 [3] tensor on the inputs' CUDA device, gets the
@@ -99,7 +99,12 @@ def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
     [0]), on its block path ([1]) and of the warp-path levels that sorted
     because more than F successors were unique ([2]) added, summed over
     the rows. It describes the kernel's schedule, not the search, so the
-    plain version has no such count: it is refused with CPU tensors."""
+    plain version has no such count: it is refused with CPU tensors.
+
+    events, a (start, end) pair of torch.cuda.Event(enable_timing=True),
+    are recorded on the stream just before and just after the kernel, so
+    that start.elapsed_time(end) is the kernel's time alone, whatever
+    the host does around the call. Refused with CPU tensors."""
     global launches
     _check(packed, row_seg, st0, W, F, max_iters, reach)
     inv_t, ret_t, trans, mseg, sufmin = packed
@@ -111,6 +116,8 @@ def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
                          f"inputs' CUDA device, got {path_levels.dtype} "
                          f"{tuple(path_levels.shape)} on "
                          f"{path_levels.device} (inputs on {dev})")
+    if events is not None and dev.type != "cuda":
+        raise ValueError(f"events time a launch on the card, not on {dev}")
     if dev.type == "cpu":
         return wgl_search_reference(packed, row_seg, st0, W, F, max_iters,
                                     reach=reach, crash_free=crash_free)
@@ -128,6 +135,7 @@ def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ev_start, ev_end = build.event_handles(events)
         rc = lib.wgl_search_launch(
             inv_t.data_ptr(), ret_t.data_ptr(), trans.data_ptr(),
             mseg.data_ptr(), sufmin.data_ptr(), row_seg.data_ptr(),
@@ -135,7 +143,8 @@ def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
             int(crash_free), result.data_ptr(), out_mask.data_ptr(),
             unknown.data_ptr(), it.data_ptr(), lvl[0].data_ptr(),
             lvl[1].data_ptr(), lvl[2].data_ptr(),
-            None if path_levels is None else path_levels.data_ptr(), stream)
+            None if path_levels is None else path_levels.data_ptr(), stream,
+            ev_start, ev_end)
     if rc != 0:
         raise RuntimeError(
             f"wgl_search launch failed: CUDA error {rc} "

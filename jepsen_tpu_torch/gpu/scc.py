@@ -80,12 +80,20 @@ class Edges:
                                torch.from_numpy(self.dst).to(self.dev))
         launch = (kernel.scc_labels_to_convergence if to_convergence
                   else kernel.scc_labels)
-        with telemetry.span("scc:device"):
+        on_card = self.dev.type == "cuda"
+        events = ((torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) if on_card
+                  else None)
+        with telemetry.span("scc:device", device=self.dev.type) as rec:
             out = launch(*self._on_device,
                          torch.from_numpy(self._mask(emask)).to(self.dev),
-                         n)
+                         n, events=events)
             # one download: labels, ok and the launch's counts
             labels = out.cpu().numpy()
+            # the kernel's time alone, between the events its launcher
+            # recorded just around it
+            rec["attrs"] = {"device": self.dev.type, "device_ms": (
+                events[0].elapsed_time(events[1]) if on_card else None)}
         if not labels[n]:
             return None
         return labels[:n]

@@ -397,7 +397,7 @@ def _upload(parts: Sequence[np.ndarray], device: torch.device
 
 class Launch:
     """One search in flight: its outputs (host tensors once `done` has
-    fired), the CUDA events around its device work, and `done`, the
+    fired), the CUDA events around its kernel, and `done`, the
     event recorded after the copies of its outputs to the host. On the
     CPU the outputs are ready and the events are None."""
 
@@ -412,17 +412,20 @@ def _run(packed, rs, s0, W: int, F: int, max_iters: int, reach: bool,
     """Launches the kernel over uploaded tensors without waiting for it.
     `gather` (int32 row indices on the same device) reorders and trims the
     per-row outputs on the device before they are read back. On the card
-    the outputs are then copied into pinned host buffers with
-    non_blocking=True, and an event is recorded after the copies, all in
-    the current stream's order: the host returns at once, and _drain
-    waits on that event alone."""
+    the launcher records the `start` and `end` events just around the
+    kernel (their interval is the kernel's time alone, whatever the host
+    waits for around the call), the outputs are then copied into pinned
+    host buffers with non_blocking=True, and an event is recorded after
+    the copies, all in the current stream's order: the host returns at
+    once, and _drain waits on that event alone."""
     on_card = rs.device.type == "cuda"
     start = end = done = None
     if on_card:
         start = torch.cuda.Event(enable_timing=True)
-        start.record()
+        end = torch.cuda.Event(enable_timing=True)
     outs = kernel.wgl_search(packed, rs, s0, W=W, F=F, max_iters=max_iters,
-                             reach=reach, crash_free=crash_free)
+                             reach=reach, crash_free=crash_free,
+                             events=(start, end) if on_card else None)
     if gather is not None:
         n_res = 2 if reach else 1
         idx = gather.to(torch.int64)
@@ -434,8 +437,6 @@ def _run(packed, rs, s0, W: int, F: int, max_iters: int, reach: bool,
             for o in outs[:n_res]) + tuple(outs[n_res:])
     if not on_card:
         return Launch(outs)
-    end = torch.cuda.Event(enable_timing=True)
-    end.record()
     host = []
     for o in outs:
         h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
@@ -467,7 +468,7 @@ def _drain(out: Launch, reach: bool):
     device) and records its wait, iteration count and search-shape
     series (frontier occupancy / states explored / dedup hits per BFS
     level), plus a `wgl:drain` span whose attrs carry the rows, the wait
-    and the launch's device time between its CUDA events. Returns result
+    and the kernel's time between its CUDA events. Returns result
     [B] (reach=False) or (out_mask, unknown) arrays (reach=True)."""
     tel = telemetry.get()
     with tel.span("wgl:drain") as rec:

@@ -29,10 +29,11 @@ the readers of nodes.jsonl).
 
 The dummy remote answers the probe with seeded synthetic `/proc` data
 (synthetic_responder), so a run exercises the full path clusterless.
-The quarantine breakers (control/health.py: `gap` records of
-quarantined nodes, `breaker` transitions, advisory health summaries)
-are ROADMAP A3c; the readers accept those records from either package.
-The Prometheus exposition (prometheus_lines) is ROADMAP A9.
+With the quarantine breakers on (test["health"], control/health.py),
+a quarantined node gets `gap` records without any transport traffic,
+breaker transitions are recorded as `breaker` records, and memory or
+CPU pressure goes to the registry as an advisory, never a breaker
+verdict. The Prometheus exposition (prometheus_lines) is ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -327,6 +328,8 @@ class _NodeState:
         self.prev_t: int | None = None
         self.last_offset: float | None = None  # last MEASURED clock
         self.session = None
+        self.breaker_state: str | None = None
+        self.advised: set[str] = set()
 
 
 class NodeProbe:
@@ -336,7 +339,14 @@ class NodeProbe:
 
     Each node gets its own thread and its own control session (not the
     run's shared worker sessions — a hung probe must never stall a
-    client op), reconnecting lazily after transport failures."""
+    client op), reconnecting lazily after transport failures. With
+    quarantine active (test["health"]), an open-circuit node is
+    skipped entirely — one `gap` record, zero transport traffic."""
+
+    # advisory thresholds: health summaries feed the registry as
+    # warnings, never as breaker verdicts
+    MEM_FREE_WARN_FRAC = 0.05
+    CPU_BUSY_WARN_FRAC = 0.98
 
     # Per-node threads all funnel records through _emit under _lock. Per-node _NodeState objects are
     # owned by their node's thread (unshared) and the lifecycle
@@ -409,11 +419,38 @@ class NodeProbe:
                     "t": util.relative_time_nanos(),
                     "reason": reason})
 
+    def _breaker(self, node):
+        hr = self.test.get("health")
+        if hr is None:
+            return None
+        try:
+            return hr.breaker(node)
+        except Exception:  # noqa: BLE001
+            return None
+
+    def _record_breaker_transition(self, node, st: _NodeState) -> None:
+        b = self._breaker(node)
+        if b is None:
+            return
+        state = b.state()
+        if state != st.breaker_state:
+            st.breaker_state = state
+            self._emit({"kind": "breaker", "node": str(node),
+                        "t": util.relative_time_nanos(),
+                        "state": state})
+
     def _session(self, node, st: _NodeState):
         if st.session is None:
             from . import control
 
-            st.session = control.session(self.test, node)
+            # UNguarded: probe traffic must never feed the quarantine
+            # breakers — a probe failure/s during a partition would
+            # open every circuit on its own, and a probe success
+            # would reset the consecutive-failure count between real
+            # client failures. The probe only READS breaker state
+            # (tick() skips open circuits).
+            st.session = control.session(self.test, node,
+                                         guarded=False)
         return st.session
 
     def _drop_session(self, st: _NodeState) -> None:
@@ -431,6 +468,14 @@ class NodeProbe:
 
         st = self._states.setdefault(
             node, _NodeState(self._log_files(self.test, node)))
+        self._record_breaker_transition(node, st)
+        b = self._breaker(node)
+        if b is not None and b.is_open:
+            # quarantined: skipped without touching the transport (the
+            # breaker would fail-fast anyway; skipping also spares the
+            # rejected-command counter noise)
+            self._gap(node, "quarantined")
+            return
         cmd = probe_cmd(st.offsets)
         try:
             sess = self._session(node, st)
@@ -446,6 +491,7 @@ class NodeProbe:
             self._drop_session(st)
             self._gap(node, "unreachable")
             return
+        self._record_breaker_transition(node, st)
         t = util.relative_time_nanos()
         sections = parse_probe(out or "")
         sample = self._build_sample(node, st, sections, t)
@@ -456,6 +502,7 @@ class NodeProbe:
         else:
             telemetry.count("nodeprobe.samples")
             self._emit(sample)
+            self._advise(node, st, sample)
         # normalize log timestamps with the freshest MEASURED offset;
         # a tick whose clock section was torn falls back to the last
         # measurement, and with none ever taken the events are
@@ -561,6 +608,27 @@ class NodeProbe:
             rec["t"] = t
             rec["ts"] = "observed"
         return rec
+
+    def _advise(self, node, st: _NodeState, sample: dict) -> None:
+        """Advisory health summaries for the breaker registry: warn,
+        never trip — a loaded node is not a dead node."""
+        hr = self.test.get("health")
+        if hr is None or not hasattr(hr, "advise"):
+            return
+        worries = {}
+        mem = sample.get("mem") or {}
+        if mem.get("total_kb") and (mem.get("free_kb", 0)
+                                    / mem["total_kb"]
+                                    < self.MEM_FREE_WARN_FRAC):
+            worries["low-memory"] = mem.get("free_kb")
+        cpu = sample.get("cpu") or {}
+        if cpu.get("busy", 0.0) > self.CPU_BUSY_WARN_FRAC:
+            worries["cpu-saturated"] = cpu["busy"]
+        for reason, value in worries.items():
+            if reason not in st.advised:
+                st.advised.add(reason)
+                hr.advise(node, reason, value)
+        st.advised &= set(worries)  # cleared worries may re-warn later
 
     # -- lifecycle ---------------------------------------------------------
 

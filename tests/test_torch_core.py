@@ -408,8 +408,8 @@ def clusterless(**kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"quarantine?": {"threshold": 2}}, "A3c"),
-    ({"fleet": {"addr": "localhost:1"}}, "A4"),
+    ({"ssh": {"dummy": False}}, "A3c"),
+    ({"ssh": {"username": "root", "port": 22}}, "A3c"),
     ({"profile?": True}, "A5"),
     ({"xla-trace?": True}, "A5"),
     ({"profile_dir": "/tmp/x"}, "A5"),
@@ -421,7 +421,7 @@ def test_unported_switches_raise(tmp_path, kw, item):
     t = clusterless(name="refused", store_base=str(tmp_path), **kw)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         core.run(t)
-    if item != "A3c" or "quarantine?" in kw:
+    if item != "A3c":
         assert not (tmp_path / "refused").exists()
 
 

@@ -227,7 +227,7 @@ def test_elle_twin_results_equal_on_the_device_engine(name):
     """The snapshot twin's whole Elle result, cycles and steps included,
     from the device engine (the kernel's plain version on the CPU) equals
     the JAX package's device engine on the same recorded history: the
-    path chip_smoke's 30,000-txn twins take on the card."""
+    path chip_smoke's 20,000-txn twins take on the card."""
     from jepsen_tpu.tpu import elle as jelle
     from jepsen_tpu_torch.gpu import elle as pelle
 
