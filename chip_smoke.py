@@ -27,7 +27,10 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      count set to 0 just before and read just after; it must come back
      valid with >= 40 segments, and the same history corrupted at 85%
      must come back invalid, with the failed segment unreachable from its
-     composed start state under the host search;
+     composed start state under the host search; the device profiler's
+     records of each headline check must number the launches, each
+     with a compute_ns equal to a launch's CUDA-event time (phase 23's
+     check (a));
   5. cross-checks the slice on a ~20k-event history: check_segmented on
      the card equals check_segmented on the CPU (the plain kernel), and
      analysis(certify=True) / the linearizable checker on the card give
@@ -224,9 +227,32 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      launch, histories per final launch, the flight recorder's verdict
      latency quantiles and mean slices, the replayed kernel ms and the
      card's idle share of the fleet's wall time;
+23. the device profiler on the card: phase 21's register lifecycle at
+     20 keys x 100 ops, one list-append run of 20,000 txns and one bank
+     run of 24,000 ops (past the bank's device dispatch), each through
+     core.run with profile? on in a fresh process of its own, the three
+     at once (a process that has already run a Jepsen test loses device
+     records from its torch.profiler traces on the card). The run
+     directory's xprof directory must hold a torch.profiler trace whose
+     kernel events for wgl_search, scc and bank_reduce equal the launch
+     counters; prints the card's busy and idle share of each analysis.
+     Each run's trace.json (reports/trace.write_trace) must pass
+     validate_chrome_trace with a
+     device-track slice for each `kernel:` span, its metrics.json
+     validate_metrics with the profiler's wgl and scc launches equal to
+     the wrapper calls, profile_text must render and prometheus_text
+     pass validate_prometheus_text; phase 22's flight-recorder records
+     as a Chrome trace (fleet_chrome_trace) must validate. Then the
+     dispatch thresholds kept from the TPU, measured only: scc on the
+     host against the card at 2,500-80,000 live edges, the bank fold
+     against bank_reduce at 1,250-40,000 reads, the one-row search
+     against check_segmented at 1,024-16,384 entries, the median of 5
+     each, with each crossover printed. Last, one bench-ledger entry
+     per kernel of the kernels line appended to a temporary ledger
+     must pass ledger.validate_entries;
      then prints one `{"kernels": [...]}` line, whose wgl_search launches
-     include those of phases 16-22, and whose scc and bank_reduce
-     launches include those of phases 19-22.
+     include those of phases 16-23, and whose scc and bank_reduce
+     launches include those of phases 19-23.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -255,7 +281,7 @@ from jepsen_tpu_torch import control, core, coverage
 from jepsen_tpu_torch import db as jdb
 from jepsen_tpu_torch import generator as gen
 from jepsen_tpu_torch import independent, interpreter, nodeprobe, store
-from jepsen_tpu_torch import telemetry, testing, tracing, util
+from jepsen_tpu_torch import ledger, telemetry, testing, tracing, util
 from jepsen_tpu_torch.control import util as cu
 from jepsen_tpu_torch.control.dummy import DummyRemote
 from jepsen_tpu_torch import fleet
@@ -267,6 +293,7 @@ from jepsen_tpu_torch.fleet import wal as fwal
 from jepsen_tpu_torch.nemesis import combined
 from jepsen_tpu_torch.checker import cycle, linearizable, models
 from jepsen_tpu_torch.gpu import certify, ckpt, elle, ensemble, synth, wgl
+from jepsen_tpu_torch.gpu import profiler
 from jepsen_tpu_torch.gpu import scc as scc_mod
 from jepsen_tpu_torch.history import History, op
 from jepsen_tpu_torch.gpu.encode import encode
@@ -275,6 +302,8 @@ from jepsen_tpu_torch.gpu.kernels import build
 from jepsen_tpu_torch.gpu.kernels import scc as kscc
 from jepsen_tpu_torch.gpu.kernels import wgl_search as ws
 from jepsen_tpu_torch.reports import explain
+from jepsen_tpu_torch.reports import profile as rprofile
+from jepsen_tpu_torch.reports import trace as rtrace
 from jepsen_tpu_torch.store.format import jsonable
 from jepsen_tpu_torch.workloads import bank
 from jepsen_tpu_torch.workloads import lock as wl_lock
@@ -1281,8 +1310,8 @@ def _drains() -> list[dict]:
 def _ensemble_counters(c: dict) -> dict:
     return {"host_resolved_rows": c.get("wgl.host-resolved-rows", 0),
             "host_resolved_s": c.get("wgl.host-resolved-ns", 0) / 1e9,
-            "encode_s": c.get("encode.ns", 0) / 1e9,
-            "pack_s": c.get("wgl.batch.pack_ns", 0) / 1e9,
+            "encode_s": c.get("profiler.encode.encode_ns", 0) / 1e9,
+            "pack_s": c.get("profiler.pack.encode_ns", 0) / 1e9,
             "h2d_enqueue_s": c.get("wgl.kernel.h2d_ns", 0) / 1e9,
             "drain_wait_s": c.get("wgl.kernel.execute_ns", 0) / 1e9}
 
@@ -1650,8 +1679,8 @@ def _extend_line(name: str, r: dict, on_card: bool, **extra) -> dict:
             "torn": c.get("ckpt.torn", 0), "stale": c.get("ckpt.stale", 0),
             "host_resolved_rows": c.get("wgl.host-resolved-rows", 0),
             "host_resolved_s": c.get("wgl.host-resolved-ns", 0) / 1e9,
-            "encode_s": c.get("encode.ns", 0) / 1e9,
-            "pack_s": c.get("wgl.batch.pack_ns", 0) / 1e9,
+            "encode_s": c.get("profiler.encode.encode_ns", 0) / 1e9,
+            "pack_s": c.get("profiler.pack.encode_ns", 0) / 1e9,
             "certify_s": r["certify_s"],
             **extra, "card": nvidia_smi_line() if on_card else "cpu"}
 
@@ -2441,8 +2470,9 @@ def _check_spans(run: str, spans: dict, counters: dict) -> dict:
                 "scc_device_s": spans.get("scc:device", 0.0),
                 "certify_s": spans.get("certify.attach", 0.0)}
     if run.startswith("register"):
-        return {"host_encode_s": counters.get("encode.ns", 0) / 1e9,
-                "pack_s": counters.get("wgl.batch.pack_ns", 0) / 1e9,
+        return {"host_encode_s":
+                counters.get("profiler.encode.encode_ns", 0) / 1e9,
+                "pack_s": counters.get("profiler.pack.encode_ns", 0) / 1e9,
                 "drain_s": spans.get("wgl:drain", 0.0),
                 "host_resolved_rows": counters.get(
                     "wgl.host-resolved-rows", 0),
@@ -3036,7 +3066,7 @@ def _lifecycle_path(dev, on_card: bool, sizes: dict | None) -> dict:
     card_dev = None if on_card else dev
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t_phase = time.perf_counter()
-    threads0 = threading.active_count()
+    threads0 = set(threading.enumerate())
     handlers0 = list(logging.getLogger().handlers)
     per_kernel: dict = {"wgl_search": {}, "scc": {}, "bank_reduce": {}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3151,10 +3181,12 @@ def _lifecycle_path(dev, on_card: bool, sizes: dict | None) -> dict:
                   "card": nvidia_smi_line() if on_card else "cpu"})
             per_kernel[kernel][f"lifecycle-{name}"] = calls[kernel]
             del out, loaded, again
-    if threading.active_count() != threads0:
-        raise AssertionError(f"threads: {threads0} before the phase, "
-                             f"{threading.active_count()} after "
-                             f"({[t.name for t in threading.enumerate()]})")
+    # every thread alive now was alive before the phase (one of an
+    # earlier caller's may have ended meanwhile: that is not a leak)
+    leaked = [t.name for t in threading.enumerate() if t not in threads0]
+    if leaked:
+        raise AssertionError(f"threads started in the phase outlive it: "
+                             f"{leaked}")
     if logging.getLogger().handlers != handlers0:
         raise AssertionError(f"log handlers left behind: "
                              f"{logging.getLogger().handlers}")
@@ -3429,6 +3461,8 @@ def _fleet_path(dev, on_card: bool, sizes: dict | None) -> dict:
                 fleet_s = time.perf_counter() - t0
                 stats = srv.stats()
                 recs = srv.flightrec.records()
+                # phase 23 (c) exports them as a Chrome trace
+                per_kernel["flightrec_records"] = recs
                 counters = telemetry.get().counters()
                 # each launch's kernel time between the CUDA events its
                 # launcher recorded just around it during the run
@@ -3580,6 +3614,420 @@ def _fleet_path(dev, on_card: bool, sizes: dict | None) -> dict:
     return per_kernel
 
 
+# Phase 23's profiled whole runs: phase 21's register lifecycle at 20
+# keys x 100 ops, then one list-append run past Elle's device dispatch
+# and one bank run past the bank's (~12,000 reads: bank_reduce on the
+# profiled timeline), each in a process of its own, run at once
+# (profiled_runs says why); the dispatch-threshold sweeps (sizes from the thresholds kept from the
+# TPU: DEVICE_MIN_EDGES 20,000, DEVICE_MIN_READS 10,000, SEGMENT_MIN_M
+# 4,096, an octave or two each side); the median of REPS timings.
+PROFILED_SIZES = {"register_keys": 20, "register_concurrency": 10,
+                  "bank_ops": 24_000, "txn_ops": 20_000, "nemesis_ops": 2,
+                  "stale_every": 50}
+SCC_SWEEP_EDGES = (2_500, 5_000, 10_000, 20_000, 40_000, 80_000)
+BANK_SWEEP_READS = (1_250, 2_500, 5_000, 10_000, 20_000, 40_000)
+WGL_SWEEP_M = (1_024, 2_048, 4_096, 8_192, 16_384)
+SWEEP_REPS = 5
+PHASE_23_BUDGET_S = 60
+# busy intervals of the card in a torch.profiler trace
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+KERNEL_NAMES = {"wgl_search": ("wgl_search_kernel",),
+                "scc": ("scc_kernel", "scc_converge_kernel"),
+                "bank_reduce": ("bank_reduce_kernel",)}
+
+
+def _union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def device_timeline(trace_path: Path, window_ns: int) -> dict:
+    """The card's timeline in a torch.profiler Chrome trace: kernel
+    events by kernel (KERNEL_NAMES), the union of the kernels' and of
+    all device activity's intervals, and their share of a window (the
+    `analyze` span the trace was taken in, which includes the
+    profiler's own start and stop). `traced_ms` is the extent of the
+    trace's timed events, the checkers' window alone."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    timed = [e for e in events if isinstance(e.get("ts"), (int, float))
+             and isinstance(e.get("dur"), (int, float))]
+    traced_us = (max(e["ts"] + e["dur"] for e in timed)
+                 - min(e["ts"] for e in timed)) if timed else 0.0
+    dev = [e for e in timed if e.get("cat") in DEVICE_CATS]
+    kernels = [e for e in dev if e["cat"] == "kernel"]
+    counts = {k: sum(1 for e in kernels
+                     if any(n in str(e.get("name", "")) for n in names))
+              for k, names in KERNEL_NAMES.items()}
+    busy_us = _union_us((e["ts"], e["ts"] + e["dur"]) for e in dev)
+    kernel_us = _union_us((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    window_us = window_ns / 1e3
+    cats: dict = {}
+    for e in events:
+        cats[str(e.get("cat"))] = cats.get(str(e.get("cat")), 0) + 1
+    return {"events": len(events), "categories": cats,
+            "device_events": len(dev),
+            "kernel_events": counts, "other_kernels": sorted({
+                str(e.get("name"))[:60] for e in kernels
+                if not any(n in str(e.get("name", ""))
+                           for names in KERNEL_NAMES.values()
+                           for n in names)})[:10],
+            "window_ms": window_us / 1e3, "traced_ms": traced_us / 1e3,
+            "busy_ms": busy_us / 1e3,
+            "kernel_ms": kernel_us / 1e3,
+            "busy_share": busy_us / window_us if window_us else None,
+            "kernel_share": kernel_us / window_us if window_us else None,
+            "idle_share": 1 - busy_us / window_us if window_us else None,
+            "traced_idle_share": (1 - busy_us / traced_us if traced_us
+                                  else None)}
+
+
+def _run_reports(name: str, d: Path, calls: dict) -> dict:
+    """Phase 23 (c) over one stored run: its trace.json, metrics.json,
+    profile text and Prometheus text."""
+    events, metrics = store.load_telemetry(d)
+    telemetry.validate_metrics(metrics)
+    kernel_spans = [e for e in events if e["name"].startswith("kernel:")]
+    doc = json.loads(rtrace.write_trace(d).read_text())
+    n_events = rtrace.validate_chrome_trace(doc)
+    dev_slices = [e for e in doc["traceEvents"]
+                  if e.get("pid") == rtrace._PID_DEVICE and e["ph"] == "X"]
+    if sorted((e["name"], e["ts"]) for e in dev_slices) != sorted(
+            (s["name"][len("kernel:"):], s["t0"] / 1e3)
+            for s in kernel_spans):
+        raise AssertionError(f"{name}: {len(dev_slices)} device-track "
+                             f"slices for {len(kernel_spans)} kernel spans")
+    c = metrics["counters"]
+    fam = {k: sum(v for kk, v in c.items()
+                  if kk.startswith(f"profiler.{p}") and
+                  kk.endswith(".launches"))
+           for k, p in (("wgl_search", "wgl"), ("scc", "scc"))}
+    want = {"wgl_search": calls["wgl_search"], "scc": calls["scc"]}
+    if fam != want:
+        raise AssertionError(f"{name}: profiler launches {fam} != wrapper "
+                             f"calls {want}")
+    rows = rprofile.kernel_rows(metrics)
+    text = rprofile.profile_text(events, metrics)
+    # bank_reduce makes no record (nor does the JAX package's bank)
+    if any(fam.values()) and (not rows or "kernel" not in text):
+        raise AssertionError(f"{name}: no profile table: {text[:200]}")
+    prom = rprofile.prometheus_text(metrics, run=name)
+    n_samples = rprofile.validate_prometheus_text(prom)
+    return {"trace_events": n_events, "device_slices": len(dev_slices),
+            "profiler_launches": fam, "profile_rows": len(rows),
+            "prometheus_samples": n_samples,
+            "profile_text": text.splitlines()[:8]}
+
+
+def profiled_run(name: str, dev, on_card: bool, sizes: dict) -> dict:
+    """One of phase 23's profiled runs in this process: phase 21's
+    `name` run through core.run with profile? on, its xprof trace's
+    device timeline over the `analyze` span, and its reports (which
+    raise if they do not validate). Returns the run's line."""
+    card_dev = None if on_card else dev
+    spec = {s["name"]: s for s in lifecycle_runs(sizes)}[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        w = spec["workload"](dict(spec["opts"], device=card_dev))
+        test = lifecycle_test(f"profiled-{name}", w, spec["client"](),
+                              spec["concurrency"], tmp,
+                              sizes["nemesis_ops"])
+        test["profile?"] = True
+        recorded, restore = _wrapped_kernels()
+        try:
+            t0 = time.perf_counter()
+            res = core.run(test)
+            run_s = time.perf_counter() - t0
+        finally:
+            restore()
+        launches = _launch_counts()
+        calls = {label: len(v) for label, v in recorded.items()}
+        if res["results"]["valid?"] is not True:
+            raise AssertionError(f"profiled {name}: "
+                                 f"{res['results']['valid?']}")
+        d = Path(res["store_dir"])
+        trace = d / "xprof" / util.PROFILE_TRACE_FILE
+        if not trace.exists():
+            raise AssertionError(f"profiled {name}: no {trace}")
+        events, _m = store.load_telemetry(d)
+        (analyze,) = [e for e in events if e["name"] == "analyze"]
+        return {"phase": "profiled-run", "run": name, "kernel":
+                spec["kernel"], "run_s": run_s,
+                "events": len(res["history"]), "launches": launches,
+                "wrapper_calls": calls,
+                "trace_bytes": trace.stat().st_size,
+                "timeline": device_timeline(trace, analyze["t1"]
+                                            - analyze["t0"]),
+                **_run_reports(f"profiled-{name}", d, calls),
+                "card": nvidia_smi_line() if on_card else "cpu"}
+
+
+def _child(name: str, dev, on_card: bool, sizes: dict):
+    """Starts profiled_run in a process of its own, from this file's
+    directory; its line comes back on stdout (_child_line)."""
+    code = ("import json, torch, chip_smoke as cs; "
+            f"line = cs.profiled_run({name!r}, torch.device({str(dev)!r}), "
+            f"{on_card!r}, {sizes!r}); "
+            "print('PROFILED-RUN ' + json.dumps(line), flush=True)")
+    return subprocess.Popen([sys.executable, "-c", code],
+                            cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _child_line(name: str, proc) -> dict:
+    out, err = proc.communicate(timeout=600)
+    lines = [ln for ln in out.splitlines() if ln.startswith("PROFILED-RUN ")]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"profiled {name}: the run's process exited "
+                             f"{proc.returncode}: {err[-3000:]}")
+    return json.loads(lines[0][len("PROFILED-RUN "):])
+
+
+def profiled_runs(dev, on_card: bool, sizes: dict | None = None) -> dict:
+    """Phase 23 (b) and (c): whole Jepsen runs with profile? on, each in
+    a fresh process (on the card machine, torch.profiler's CUPTI
+    collection loses device records in a process that has already run
+    a Jepsen test: the trace must be the run's first session). The
+    three processes run at once: each trace holds its own process's
+    device activity, and the card's busy time is the sum over them. The
+    run directory's xprof trace must hold a kernel event for each launch
+    of wgl_search, scc and bank_reduce (on the card), and the run's
+    reports must validate. Prints the card's busy and idle share of each
+    analysis."""
+    sizes = dict(PROFILED_SIZES, **(sizes or {}))
+    out: dict = {"wgl_search": {}, "scc": {}, "bank_reduce": {}}
+    names = ("register", "list-append", "bank")
+    procs = {name: _child(name, dev, on_card, sizes) for name in names}
+    try:
+        lines = {name: _child_line(name, procs[name]) for name in names}
+    finally:
+        for proc in procs.values():  # stop every process this started
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for name in names:
+        line = lines[name]
+        emit(line)
+        launches, kernel = line["launches"], line["kernel"]
+        if on_card:
+            want = {"wgl_search": launches["wgl_search"],
+                    "scc": launches["scc"] + launches["scc_converge"],
+                    "bank_reduce": launches["bank_reduce"]}
+            got = {k: line["timeline"]["kernel_events"][k] for k in want}
+            if got != want or not launches[kernel]:
+                raise AssertionError(f"profiled {name}: trace kernel "
+                                     f"events {got} != launches {want}")
+        out[kernel][f"profiled-{name}"] = line["wrapper_calls"][kernel]
+    return out
+
+
+def _median_s(fn, reps: int, sync) -> float:
+    """Median wall seconds of `reps` calls of fn, after one call that
+    warms imports, caches and the kernel library."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def _crossover(rows: list, slow: str, fast: str):
+    """The smallest size from which `fast` beats `slow` at every larger
+    size of the sweep, or None."""
+    for i, r in enumerate(rows):
+        if all(x[fast] < x[slow] for x in rows[i:]):
+            return r["size"]
+    return None
+
+
+def threshold_sweeps(dev, on_card: bool, reps: int = SWEEP_REPS,
+                     scc_edges=SCC_SWEEP_EDGES, bank_reads=BANK_SWEEP_READS,
+                     wgl_m=WGL_SWEEP_M) -> dict:
+    """Phase 23 (d): the dispatch thresholds kept from the TPU, measured
+    only (no threshold changes): host against card for scc and the bank
+    fold, one-row search against check_segmented for wgl, each the
+    median of `reps` wall times of the entry point's own dispatch
+    (module threshold set to send every size one way, then the other,
+    and restored)."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    card_dev = None if on_card else dev
+    out = {}
+    # scc: Edges.scc over a fresh edge array (upload included)
+    rows = []
+    saved = scc_mod.DEVICE_MIN_EDGES
+    try:
+        for E in scc_edges:
+            n = E // 8
+            rng = np.random.default_rng(E)
+            src = rng.integers(0, n, E).astype(np.int32)
+            dst = rng.integers(0, n, E).astype(np.int32)
+            t = {}
+            for way, thr in (("host", 1 << 62), ("card", 0)):
+                scc_mod.DEVICE_MIN_EDGES = thr
+                t[way] = _median_s(lambda: scc_mod.Edges(
+                    n, src, dst, device=card_dev).scc(), reps, sync)
+            rows.append({"size": E, "nodes": n, "host_s": t["host"],
+                         "card_s": t["card"]})
+    finally:
+        scc_mod.DEVICE_MIN_EDGES = saved
+    out["scc"] = {"threshold": saved, "unit": "live edges", "rows": rows,
+                  "crossover": _crossover(rows, "host_s", "card_s")}
+    # bank: check_fast over the reads of a 32-account history
+    hist = synth.bank_history(2 * max(bank_reads) + 10_000, n_accounts=32,
+                              seed=23)
+    reads = [o for o in hist if o.type == "ok" and o.f == "read"]
+    if len(reads) < max(bank_reads):
+        raise AssertionError(f"{len(reads)} reads < {max(bank_reads)}")
+    total = 32 * 10
+    rows = []
+    saved = bank.DEVICE_MIN_READS
+    try:
+        for R in bank_reads:
+            t = {}
+            for way, thr in (("host", 1 << 62), ("card", 0)):
+                bank.DEVICE_MIN_READS = thr
+                t[way] = _median_s(lambda: bank.check_fast(
+                    reads[:R], total, device=card_dev), reps, sync)
+            rows.append({"size": R, "host_s": t["host"],
+                         "card_s": t["card"]})
+    finally:
+        bank.DEVICE_MIN_READS = saved
+    out["bank"] = {"threshold": saved, "unit": "reads", "rows": rows,
+                   "crossover": _crossover(rows, "host_s", "card_s")}
+    # wgl: the one-row search against check_segmented (both on the card)
+    rows = []
+    for m in wgl_m:
+        h = synth.register_history(int(m / 0.8), n_procs=5, seed=m)
+        enc = encode(models.cas_register(), h)
+        one = _median_s(lambda: wgl.check_batch([enc], W=32, F=64,
+                                                device=card_dev), reps, sync)
+        seg = _median_s(lambda: wgl.check_segmented(
+            enc, witness=True, device=card_dev, W=24, F=48), reps, sync)
+        rows.append({"size": enc.m, "target_m": m, "one_row_s": one,
+                     "segmented_s": seg})
+    out["wgl"] = {"threshold": wgl.SEGMENT_MIN_M, "unit": "entries",
+                  "rows": rows,
+                  "crossover": _crossover(rows, "one_row_s", "segmented_s")}
+    for k, v in out.items():
+        emit({"phase": "threshold", "kernel": k, **v,
+              "card": nvidia_smi_line() if on_card else "cpu"})
+    return out
+
+
+def ledger_entries(kernels: list, headline_check_s: float,
+                   on_card: bool) -> int:
+    """Phase 23 (e): one bench-ledger entry per kernel of the kernels
+    line, appended to a temporary ledger through ledger.append_entry and
+    read back through validate_entries. The value is the kernel's ms on
+    the card (its plain version's off the card)."""
+    key = "ms" if on_card else "plain_ms"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / ledger.LEDGER_FILE
+        for k in kernels:
+            entries = ledger.read_entries(path)
+            ledger.append_entry(path, {
+                "round": ledger.next_round(entries),
+                "headline": {"metric": "headline check_s",
+                             "value": headline_check_s, "unit": "s"},
+                "kernels": {k["name"]: {"value": k[key], "unit": key,
+                                        "higher_is_better": False}}})
+        entries = ledger.read_entries(path)
+        n = ledger.validate_entries(entries)
+    if n != len(kernels):
+        raise AssertionError(f"{n} ledger entries for {len(kernels)} "
+                             f"kernels")
+    emit({"phase": "ledger", "entries": n,
+          "kernels": [next(iter(e["kernels"])) for e in entries],
+          "rounds": [e["round"] for e in entries]})
+    return n
+
+
+def profiler_path(dev, on_card: bool, fleet_records: list,
+                  profiled_sizes: dict | None = None,
+                  sweep: dict | None = None) -> dict:
+    """Phase 23 (b)-(d): profiled whole runs and their reports, the
+    fleet's flight-recorder records as a Chrome trace, the threshold
+    sweeps. Returns the launches per path, by kernel."""
+    gc.collect()
+    gc.freeze()
+    log = logging.getLogger("jepsen_tpu_torch")
+    level = log.level
+    log.setLevel(logging.WARNING)
+    try:
+        t0 = time.perf_counter()
+        launches = profiled_runs(dev, on_card, profiled_sizes)
+        runs_s = time.perf_counter() - t0
+        doc = rtrace.fleet_chrome_trace(fleet_records)
+        n_fleet = rtrace.validate_chrome_trace(doc)
+        if not [e for e in doc["traceEvents"]
+                if e.get("cat") == "fleet.launch"]:
+            raise AssertionError("the fleet trace holds no launch")
+        emit({"phase": "fleet-trace", "records": len(fleet_records),
+              "events": n_fleet})
+        t1 = time.perf_counter()
+        thresholds = threshold_sweeps(dev, on_card, **(sweep or {}))
+        emit({"phase": "profiler-total",
+              "seconds": time.perf_counter() - t0, "runs_s": runs_s,
+              "sweep_s": time.perf_counter() - t1,
+              "budget_s": PHASE_23_BUDGET_S,
+              "crossovers": {k: v["crossover"]
+                             for k, v in thresholds.items()},
+              "card": nvidia_smi_line() if on_card else "cpu"})
+        return launches
+    finally:
+        log.setLevel(level)
+        gc.unfreeze()
+
+
+
+def headline_profile(records: list, events: list, launches: int,
+                     on_card: bool) -> dict:
+    """Phase 23 (a): the profiler's records of one headline check. Their
+    count must equal the launch counter and each record's compute_ns the
+    CUDA-event time of a launch of the check, read again here from the
+    events the launcher recorded. Prints each kernel's launches, compute
+    ms and bytes. Returns {kernel: [records]}."""
+    by_kernel: dict = {}
+    for r in records:
+        by_kernel.setdefault(r["kernel"], []).append(r)
+    wgl_recs = [r for r in records if r["kernel"].startswith("wgl")]
+    if on_card:
+        if len(wgl_recs) != launches:
+            raise AssertionError(f"{len(wgl_recs)} wgl records for "
+                                 f"{launches} launches")
+        want = sorted(round(a.elapsed_time(b) * 1e6) for a, b in events)
+        got = sorted(r["compute_ns"] for r in wgl_recs)
+        if got != want:
+            raise AssertionError(f"record compute_ns {got} != the "
+                                 f"launches' CUDA-event ns {want}")
+    emit({"phase": "profiler-headline", "launch_counter": launches,
+          "kernels": {k: {"launches": len(v),
+                          "compute_ms": sum(r.get("compute_ns", 0)
+                                            for r in v) / 1e6,
+                          "bytes_accessed": sum(r.get("bytes_accessed", 0)
+                                                for r in v),
+                          "flops": sum(r.get("flops") or 0 for r in v),
+                          "peak_memory_bytes": max(
+                              r.get("peak_memory_bytes") or 0 for r in v),
+                          "compile_ns": [r["compile_ns"] for r in v
+                                         if r.get("compile_ns")]}
+                      for k, v in by_kernel.items()},
+          "compute_ns_equal_events": on_card})
+    return by_kernel
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 10_000, n_elle: int = 100_000,
@@ -3590,7 +4038,9 @@ def run(dev: torch.device, n_headline: int = 500_000,
         n_adversarial_chain: int = 20_001,
         generated_sizes: dict | None = None,
         lifecycle_sizes: dict | None = None,
-        fleet_sizes: dict | None = None) -> dict:
+        fleet_sizes: dict | None = None,
+        profiled_sizes: dict | None = None,
+        sweep: dict | None = None) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     # wall seconds of each group of phases, printed before the kernels
@@ -3655,12 +4105,15 @@ def run(dev: torch.device, n_headline: int = 500_000,
     hist = synth.register_history(n_headline, n_procs=5, seed=42)
     gen_s = time.perf_counter() - t0
     recorded = []
+    launch_events = []
     original = ws.wgl_search
 
     def recording(packed, rs, s0, **kw):
         out = original(packed, rs, s0, **kw)
-        # replayed below without the launch's own timing events
+        # replayed below without the launch's own timing events, which
+        # phase 23 (a) reads against the profiler's records
         recorded.append((packed, rs, s0, _untimed(kw), out))
+        launch_events.append(kw.get("events"))
         return out
 
     runs = []
@@ -3668,8 +4121,10 @@ def run(dev: torch.device, n_headline: int = 500_000,
     try:
         for rep in range(3):
             recorded.clear()
+            launch_events.clear()
             ws.launches = 0
             telemetry.reset()
+            profiler.reset()
             t0 = time.perf_counter()
             enc = encode(models.cas_register(), hist)
             t1 = time.perf_counter()
@@ -3699,11 +4154,13 @@ def run(dev: torch.device, n_headline: int = 500_000,
                       "wgl.host-resolved-rows", 0),
                   "host_resolved_s": counters.get(
                       "wgl.host-resolved-ns", 0) / 1e9,
-                  "pack_s": counters.get("wgl.batch.pack_ns", 0) / 1e9,
+                  "pack_s": counters.get("profiler.pack.encode_ns", 0) / 1e9,
                   "h2d_s": counters.get("wgl.kernel.h2d_ns", 0) / 1e9,
                   "drain_s": counters.get("wgl.kernel.execute_ns", 0)
                   / 1e9,
                   "card": nvidia_smi_line() if on_card else "cpu"})
+            headline_profile(profiler.get().records(), launch_events,
+                             launches, on_card)
         main_launches = list(recorded)
         main_count = launches
     finally:
@@ -3880,11 +4337,20 @@ def run(dev: torch.device, n_headline: int = 500_000,
     scc_entry["launches"] += sum(fleet_launches["scc"].values())
     scc_entry["launches_per_check"].update(fleet_launches["scc"])
     mark("22 fleet")
+    # 23. the profiler on the card: profiled whole runs, the reports,
+    # the dispatch thresholds; (a) ran with phase 4, (e) and (f) below
+    prof_launches = profiler_path(dev, on_card,
+                                  fleet_launches["flightrec_records"],
+                                  profiled_sizes, sweep)
+    per_path.update(prof_launches["wgl_search"])
+    scc_entry["launches"] += sum(prof_launches["scc"].values())
+    scc_entry["launches_per_check"].update(prof_launches["scc"])
+    bank_entry["launches"] += sum(prof_launches["bank_reduce"].values())
+    bank_entry["launches_per_check"].update(prof_launches["bank_reduce"])
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}
-    return {
-        "kernels": [{
+    kernels = [{
             "name": "wgl_search",
             "route": "cuda",
             "source": "jepsen_tpu_torch/gpu/kernels/csrc/wgl_search.cu",
@@ -3921,7 +4387,15 @@ def run(dev: torch.device, n_headline: int = 500_000,
                          >= sh_ops / PEAK_OPS_PER_S else "operations"),
             "library_ms": None,
             "main_path_launches": sharded,
-        }, scc_entry, bank_entry],
+        }, scc_entry, bank_entry]
+    # 23 (e) the ledger, (f) the kernels line still lists all three
+    ledger_entries(kernels, runs[-1]["check_s"], on_card)
+    names = {k["name"] for k in kernels}
+    if not {"wgl_search", "scc", "bank_reduce"} <= names:
+        raise AssertionError(f"the kernels line lists {sorted(names)}")
+    mark("23 profiler")
+    return {
+        "kernels": kernels,
         "headline_runs": runs,
         "phase_seconds": seconds,
     }

@@ -14,11 +14,14 @@ The analysis runs on the card through the checkers' own device switch
 (each workload's checker takes opts["device"]; None is the card). The
 quarantine breakers (test["quarantine?"], control/health.py) and the
 fleet stream (test["fleet"], fleet/client.py) run as in the JAX package.
-Two switches of the JAX package's run are not ported, and each raises
-NotImplementedError naming its ROADMAP item instead of being ignored:
-multi-host initialization (JAX_COORDINATOR_ADDRESS / JEPSEN_TPU_MULTIHOST,
-A6) and a profiled analysis (profile?, xla-trace?, profile_dir: A5,
-torch.profiler).
+A profiled analysis (test["profile?"], test["xla-trace?"] or
+test["profile_dir"]) runs the checkers under a torch.profiler trace
+(util.profile_trace) written into the store directory's `xprof` or
+`xla-trace` directory, or into profile_dir; each run starts the device
+profiler's per-launch records afresh (gpu/profiler.py). One switch of
+the JAX package's run is not ported and raises NotImplementedError
+naming its ROADMAP item instead of being ignored: multi-host
+initialization (JAX_COORDINATOR_ADDRESS / JEPSEN_TPU_MULTIHOST, A6).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from . import telemetry
 from . import tracing
 from . import util
 from . import watchdog as jwatchdog
+from .gpu import profiler as jprofiler
 
 logger = logging.getLogger(__name__)
 
@@ -334,7 +338,6 @@ def analyze(test: dict, store_ctx=None, extra_opts: dict | None = None
     recovered partial results through here)."""
     from . import checker as jchecker
 
-    _refuse_profiling(test)
     logger.info("Analyzing...")
     checker = test.get("checker")
     if checker is None:
@@ -350,6 +353,15 @@ def analyze(test: dict, store_ctx=None, extra_opts: dict | None = None
             opts["partial_results"] = partial
         except Exception:  # noqa: BLE001 — partials are best-effort
             logger.exception("opening partial-results log failed")
+    trace_dir = test.get("profile_dir")
+    if trace_dir is None and store_ctx is not None and test.get(
+            "profile?"):
+        trace_dir = store_ctx.path(test, "xprof")
+    if trace_dir is None and store_ctx is not None and test.get(
+            "xla-trace?"):
+        # the JAX package's --xla-trace switch: a profiler trace of the
+        # analysis phase (every kernel launch) lands in the store dir
+        trace_dir = store_ctx.path(test, "xla-trace")
     # a hung non-composed checker gets the same wall-clock bound the
     # Compose applies per sub-checker; composed checkers are bounded
     # individually inside (one outer bound would cap the whole set)
@@ -358,9 +370,10 @@ def analyze(test: dict, store_ctx=None, extra_opts: dict | None = None
         timeout_s = jchecker.checker_timeout_s(test, opts)
     try:
         with telemetry.span("analyze"):
-            test["results"] = jchecker.check_safe(
-                checker, test, test["history"], opts,
-                timeout_s=timeout_s)
+            with util.profile_trace(trace_dir):
+                test["results"] = jchecker.check_safe(
+                    checker, test, test["history"], opts,
+                    timeout_s=timeout_s)
     finally:
         if partial is not None:
             partial.close()
@@ -448,14 +461,6 @@ def log_results(test: dict) -> dict:
     return test
 
 
-def _refuse_profiling(test: dict) -> None:
-    for key in ("profile?", "xla-trace?", "profile_dir"):
-        if test.get(key):
-            raise NotImplementedError(
-                f"test[{key!r}]: a profiled analysis is not ported "
-                "(ROADMAP A5, torch.profiler)")
-
-
 def _refuse_unported(test: dict) -> None:
     """Raises for a switch of the JAX package's run that the port does
     not have, before anything of the run starts."""
@@ -464,7 +469,6 @@ def _refuse_unported(test: dict) -> None:
         raise NotImplementedError(
             "multi-host analysis is not ported: one process, one card "
             "(ROADMAP A6)")
-    _refuse_profiling(test)
 
 
 def run(test: dict) -> dict:
@@ -515,6 +519,9 @@ def run(test: dict) -> dict:
             # fault-activation coverage is scoped per run like the
             # telemetry it rides next to (coverage.py)
             jcoverage.reset()
+            # per-launch device-profile records are scoped per run
+            # like the telemetry they mirror into
+            jprofiler.reset()
             # per-op causal tracing is opt-in (test["trace?"]); when a
             # store exists the recorder streams optrace.jsonl into it
             # as spans complete (crash-tolerant like telemetry.jsonl)

@@ -11,8 +11,9 @@ that pipeline the way a serving stack records requests:
             verdict becomes a record on ONE monotonic clock
             (time.monotonic_ns — comparable across processes on the
             same host, which is how the client's `tc` trace context
-            joins server-side spans). (The Perfetto export of the
-            records, reports/trace.fleet_chrome_trace, is ROADMAP A5.)
+            joins server-side spans). reports/trace.py's
+            fleet_chrome_trace exports the records as a Perfetto
+            fleet-session view.
   latency   every verdict carries a schema-validated `latency` block
             decomposing its wall-clock into the pipeline's slices:
             ingest_wait, wal_fsync, queue_wait, batching_delay,

@@ -272,8 +272,10 @@ class FleetServer:
         with self._lock:
             runs = list(self._runs.values())
         for r in runs:
-            if r.wal is not None:
-                r.wal.close()
+            # under the run's lock: the batch thread may be retiring the
+            # same WAL after its verdict, and a second os.close of its fd
+            # raises EBADF or closes a reused fd (ROADMAP C8)
+            r.retire_wal()
         try:
             (self.base / ADDR_FILE).unlink()
         except OSError:

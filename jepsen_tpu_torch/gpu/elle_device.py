@@ -33,6 +33,7 @@ from .. import history as h
 from .. import telemetry
 from ..device import resolve_device
 from ..history import History
+from . import profiler
 from . import scc as scc_mod
 from .elle import (EDGE_NAMES, PROC, RT, RW, WR, WW, Txn, _classify,
                    _find_cycle, collect, order_edges_from_arrays)
@@ -627,24 +628,32 @@ def check_list_append_device(hist, device=None) -> dict:
     resolve_device(device)
     if not isinstance(hist, History):
         hist = History(hist)
+    prof = profiler.get()
+    rec = prof.begin("elle-append")
     with telemetry.span("elle:list-append") as sp:
-        # host side: flatten + edge inference
-        a = DeviceAppendAnalysis(hist)
+        with prof.phase(rec, "encode_ns"):
+            # host side: flatten + edge inference (the SCC launches
+            # inside cycle_anomalies_arrays profile themselves)
+            a = DeviceAppendAnalysis(hist)
         sp["attrs"] = {"txns": a.flat.n, "edges": int(len(a.edge_src))}
-    return _cycle_result(a, device)
+    return _cycle_result(a, device, rec)
 
 
-def _cycle_result(a, device) -> dict:
+def _cycle_result(a, device, rec: dict) -> dict:
     """The shared tail of both device checks: telemetry, the cycle
-    search over the analysis's edge arrays, and the result dict."""
+    search over the analysis's edge arrays (the profiler record's
+    compute_ns), and the result dict."""
+    prof = profiler.get()
     telemetry.count("elle.txns", a.flat.n)
     telemetry.count("elle.edges", int(len(a.edge_src)))
+    rec.update(txns=a.flat.n, edges=int(len(a.edge_src)))
     anomalies = dict(a.anomalies)
-    with telemetry.span("elle:cycles"):
+    with telemetry.span("elle:cycles"), prof.phase(rec, "compute_ns"):
         for name, ws in cycle_anomalies_arrays(
                 a.flat.n, a.edge_src, a.edge_dst, a.edge_ty, a._op,
                 device=device).items():
             anomalies[name] = ws
+    prof.finish(rec)
     return {
         "valid?": not anomalies,
         "anomaly-types": sorted(anomalies.keys()),
@@ -988,7 +997,10 @@ def check_rw_register_device(hist, device=None) -> dict:
     resolve_device(device)
     if not isinstance(hist, History):
         hist = History(hist)
+    prof = profiler.get()
+    rec = prof.begin("elle-rw")
     with telemetry.span("elle:rw-register") as sp:
-        a = DeviceRwAnalysis(hist)
+        with prof.phase(rec, "encode_ns"):
+            a = DeviceRwAnalysis(hist)
         sp["attrs"] = {"txns": a.flat.n, "edges": int(len(a.edge_src))}
-    return _cycle_result(a, device)
+    return _cycle_result(a, device, rec)

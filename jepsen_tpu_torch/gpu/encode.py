@@ -1,6 +1,5 @@
 """History -> tensor encoding for the device checkers (the port's copy
-of jepsen_tpu/tpu/encode.py, with the profiler hook replaced by
-telemetry counters).
+of jepsen_tpu/tpu/encode.py).
 
 Turns a single-key client history into flat int32 entry arrays (one entry
 per surviving invocation, sorted by invocation order) and compiles a
@@ -25,7 +24,6 @@ from typing import Any
 import numpy as np
 
 from .. import history as h
-from .. import telemetry
 from ..checker import models as model_mod
 from ..history import History, Op
 
@@ -195,14 +193,15 @@ def encode(model, hist: History, max_states: int = 4096) -> Encoded:
     itself non-tabulable (step() depends on more than op.f/op.value).
 
     Host-encode time is the first phase of every kernel launch
-    pipeline: it is counted under `encode.ns` / `encode.entries` /
-    `encode.calls` (aggregate counters, no per-call records)."""
+    pipeline, so it's accounted to the device profiler (aggregate
+    `profiler.encode.*` counters — ensembles encode thousands of
+    histories, so no per-call records)."""
+    from . import profiler
+
     t0 = time.monotonic_ns()
     enc = _encode(model, hist, max_states)
-    tel = telemetry.get()
-    tel.count("encode.calls")
-    tel.count("encode.ns", time.monotonic_ns() - t0)
-    tel.count("encode.entries", enc.m)
+    profiler.get().record_host("encode", time.monotonic_ns() - t0,
+                               entries=enc.m)
     return enc
 
 

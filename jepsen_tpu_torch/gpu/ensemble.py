@@ -35,6 +35,7 @@ import torch
 from .. import telemetry
 from ..device import resolve_device
 from ..history import History
+from . import profiler
 from . import wgl as wgl_mod
 from .encode import Encoded, EncodingError, balanced_groups, encode
 from .wgl import PackedBatch, RangeError, _drain, _next_pow2
@@ -111,7 +112,8 @@ def shard_layout(pb: PackedBatch, rows: Sequence[tuple[int, int]],
     lay.device_entries = [
         int(sum(int(pb.m[k]) * int(n_rows_seg[k]) for k in g))
         for g in groups]
-    telemetry.count("wgl.spmd.layout_ns", _time.monotonic_ns() - t0)
+    profiler.get().record_host("shard-layout",
+                               _time.monotonic_ns() - t0)
     return lay
 
 
@@ -132,7 +134,12 @@ def sharded_launch(pb: PackedBatch, rows: Sequence[tuple[int, int]],
                    W: int, F: int, reach: bool, devices=None):
     """Dispatches one launch over the one-device layout without waiting
     for it (drain with wgl._drain). Outputs answer rows in CALLER order,
-    already trimmed to len(rows) by the on-card gather."""
+    already trimmed to len(rows) by the on-card gather.
+
+    Its profiler record (`wgl-sharded`) carries the per-device work
+    attribution (`device_entries`, entries of search work per device)
+    and the mean/max `balance` figure, as the JAX package's mesh launch
+    does; with one device the balance is 1.0."""
     global launches
     dev = one_device(devices)
     rows = list(rows)
@@ -145,15 +152,25 @@ def sharded_launch(pb: PackedBatch, rows: Sequence[tuple[int, int]],
                         dev)
     packed = (t[0].view(K, M), t[1].view(K, M), t[2].view(K, M, S), t[3],
               t[4].view(K, M + 1))
+    h2d_ns = _time.monotonic_ns() - t0
     tel = telemetry.get()
-    tel.count("wgl.kernel.h2d_ns", _time.monotonic_ns() - t0)
+    tel.count("wgl.kernel.h2d_ns", h2d_ns)
     tel.count("wgl.kernel.rows", len(lay.row_seg))
-    tel.count("wgl.kernel.launches")
     tel.count("wgl.spmd.launches")
     tel.gauge_max("wgl.spmd.devices", lay.n_dev)
-    out = wgl_mod._run(packed, t[5], t[6], W, F, pb.M + 4, reach,
-                       crash_free=not pb.has_crashed,
-                       gather=t[7][:len(rows)])
+    bucket = ("one-device", lay.inv_t.shape, S, len(lay.row_seg),
+              len(lay.inv_perm), W, F, pb.M + 4, reach, pb.has_crashed,
+              dev.type)
+    meta = {"h2d_ns": h2d_ns, "rows": len(lay.row_seg), "batch": pb.B,
+            "m": pb.M, "states": pb.S, "devices": lay.n_dev,
+            "device_entries": lay.device_entries,
+            "balance": profiler.work_balance(lay.device_entries),
+            "W": W, "entries": int(lay.mseg[np.unique(lay.row_seg)].sum())}
+    out = wgl_mod._timed_launch(
+        bucket, lambda: wgl_mod._run(packed, t[5], t[6], W, F, pb.M + 4,
+                                     reach, crash_free=not pb.has_crashed,
+                                     gather=t[7][:len(rows)]),
+        kernel="wgl-sharded", meta=meta)
     if dev.type == "cuda":
         launches += 1
     return out

@@ -33,6 +33,9 @@ NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# ns each library took to build (if its sources changed) and load, until
+# the profiler takes it as the compile_ns of that kernel's first launch
+_load_ns: dict[str, int] = {}
 
 
 class BuildError(RuntimeError):
@@ -144,6 +147,16 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            t0 = time.monotonic_ns()
             lib = ctypes.CDLL(str(_finish(_start(name))))
             _loaded[name] = lib
+            _load_ns[name] = time.monotonic_ns() - t0
         return lib
+
+
+def take_load_ns(name: str) -> int | None:
+    """The ns the library `name` took to build and load, once: the first
+    call after its load returns it, later calls None (gpu/profiler.py's
+    compile_ns of the kernel's first recorded launch)."""
+    with _lock:
+        return _load_ns.pop(name, None)

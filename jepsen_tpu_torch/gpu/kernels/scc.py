@@ -201,6 +201,16 @@ def scc_labels_to_convergence(src, dst, edge_on, n: int,
     return out
 
 
+def scratch_bytes(n: int, E: int, converge: bool = False) -> int:
+    """The device scratch one launch over n nodes and E edges takes (the
+    capped launch's, or the convergence launch's with converge), as the
+    library carves it."""
+    lib = _lib()
+    fn = lib.scc_converge_scratch_bytes if converge else \
+        lib.scc_scratch_bytes
+    return int(fn(n, E))
+
+
 def _launch(fn, scratch_bytes, src, dst, edge_on, n, E, params, out,
             syncs, events):
     dev = src.device

@@ -33,11 +33,15 @@ exact sizes.
 
 from __future__ import annotations
 
+from time import monotonic_ns
+
 import numpy as np
 import torch
 
 from .. import telemetry
 from ..device import resolve_device
+from . import profiler
+from .kernels import build as kbuild
 from .kernels import scc as kernel
 
 # Below this edge count the host path wins on dispatch overhead alone.
@@ -71,29 +75,66 @@ class Edges:
     def labels_device(self, emask=None, to_convergence: bool = False
                       ) -> np.ndarray | None:
         """One kernel launch (see scc_device); with to_convergence, the
-        convergence launch, whose labels always come back."""
+        convergence launch, whose labels always come back. Each launch
+        makes an `scc` profiler record: nodes, edges, h2d_ns,
+        dispatch_ns, compute_ns (the kernel's CUDA-event interval on the
+        card, read after the labels' download; the host wait on the CPU)
+        and the cost fields."""
         n = self.n
         if n == 0:
             return np.empty(0, dtype=np.int32)
-        if self._on_device is None:
-            self._on_device = (torch.from_numpy(self.src).to(self.dev),
-                               torch.from_numpy(self.dst).to(self.dev))
+        E = len(self.src)
         launch = (kernel.scc_labels_to_convergence if to_convergence
                   else kernel.scc_labels)
         on_card = self.dev.type == "cuda"
         events = ((torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True)) if on_card
                   else None)
-        with telemetry.span("scc:device", device=self.dev.type) as rec:
-            out = launch(*self._on_device,
-                         torch.from_numpy(self._mask(emask)).to(self.dev),
-                         n, events=events)
-            # one download: labels, ok and the launch's counts
-            labels = out.cpu().numpy()
-            # the kernel's time alone, between the events its launcher
-            # recorded just around it
-            rec["attrs"] = {"device": self.dev.type, "device_ms": (
-                events[0].elapsed_time(events[1]) if on_card else None)}
+        prof = profiler.get()
+        bucket = ("scc-converge" if to_convergence else "scc", n, E,
+                  self.dev.type)
+        rec = prof.begin("scc", bucket=bucket, nodes=n, edges=E)
+        fresh = prof.bucket_fresh("scc", bucket)
+        try:
+            with telemetry.span("scc:device", device=self.dev.type) as sp:
+                t0 = monotonic_ns()
+                if self._on_device is None:
+                    self._on_device = (
+                        torch.from_numpy(self.src).to(self.dev),
+                        torch.from_numpy(self.dst).to(self.dev))
+                on = torch.from_numpy(self._mask(emask)).to(self.dev)
+                rec["h2d_ns"] = monotonic_ns() - t0
+                t0 = monotonic_ns()
+                out = launch(*self._on_device, on, n, events=events)
+                rec["dispatch_ns"] = monotonic_ns() - t0
+                compile_ns = kbuild.take_load_ns("scc")
+                if compile_ns:
+                    rec["compile_ns"] = compile_ns
+                t0 = monotonic_ns()
+                # one download: labels, ok and the launch's counts
+                labels = out.cpu().numpy()
+                wait_ns = monotonic_ns() - t0
+                # the kernel's time alone, between the events its
+                # launcher recorded just around it
+                device_ms = (events[0].elapsed_time(events[1]) if on_card
+                             else None)
+                sp["attrs"] = {"device": self.dev.type,
+                               "device_ms": device_ms}
+            rec["compute_ns"] = (wait_ns if device_ms is None
+                                 else round(device_ms * 1e6))
+            scratch = (kernel.scratch_bytes(n, E, to_convergence)
+                       if on_card else 0)
+            rec.update(prof.bucket_cost(
+                bucket, lambda: profiler.scc_cost(n, E, len(labels),
+                                                  scratch), fresh))
+        except BaseException:
+            if fresh:
+                # failed first launch: release the claim so the retry
+                # records a miss, not a phantom hit
+                prof.bucket_unclaim("scc", bucket)
+            raise
+        finally:
+            prof.finish(rec)
         if not labels[n]:
             return None
         return labels[:n]

@@ -24,17 +24,21 @@ ensemble layout, gpu/ensemble.py) into the hand-written CUDA kernel (or,
 for tensors on the CPU, its plain PyTorch version). A launch returns
 before its search ends and `_drain` waits on that launch's own event, so
 the batch entry points (`analysis_batch_streamed`) overlap one chunk's
-host encoding with the previous chunk's search. A kernel that fails to
-build or launch raises: there is no device-failure ladder. UNKNOWN rows
-(window or frontier overflow) still go to the exact host search, which
-is the algorithm's own soundness rule; they are counted under
-`wgl.host-resolved-rows`.
+host encoding with the previous chunk's search. Both go through
+`_timed_launch`, which opens the launch's profiler record
+(gpu/profiler.py: `wgl`, `wgl-reach` or `wgl-sharded`), and `_drain`
+closes it with the kernel's CUDA-event time, read after its wait. A
+kernel that fails to build or launch raises: there is no device-failure
+ladder. UNKNOWN rows (window or frontier overflow) still go to the exact
+host search, which is the algorithm's own soundness rule; they are
+counted under `wgl.host-resolved-rows`.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import threading as _threading
 import time as _time
 import zlib
 from pathlib import Path
@@ -49,7 +53,9 @@ from ..device import resolve_device
 from ..history import History
 from ..store import format as sformat
 from . import ckpt as ckpt_mod
+from . import profiler
 from .encode import INF, Encoded, EncodingError, encode
+from .kernels import build as kbuild
 from .kernels import wgl_search as kernel
 from .kernels.wgl_search import BIG, INVALID, RUNNING, UNKNOWN, VALID
 
@@ -349,7 +355,10 @@ class PackedBatch:
             tel.gauge("wgl.batch.occupancy", round(used / slots, 4))
             tel.gauge("wgl.batch.padding-waste",
                       round(1 - used / slots, 4))
-        tel.count("wgl.batch.pack_ns", _time.monotonic_ns() - t0)
+        # host-side packing is part of the launch pipeline's "encode"
+        # wall time; aggregate-only (ensembles pack hundreds of times)
+        profiler.get().record_host(
+            "pack", _time.monotonic_ns() - t0, entries=used)
 
     def rows(self, rows: Sequence[tuple[int, int]]):
         """(row_seg, st0) int32 arrays for (segment, start-state) search
@@ -397,14 +406,21 @@ def _upload(parts: Sequence[np.ndarray], device: torch.device
 
 class Launch:
     """One search in flight: its outputs (host tensors once `done` has
-    fired), the CUDA events around its kernel, and `done`, the
-    event recorded after the copies of its outputs to the host. On the
-    CPU the outputs are ready and the events are None."""
+    fired), the CUDA events around its kernel, `done`, the event
+    recorded after the copies of its outputs to the host, and `held`,
+    the device bytes the launch holds (inputs, kernel outputs and their
+    gathered copies). On the CPU the outputs are ready and the events
+    are None."""
 
-    __slots__ = ("outs", "start", "end", "done")
+    __slots__ = ("outs", "start", "end", "done", "held")
 
-    def __init__(self, outs, start=None, end=None, done=None):
+    def __init__(self, outs, start=None, end=None, done=None, held=None):
         self.outs, self.start, self.end, self.done = outs, start, end, done
+        self.held = held
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _run(packed, rs, s0, W: int, F: int, max_iters: int, reach: bool,
@@ -426,6 +442,7 @@ def _run(packed, rs, s0, W: int, F: int, max_iters: int, reach: bool,
     outs = kernel.wgl_search(packed, rs, s0, W=W, F=F, max_iters=max_iters,
                              reach=reach, crash_free=crash_free,
                              events=(start, end) if on_card else None)
+    held = _nbytes((*packed, rs, s0, *outs))
     if gather is not None:
         n_res = 2 if reach else 1
         idx = gather.to(torch.int64)
@@ -435,8 +452,9 @@ def _run(packed, rs, s0, W: int, F: int, max_iters: int, reach: bool,
             o.view(torch.int32).index_select(0, idx).view(torch.uint32)
             if o.dtype == torch.uint32 else o.index_select(0, idx)
             for o in outs[:n_res]) + tuple(outs[n_res:])
+        held += _nbytes((gather, *outs[:n_res]))
     if not on_card:
-        return Launch(outs)
+        return Launch(outs, held=held)
     host = []
     for o in outs:
         h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
@@ -444,7 +462,64 @@ def _run(packed, rs, s0, W: int, F: int, max_iters: int, reach: bool,
         host.append(h)
     done = torch.cuda.Event()
     done.record()
-    return Launch(tuple(host), start, end, done)
+    return Launch(tuple(host), start, end, done, held)
+
+
+# launch shape buckets this process has already seen: the first launch
+# of a bucket counts as a compile-cache miss, later ones as hits (the JAX
+# package's accounting; gpu/profiler.py says what it means here)
+_compiled_buckets: set = set()
+_buckets_lock = _threading.Lock()
+
+
+def _timed_launch(bucket, dispatch, kernel: str, meta: dict) -> Launch:
+    """Runs a kernel-dispatch thunk with first-sight-per-bucket cache
+    accounting. Shared by `_launch` below and the one-device ensemble
+    launch (gpu/ensemble.py); their bucket tuples differ in shape so one
+    seen-set serves both. The bucket is CLAIMED under a lock before the
+    launch: concurrent checkers (compose fans out over a thread pool)
+    racing on the same bucket record one miss, not two.
+
+    Profiling: opens a per-launch profiler record (kernel, bucket, meta,
+    the dispatch phase, `compile_ns` when this launch loaded the
+    kernel's library) and parks it against the returned Launch; _drain
+    closes it with the wait, device-compute and readback phases and the
+    launch's cost fields. Nothing here waits on the device."""
+    with _buckets_lock:
+        fresh = bucket not in _compiled_buckets
+        if fresh:
+            _compiled_buckets.add(bucket)
+        n_buckets = len(_compiled_buckets)
+    tel = telemetry.get()
+    prof = profiler.get()
+    rec = prof.begin(kernel, bucket=bucket, **meta)
+    prof.cache_event(kernel, fresh)
+    if fresh:
+        # distinct-bucket cardinality (set size, not the miss count: a
+        # failed first launch unclaims and retries without growing it).
+        # The wgl launch family (wgl/wgl-reach/wgl-sharded) shares one
+        # claim set, so each kernel's gauge reads the family total.
+        tel.gauge(f"profiler.{kernel}.bucket_cardinality", n_buckets)
+    t0 = _time.monotonic_ns()
+    try:
+        out = dispatch()
+    except BaseException:
+        # the claimed bucket never launched: release it, so the retry's
+        # first launch is recorded as the first sight it is
+        if fresh:
+            with _buckets_lock:
+                _compiled_buckets.discard(bucket)
+        prof.finish(rec)
+        raise
+    rec["dispatch_ns"] = _time.monotonic_ns() - t0
+    compile_ns = kbuild.take_load_ns("wgl_search")
+    if compile_ns:
+        tel.count("wgl.kernel.compiles")
+        tel.count("wgl.kernel.compile_ns", compile_ns)
+        rec["compile_ns"] = compile_ns
+    rec["peak_memory_bytes"] = out.held
+    tel.count("wgl.kernel.launches")
+    return prof.attach(out, rec)
 
 
 def _launch(pb: PackedBatch, rows: Sequence[tuple[int, int]], W: int,
@@ -455,12 +530,29 @@ def _launch(pb: PackedBatch, rows: Sequence[tuple[int, int]], W: int,
     row_seg, st0 = pb.rows(list(rows))
     t0 = _time.monotonic_ns()
     packed, rs, s0 = pb.tensors(row_seg, st0, device)
+    h2d_ns = _time.monotonic_ns() - t0
     tel = telemetry.get()
-    tel.count("wgl.kernel.h2d_ns", _time.monotonic_ns() - t0)
+    tel.count("wgl.kernel.h2d_ns", h2d_ns)
     tel.count("wgl.kernel.rows", len(row_seg))
-    tel.count("wgl.kernel.launches")
-    return _run(packed, rs, s0, W, F, pb.M + 4, reach,
-                crash_free=not pb.has_crashed)
+    bucket = (pb.inv_t.shape, pb.trans.shape[2], len(row_seg), W, F,
+              pb.M + 4, reach, pb.has_crashed, device.type)
+    meta = {"h2d_ns": h2d_ns, "rows": len(row_seg), "batch": pb.B,
+            "m": pb.M, "states": pb.S, "W": W,
+            "entries": int(pb.m[np.unique(row_seg)].sum())}
+    return _timed_launch(
+        bucket, lambda: _run(packed, rs, s0, W, F, pb.M + 4, reach,
+                             crash_free=not pb.has_crashed),
+        kernel="wgl-reach" if reach else "wgl", meta=meta)
+
+
+def _downsample(xs, n: int = 32) -> list[int]:
+    """At most n evenly-spaced samples of a level series (profiler
+    span attrs carry the curve; a segment search can run 8k levels)."""
+    xs = list(xs)
+    if len(xs) <= n:
+        return [int(x) for x in xs]
+    step = len(xs) / n
+    return [int(xs[int(i * step)]) for i in range(n)]
 
 
 def _drain(out: Launch, reach: bool):
@@ -468,14 +560,20 @@ def _drain(out: Launch, reach: bool):
     device) and records its wait, iteration count and search-shape
     series (frontier occupancy / states explored / dedup hits per BFS
     level), plus a `wgl:drain` span whose attrs carry the rows, the wait
-    and the kernel's time between its CUDA events. Returns result
-    [B] (reach=False) or (out_mask, unknown) arrays (reach=True)."""
+    and the kernel's time between its CUDA events, and closes the
+    launch's profiler record: `compute_ns` (those events on the card,
+    the host wait on the CPU), `d2h_ns` (reading the pinned outputs),
+    `wait_ns`, the series and the cost fields. Returns result [B]
+    (reach=False) or (out_mask, unknown) arrays (reach=True)."""
     tel = telemetry.get()
-    with tel.span("wgl:drain") as rec:
+    prof = profiler.get()
+    rec = prof.take(out)
+    with tel.span("wgl:drain") as span:
         t0 = _time.monotonic_ns()
         if out.done is not None:
             out.done.synchronize()
-        wait_ns = _time.monotonic_ns() - t0
+        t_ready = _time.monotonic_ns()
+        wait_ns = t_ready - t0
         if reach:
             mask, unk, it, lvl_live, lvl_new, lvl_dup = out.outs
             res = (mask.numpy(), unk.numpy())
@@ -488,17 +586,37 @@ def _drain(out: Launch, reach: bool):
         dup = lvl_dup[:n_it].numpy()
         device_ms = (out.start.elapsed_time(out.end)
                      if out.start is not None else None)
-        rec["attrs"] = {"rows": int(len(res[0] if reach else res)),
-                        "levels": n_it, "wait_ns": wait_ns,
-                        "device_ms": device_ms}
+        span["attrs"] = {"rows": int(len(res[0] if reach else res)),
+                         "levels": n_it, "wait_ns": wait_ns,
+                         "device_ms": device_ms}
+    t1 = _time.monotonic_ns()
     peak = int(live.max()) if live.size else 0
+    states = int(new.sum())
+    dedup = int(dup.sum())
     tel.count("wgl.kernel.execute_ns", wait_ns)
     tel.count("wgl.kernel.iterations", n_it)
+    # the search explorer's aggregate counters (per-launch series ride
+    # in the profiler record / kernel:<k> span attrs)
     tel.count("wgl.search.levels", n_it)
-    tel.count("wgl.search.states", int(new.sum()))
-    tel.count("wgl.search.dedup-hits", int(dup.sum()))
+    tel.count("wgl.search.states", states)
+    tel.count("wgl.search.dedup-hits", dedup)
     if peak:
         tel.gauge_max("wgl.search.frontier-peak", peak)
+    if rec is not None:
+        rec["compute_ns"] = (wait_ns if device_ms is None
+                             else round(device_ms * 1e6))
+        rec["d2h_ns"] = t1 - t_ready
+        rec["wait_ns"] = wait_ns
+        rec["iterations"] = n_it
+        rec["frontier_peak"] = peak
+        rec["states_explored"] = states
+        rec["dedup_hits"] = dedup
+        rec["frontier_curve"] = _downsample(live)
+        rec.update(profiler.wgl_cost(
+            rec.pop("entries"), rec["states"], rec["rows"],
+            rec["m"] + 4, rec.pop("W"), int(live.sum()), states + dedup,
+            rec.get("peak_memory_bytes")))
+        prof.finish(rec)
     return res
 
 

@@ -25,11 +25,13 @@ NEMESIS_ALPHA = 0.6
 
 def _nemesis_specs(test) -> list:
     """Normalized perf specs from test['plot']['nemeses'] (the package
-    'perf' sets, as tuples or dicts)."""
+    'perf' sets, as tuples or dicts; a stored test.json gives the tuples
+    back as lists, which the JAX package's copy does not read: ROADMAP
+    C7)."""
     specs = ((test.get("plot") or {}).get("nemeses")) or []
     out = []
     for s in specs:
-        if isinstance(s, tuple):
+        if isinstance(s, (tuple, list)):
             name, start, stop, color = (list(s) + [None] * 4)[:4]
             out.append({"name": name, "start": set(start or ()),
                         "stop": set(stop or ()),

@@ -6,8 +6,8 @@ Mirrors the roles of jepsen/src/jepsen/util.clj (relative-time-nanos
 util.clj:388-407, real-pmap util.clj:71-83, timeout util.clj:430,
 await-fn util.clj:443-486, with-retry util.clj:487-529, named-locks
 util.clj:855-943, rand-distribution util.clj:140-184, nemesis-intervals
-util.clj:780). The xprof hook (profile_trace) is not ported: a profiled
-run is ROADMAP A5 (torch.profiler). The
+util.clj:780), and the kernel-level profiling hook (profile_trace, on
+torch.profiler where the JAX package takes jax.profiler). The
 relative-time origin is this module's own state: ops, telemetry spans
 and trace records of the port are stamped on it.
 """
@@ -347,3 +347,43 @@ def nemesis_intervals(history, specs=None) -> list:
         if open_start is not None:
             intervals.append([open_start, None])
     return intervals
+
+
+# The Chrome-trace JSON profile_trace exports into its directory.
+PROFILE_TRACE_FILE = "torch-trace.json"
+
+
+@contextmanager
+def profile_trace(trace_dir=None):
+    """Captures a torch.profiler trace around the body when trace_dir is
+    set; no-op otherwise. With a CUDA device the profiler records CUDA
+    activity (every kernel and copy on the card: the device timeline)
+    beside the host's PyTorch ops; on the CPU it records CPU activity.
+    The trace is exported as Chrome-trace JSON (PROFILE_TRACE_FILE, for
+    Perfetto or chrome://tracing) into trace_dir when the body ends,
+    also when it raises. A profiler that fails to start or to export
+    raises, as jax.profiler.trace does. On the H100 machine the CUPTI
+    collection behind it has lost device records in the traces of a
+    process that had already run a Jepsen test: a trace that must hold
+    every kernel is best the first of a fresh process."""
+    if not trace_dir:
+        yield
+        return
+    from pathlib import Path
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    d = Path(trace_dir)
+    d.mkdir(parents=True, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        # stopping the profiler collects the device records
+        prof.stop()
+        prof.export_chrome_trace(str(d / PROFILE_TRACE_FILE))

@@ -16,7 +16,9 @@
   tolerant teardown, final_heal, snarf_logs, analyze's stamping) behave
   as the JAX package's.
 - Every switch of the JAX package's run that the port does not have
-  raises NotImplementedError naming its ROADMAP item.
+  raises NotImplementedError naming its ROADMAP item; a profiled run or
+  analysis (profile?, xla-trace?, profile_dir) writes its torch.profiler
+  trace where the JAX package writes its xprof trace.
 - The port's core.run of a clusterless test runs in a process that
   never loads jax or jepsen_tpu, and chip_smoke's phase 21 passes every
   check on the CPU at a small size.
@@ -410,9 +412,6 @@ def clusterless(**kw):
 @pytest.mark.parametrize("kw,item", [
     ({"ssh": {"dummy": False}}, "A3c"),
     ({"ssh": {"username": "root", "port": 22}}, "A3c"),
-    ({"profile?": True}, "A5"),
-    ({"xla-trace?": True}, "A5"),
-    ({"profile_dir": "/tmp/x"}, "A5"),
     ({"ssh": {}}, "A3c"),
     ({"ssh": {"username": "admin"}}, "A3c")])
 def test_unported_switches_raise(tmp_path, kw, item):
@@ -421,16 +420,90 @@ def test_unported_switches_raise(tmp_path, kw, item):
     t = clusterless(name="refused", store_base=str(tmp_path), **kw)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         core.run(t)
-    if item != "A3c":
-        assert not (tmp_path / "refused").exists()
 
 
-@pytest.mark.parametrize("key", ["profile?", "xla-trace?", "profile_dir"])
-def test_a_profiled_analysis_raises(key):
+# ---------------------------------------------------------------------------
+# A profiled run or analysis writes its torch.profiler trace
+# ---------------------------------------------------------------------------
+
+def profiled_register(**kw):
+    """A clusterless register test on the CPU: 2 keys x 20 ops, checked
+    by the independent linearizable checker (one wgl launch)."""
+    from jepsen_tpu_torch import testing
+    from jepsen_tpu_torch.workloads import register
+
+    w = register.workload({"keys": range(2), "group-size": 2,
+                           "ops_per_key": 20, "seed": 3, "device": "cpu"})
+    return clusterless(client=testing.KVClient(testing.KVState()),
+                       concurrency=4, generator=w["generator"],
+                       checker=w["checker"], **kw)
+
+
+def read_profile(d: Path) -> list:
+    from jepsen_tpu_torch import util
+
+    with open(d / util.PROFILE_TRACE_FILE) as f:
+        events = json.load(f)["traceEvents"]
+    # the plain kernel's PyTorch ops ran under the profiler
+    assert any(str(e.get("name", "")).startswith("aten::")
+               for e in events), [e.get("name") for e in events][:20]
+    return events
+
+
+@pytest.mark.parametrize("kw,where", [
+    ({"profile?": True}, "xprof"),
+    ({"xla-trace?": True}, "xla-trace"),
+    ({"profile_dir": "given"}, None)])
+def test_a_profiled_run_writes_its_trace(tmp_path, kw, where):
     from jepsen_tpu_torch import core
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        core.analyze({"history": [], key: "/tmp/x"})
+    if "profile_dir" in kw:
+        kw = {"profile_dir": str(tmp_path / kw["profile_dir"])}
+    out = core.run(profiled_register(name="profiled",
+                                     store_base=str(tmp_path / "store"),
+                                     **kw))
+    assert out["results"]["valid?"] is True
+    d = (Path(out["store_dir"]) / where if where
+         else Path(kw["profile_dir"]))
+    read_profile(d)
+    # the run's profiler records reached metrics.json: one wgl launch
+    with open(Path(out["store_dir"]) / "metrics.json") as f:
+        counters = json.load(f)["counters"]
+    assert counters["profiler.wgl.launches"] == 1
+    assert counters["profiler.encode.launches"] == 2
+
+
+@pytest.mark.parametrize("kw,where", [
+    ({"profile_dir": "given"}, None),
+    ({"profile?": True}, "xprof"),
+    ({"xla-trace?": True}, "xla-trace")])
+def test_a_profiled_analysis_writes_its_trace(tmp_path, kw, where):
+    from jepsen_tpu_torch import core, store
+
+    base = core.run(profiled_register(name="stored",
+                                      store_base=str(tmp_path)))
+    t = {"history": base["history"], "checker": base["checker"],
+         "name": "stored", "store_dir": base["store_dir"]}
+    if "profile_dir" in kw:
+        t["profile_dir"] = str(tmp_path / "given")
+        res = core.analyze(t)
+        d = tmp_path / "given"
+    else:
+        t.update(kw)
+        res = core.analyze(t, store_ctx=store)
+        d = Path(base["store_dir"]) / where
+    assert res["results"]["valid?"] is True
+    read_profile(d)
+
+
+def test_an_unprofiled_analysis_writes_no_trace(tmp_path):
+    from jepsen_tpu_torch import core
+
+    out = core.run(profiled_register(name="plain",
+                                     store_base=str(tmp_path)))
+    assert out["results"]["valid?"] is True
+    d = Path(out["store_dir"])
+    assert not (d / "xprof").exists() and not (d / "xla-trace").exists()
 
 
 @pytest.mark.parametrize("var", ["JAX_COORDINATOR_ADDRESS",
@@ -511,7 +584,7 @@ def test_chip_smoke_phase_21_on_the_cpu():
 
     import chip_smoke
 
-    threads = threading.active_count()
+    threads = set(threading.enumerate())
     got = chip_smoke.lifecycle_path(torch.device("cpu"), False, {
         "register_keys": 10, "register_concurrency": 10,
         "bank_ops": 1000, "txn_ops": 1500, "nemesis_ops": 8,
@@ -519,4 +592,6 @@ def test_chip_smoke_phase_21_on_the_cpu():
     assert got["wgl_search"] == {"lifecycle-register": 1,
                                  "lifecycle-register-twin": 1}
     assert got["scc"]["lifecycle-list-append"] >= 0
-    assert threading.active_count() == threads
+    # no thread the phase started outlives it (a thread of an earlier
+    # test in this process may end meanwhile)
+    assert not [t.name for t in threading.enumerate() if t not in threads]

@@ -878,6 +878,76 @@ def test_kill_restart_verdict_byte_identical(tmp_path):
     assert port_names(jgot) == port_names(jref) == tgot
 
 
+def test_killed_port_server_ends_a_blocked_clients_connection(tmp_path):
+    """ROADMAP C6: kill() shuts each connection down before closing it.
+    Here the client has sent half of a chunk's frame and waits for its
+    ack while the server's connection thread is blocked in recv() for
+    the rest; after kill() the client must see the connection end at
+    once, well inside its io_timeout_s. (A bare close() from another
+    thread leaves that recv() blocked holding the socket open, and the
+    client waits out its whole io_timeout_s.)"""
+    fc = TORCH.m("fleet.client")
+    wire = TORCH.m("fleet.wire")
+    io_timeout_s = 30.0
+
+    class HalfFrame(fc.Transport):
+        """Sends the first half of the next chunk frame only, and stamps
+        when a receive first sees the connection end."""
+        half = False
+        ended_at = None
+        waiting = threading.Event()
+
+        def send(self, sock, msg):
+            if self.half and msg.get("type") == "chunk":
+                self.half = False
+                b = wire.frame_msg(msg)
+                sock.sendall(b[:len(b) // 2])
+                return
+            super().send(sock, msg)
+
+        def recv(self, sock):
+            self.waiting.set()
+            try:
+                return super().recv(sock)
+            except Exception:
+                if self.ended_at is None:
+                    self.ended_at = time.monotonic()
+                raise
+
+    srv = TORCH.server(tmp_path / "fleet", stream_checks=False).start()
+    ops = list(TORCH.hist(8, 60))
+    tr = HalfFrame()
+    c = fc.FleetClient(srv.addr, "t", "r", io_timeout_s=io_timeout_s,
+                       transport=tr, connect_timeout_s=1.0)
+    c.send_chunk(ops[:30])
+    tr.half = True
+    tr.waiting.clear()
+    errors = []
+
+    def blocked():
+        try:
+            c.send_chunk(ops[30:])
+        except Exception as e:  # noqa: BLE001 — what the client raised
+            errors.append(e)
+
+    th = threading.Thread(target=blocked, daemon=True)
+    try:
+        th.start()
+        assert tr.waiting.wait(10), "the client never waited for its ack"
+        time.sleep(0.3)  # both ends now blocked in recv()
+        assert th.is_alive()
+        t_kill = time.monotonic()
+        srv.kill()
+        th.join(2 * io_timeout_s)
+    finally:
+        c.close()
+    assert not th.is_alive()
+    assert tr.ended_at is not None
+    assert tr.ended_at - t_kill < 2.0, tr.ended_at - t_kill
+    # the client then gives up on the dead address: no ack came
+    assert errors and isinstance(errors[0], fc.FleetError)
+
+
 def freeze_at_fin(p: Pkg, base, h):
     """Streams h, freezes the scheduler so the fin's final never runs,
     and kills the server: a WAL directory with a fin and no verdict."""
