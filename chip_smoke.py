@@ -250,9 +250,25 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      each, with each crossover printed. Last, one bench-ledger entry
      per kernel of the kernels line appended to a temporary ledger
      must pass ledger.validate_entries;
+24. every workload of the registry (workloads.REGISTRY, 28 entries, in
+     its order) as a generated test on the port's interpreter, each with
+     the entry's in-memory fixture client of jepsen_tpu_torch/testing.py
+     at the workload's default opts (500 ops where a generator has no
+     bound of its own); a twin for each fixture with a fault knob, the
+     knob set, at the sizes of the JAX package's test of it (25 twins);
+     and a kafka run and its lose_offset twin at 10,000 ops. Each
+     history is checked on the card (device left at its default) and
+     with "device": "cpu": verdicts, anomaly and error types and every
+     count must be equal (the whole result tree where no kernel wrapper
+     was called), the calls through each kernel wrapper the same and on
+     the card equal to the launch counters; every valid run must be
+     valid but the causal one, whose verdict the threads' interleaving
+     decides (ROADMAP C9), every twin invalid with the facts its JAX
+     test asserts, no result "unknown". Prints each run's interpreter
+     ops/s, check seconds on the card and the CPU and launches;
      then prints one `{"kernels": [...]}` line, whose wgl_search launches
-     include those of phases 16-23, and whose scc and bank_reduce
-     launches include those of phases 19-23.
+     include those of phases 16-24, and whose scc and bank_reduce
+     launches include those of phases 19-24.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -282,6 +298,7 @@ from jepsen_tpu_torch import db as jdb
 from jepsen_tpu_torch import generator as gen
 from jepsen_tpu_torch import independent, interpreter, nodeprobe, store
 from jepsen_tpu_torch import ledger, telemetry, testing, tracing, util
+from jepsen_tpu_torch import workloads
 from jepsen_tpu_torch.control import util as cu
 from jepsen_tpu_torch.control.dummy import DummyRemote
 from jepsen_tpu_torch import fleet
@@ -479,13 +496,21 @@ def _launch_bound(packed, rs, kw, out) -> tuple[float, float, float]:
 
 
 def _norm(x):
-    """A result tree with every op replaced by its to_dict()."""
+    """A result tree in plain data: every op replaced by its to_dict(),
+    sets sorted, a model (an object with a step) as its class name and
+    fields, so the two packages' trees compare."""
     if hasattr(x, "to_dict") and not isinstance(x, dict):
         return {"op": _norm(x.to_dict())}
     if isinstance(x, dict):
         return {k: _norm(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return [_norm(v) for v in x]
+    if isinstance(x, (set, frozenset)):
+        return sorted((_norm(v) for v in x), key=repr)
+    if hasattr(x, "step") and not isinstance(x, type):
+        fields = (x.__slots__ if hasattr(x, "__slots__") else vars(x))
+        return {"class": type(x).__name__,
+                **{f: _norm(getattr(x, f)) for f in fields}}
     return x
 
 
@@ -4028,6 +4053,312 @@ def headline_profile(records: list, events: list, launches: int,
     return by_kernel
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: every workload of the registry
+# ---------------------------------------------------------------------------
+
+# Phase 24's sizes: "ops" bounds the entries whose generator has no bound
+# of its own (bank, dirty-read, kafka, sequential, append, wr); every other
+# entry runs at its workload's default opts. kafka_ops sizes the extra
+# kafka run and its twin, so cycle_anomalies sees a graph of a user's run.
+REGISTRY_SIZES = {"ops": 500, "kafka_ops": 10_000}
+
+_NODES2 = ["n1", "n2"]
+_NODES3 = ["n1", "n2", "n3"]
+
+
+def _run_spec(name, entry, opts, client, concurrency, nodes=None,
+              stagger=None, twin=False) -> dict:
+    """One run of phase 24: a registry entry, its opts, a client factory
+    over a package's testing module, the threads, the nodes, an extra
+    stagger of the generator (where the JAX package's test of the fixture
+    has one) and whether the client is at fault."""
+    return {"name": name, "entry": entry, "opts": opts, "client": client,
+            "concurrency": concurrency, "nodes": nodes, "stagger": stagger,
+            "twin": twin}
+
+
+def registry_entries(sizes: dict) -> list[dict]:
+    """Every entry of workloads.REGISTRY, in its order, with the fixture
+    client the entry runs against, at the workload's default opts."""
+    n = sizes["ops"]
+    specs = {
+        "adya-g2": ({}, lambda t: t.G2Client(), 4),
+        "bank": ({"ops": n, "seed": 11},
+                 lambda t: t.BankClient(t.BankState(list(range(8)))), 5),
+        "causal": ({}, lambda t: t.CausalClient(), 2),
+        "causal-reverse": ({}, lambda t: t.PerKeySetClient(), 4),
+        "counter": ({"seed": 3}, lambda t: t.CounterClient(), 6),
+        "dirty-read": ({"ops": n, "concurrency": 6, "seed": 5},
+                       lambda t: t.DirtyReadClient(), 6, _NODES3),
+        "fenced-lock": ({}, lambda t: t.LockClient(), 4),
+        "kafka": ({"ops": n, "seed": 1}, lambda t: t.KafkaClient(), 4),
+        "lock": ({}, lambda t: t.LockClient(fences=False), 4),
+        "long-fork": ({}, lambda t: t.TxnClient(), 6),
+        "lost-updates": ({}, lambda t: t.VersionedSetClient(), 5),
+        "monotonic": ({}, lambda t: t.MonotonicClient(), 4, _NODES2),
+        "multimonotonic": ({}, lambda t: t.MultiRegClient(), 4),
+        "owner-lock": ({}, lambda t: t.LockClient(fences=False), 4),
+        "pages": ({"seed": 1}, lambda t: t.PagesClient(), 4),
+        "queue": ({}, lambda t: t.QueueClient(), 6),
+        "reentrant-lock": ({}, lambda t: t.LockClient(reentrant_limit=2),
+                           4),
+        "register": ({"seed": 8}, lambda t: t.KVClient(t.KVState()), 10),
+        "run-coverage": ({"seed": 3}, lambda t: t.SchedulerClient(), 4),
+        "semaphore": ({}, lambda t: t.LockClient(t.LockState(permits=2),
+                                                 semaphore=True), 4),
+        "sequential": ({"ops": n, "seed": 11},
+                       lambda t: t.SequentialClient(), 10),
+        "set": ({}, lambda t: t.SetClient(), 6),
+        "set-full": ({}, lambda t: t.SetClient(), 6),
+        "append": ({"ops": n, "seed": 9}, lambda t: t.TxnClient(), 6),
+        "upsert": ({}, lambda t: t.UpsertClient(), 4),
+        "version-divergence": ({}, lambda t: t.VersionRegClient(), 6),
+        "wr": ({"ops": n, "seed": 9}, lambda t: t.TxnClient(), 6),
+        "unique-ids": ({}, lambda t: t.UniqueIdsClient(), 6),
+    }
+    if list(specs) != list(workloads.REGISTRY):
+        raise AssertionError(f"phase 24's entries {list(specs)} != the "
+                             f"registry's {list(workloads.REGISTRY)}")
+    return [_run_spec(name, name, *spec) for name, spec in specs.items()]
+
+
+def registry_twins(sizes: dict) -> list[dict]:
+    """A twin for each fixture with a fault knob, the knob set, at the
+    sizes and settings of the JAX package's test of it
+    (tests/test_workloads.py, test_new_workloads.py, test_causal_adya.py;
+    the kafka twins have no JAX test and hide key 0's first offset), and
+    the kafka run and its twin at sizes["kafka_ops"]."""
+    s = 0.0003
+    k = sizes["kafka_ops"]
+    return [_run_spec(*spec, twin=twin) for twin, spec in (
+        (True, ("set-twin", "set", {"ops": 60},
+                lambda t: t.SetClient(drop_every=10), 6)),
+        (True, ("set-full-twin", "set-full", {"ops": 80},
+                lambda t: t.SetClient(drop_every=10), 6)),
+        (True, ("queue-twin", "queue", {"ops": 60},
+                lambda t: t.QueueClient(drop_every=7), 6)),
+        (True, ("unique-ids-twin", "unique-ids", {"ops": 50},
+                lambda t: t.UniqueIdsClient(dup_every=9), 6)),
+        (True, ("adya-g2-twin", "adya-g2", {"key-count": 6},
+                lambda t: t.G2Client(broken=True), 4, ["n1"])),
+        (True, ("causal-twin", "causal", {"keys": [0, 1, 2]},
+                lambda t: t.CausalClient(lose_write=True), 2, ["n1"])),
+        (True, ("causal-reverse-twin", "causal-reverse",
+                {"keys": [0, 1], "per-key-limit": 40},
+                lambda t: t.PerKeySetClient(hide_first=True), 4, ["n1"])),
+        (True, ("kafka-twin", "kafka", {"ops": sizes["ops"], "seed": 1},
+                lambda t: t.KafkaClient(lose_offset=(0, 0)), 4)),
+        (False, ("kafka-depth", "kafka", {"ops": k, "seed": 2},
+                 lambda t: t.KafkaClient(), 4)),
+        (True, ("kafka-depth-twin", "kafka", {"ops": k, "seed": 2},
+                lambda t: t.KafkaClient(lose_offset=(0, 0)), 4)),
+        (True, ("monotonic-skew-twin", "monotonic", {"ops": 120},
+                lambda t: t.MonotonicClient(skew_every=10), 4, _NODES2, s)),
+        (True, ("monotonic-dup-twin", "monotonic", {"ops": 120},
+                lambda t: t.MonotonicClient(dup_every=15), 4, _NODES2, s)),
+        (True, ("sequential-twin", "sequential",
+                {"ops": 300, "writers": 3, "seed": 11},
+                lambda t: t.SequentialClient(hide_first_every=2), 6, ["n1"],
+                s)),
+        (True, ("dirty-read-dirty-twin", "dirty-read",
+                {"ops": 400, "concurrency": 6, "seed": 5},
+                lambda t: t.DirtyReadClient(dirty_every=3), 6, _NODES3, s)),
+        (True, ("dirty-read-lose-twin", "dirty-read",
+                {"ops": 300, "concurrency": 6, "seed": 5},
+                lambda t: t.DirtyReadClient(lose_every=4), 6, _NODES3, s)),
+        (True, ("upsert-twin", "upsert", {"key_count": 8},
+                lambda t: t.UpsertClient(race_every=3), 4, _NODES2, s)),
+        (True, ("run-coverage-miss-twin", "run-coverage",
+                {"jobs": 10, "seed": 3, "stagger": 0.0005},
+                lambda t: t.SchedulerClient(miss_every=4), 4, _NODES2, s)),
+        (True, ("run-coverage-late-twin", "run-coverage",
+                {"jobs": 8, "seed": 5, "stagger": 0.0005},
+                lambda t: t.SchedulerClient(late_every=3), 4, _NODES2, s)),
+        (True, ("pages-twin", "pages",
+                {"key_count": 3, "ops_per_key": 60, "elements": 500,
+                 "seed": 1},
+                lambda t: t.PagesClient(tear_every=2), 4, _NODES2, s)),
+        (True, ("multimonotonic-twin", "multimonotonic",
+                {"ops": 300, "writers": 2},
+                lambda t: t.MultiRegClient(stale_every=3), 4, _NODES2, s)),
+        (True, ("lost-updates-twin", "lost-updates",
+                {"key_count": 3, "group_size": 4, "ops_per_key": 60},
+                lambda t: t.VersionedSetClient(lose_every=5), 4, _NODES2,
+                s)),
+        (True, ("version-divergence-twin", "version-divergence",
+                {"key_count": 2, "ops_per_key": 80},
+                lambda t: t.VersionRegClient(diverge_every=4), 6, _NODES2,
+                s)),
+        (True, ("owner-lock-twin", "owner-lock", {"ops": 120},
+                lambda t: t.LockClient(fences=False, steal_every=3), 4,
+                _NODES2, s)),
+        (True, ("fenced-lock-twin", "fenced-lock", {"ops": 120},
+                lambda t: t.LockClient(steal_every=3), 4, _NODES2, s)),
+        (True, ("semaphore-twin", "semaphore", {"ops": 140, "permits": 2},
+                lambda t: t.LockClient(t.LockState(permits=3),
+                                       semaphore=True), 6, _NODES2, s)),
+    )]
+
+
+def registry_runs(sizes: dict) -> list[dict]:
+    return registry_entries(sizes) + registry_twins(sizes)
+
+
+def registry_test(spec: dict, w: dict, client, pkg_testing=None,
+                  pkg_gen=None) -> dict:
+    """A clusterless test of one phase-24 run: the noop test with the
+    workload's generator (and its final phase after it) on the client
+    threads, its checker and its other keys. pkg_testing and pkg_gen
+    default to the port's (the tests run the JAX package's too)."""
+    t_mod = pkg_testing or testing
+    g_mod = pkg_gen or gen
+    g = w["generator"]
+    if spec["stagger"]:
+        g = g_mod.stagger(spec["stagger"], g)
+    g = g_mod.clients(g)
+    if w.get("final_generator") is not None:
+        g = g_mod.phases(g, g_mod.clients(w["final_generator"]))
+    test = t_mod.noop_test()
+    test.update(concurrency=spec["concurrency"], client=client,
+                checker=w["checker"], generator=g)
+    if spec["nodes"]:
+        test["nodes"] = list(spec["nodes"])
+    for k, v in w.items():
+        if k not in ("generator", "checker", "final_generator"):
+            test[k] = v
+    return test
+
+
+def registry_view(res) -> dict:
+    """The verdicts, anomaly and error types and every count of a result
+    tree, by where each sits."""
+    out = {}
+
+    def walk(x, where):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                if k in ("valid?", "failures", "anomaly-types",
+                         "error-types", "bad-error-types", "first-error") \
+                        or (isinstance(k, str) and k.endswith("-count")):
+                    out[f"{where}/{k}"] = _norm(v)
+                elif k != "certificate":
+                    walk(v, f"{where}/{k}")
+
+    walk(res, "")
+    return out
+
+
+# what each twin must show (the JAX package's test asserts each but the
+# set-full twin's, which it does not run; the kafka twins lose key 0's
+# first message: a lost write below the highest polled offset)
+REGISTRY_FACTS = {
+    "adya-g2-twin": lambda r: r["illegal-count"] > 0,
+    "kafka-twin": lambda r: "lost-write" in r["kafka"]["bad-error-types"],
+    "kafka-depth-twin":
+        lambda r: "lost-write" in r["kafka"]["bad-error-types"],
+    "monotonic-skew-twin":
+        lambda r: bool(r["value-reorders"]) and not r["order-by-errors"],
+    "monotonic-dup-twin": lambda r: bool(r["duplicates"]),
+    "sequential-twin": lambda r: r["bad-count"] > 0,
+    "dirty-read-dirty-twin": lambda r: r["dirty-count"] > 0,
+    "dirty-read-lose-twin": lambda r: r["lost-count"] > 0,
+    "run-coverage-miss-twin": lambda r: any(
+        s["unsatisfied-targets"] for s in r["jobs"].values()
+        if not s["valid?"]),
+    "multimonotonic-twin": lambda r: r["ts-order"]["valid?"] is False,
+    "run-coverage": lambda r: not r["incomplete"],
+    "sequential": lambda r: r["all-count"] + r["some-count"]
+    + r["none-count"] > 0,
+}
+# runs whose verdict the threads' interleaving decides: the causal chain
+# of a key is carried by two threads at once (ROADMAP C9)
+INTERLEAVING_DECIDES = {"causal"}
+
+
+def registry_verdict(spec: dict, res: dict) -> None:
+    """Raises unless res is the verdict the run must give."""
+    name = spec["name"]
+    if name not in INTERLEAVING_DECIDES:
+        if res["valid?"] is spec["twin"]:
+            raise AssertionError(f"{name}: valid? {res['valid?']}")
+    fact = REGISTRY_FACTS.get(name)
+    if fact is not None and not fact(res):
+        raise AssertionError(f"{name}: result lacks its fact: "
+                             f"{registry_view(res)}")
+
+
+def registry_path(dev, on_card: bool, sizes: dict | None = None) -> dict:
+    """Phase 24: every registry entry, its twins and the kafka run at
+    depth, each recorded by the port's interpreter and checked twice, on
+    the card (device left at its default) and with "device": "cpu". The
+    earlier phases' heap is frozen out of the collector, as in phase 20.
+    Returns the launches per run, by kernel."""
+    gc.collect()
+    gc.freeze()
+    try:
+        return _registry_path(dev, on_card, sizes)
+    finally:
+        gc.unfreeze()
+
+
+def _registry_path(dev, on_card: bool, sizes: dict | None) -> dict:
+    sizes = dict(REGISTRY_SIZES, **(sizes or {}))
+    card_dev = None if on_card else dev
+    t_phase = time.perf_counter()
+    per_kernel: dict = {"wgl_search": {}, "scc": {}, "bank_reduce": {}}
+    for spec in registry_runs(sizes):
+        name = spec["name"]
+        ctor = workloads.REGISTRY[spec["entry"]]
+        w = ctor(dict(spec["opts"], device=card_dev))
+        test, interp_s, icount = interpret(registry_test(
+            spec, w, spec["client"](testing)))
+        hist = test["history"]
+        invokes = sum(1 for o in hist if o.type == "invoke")
+        res, check_s, calls, launches, _rec, _spans, counters = \
+            _counted_check(w["checker"], test, hist, on_card)
+        wcpu = ctor(dict(spec["opts"], device="cpu"))
+        cres, cpu_s, ccalls = _counted_check(wcpu["checker"], test, hist,
+                                             False)[:3]
+        unknown = [k for k, v in registry_view(res).items()
+                   if k.endswith("valid?") and v == "unknown"]
+        if unknown:
+            raise AssertionError(f"{name}: unknown at {unknown}")
+        if registry_view(res) != registry_view(cres):
+            raise AssertionError(f"{name}: card {registry_view(res)} != "
+                                 f"cpu {registry_view(cres)}")
+        if not any(calls.values()) and _norm(res) != _norm(cres):
+            raise AssertionError(f"{name}: card and cpu results differ")
+        if calls != ccalls:
+            raise AssertionError(f"{name}: wrapper calls card {calls} != "
+                                 f"cpu {ccalls}")
+        if on_card and {k: launches[k] for k in calls} != calls:
+            raise AssertionError(f"{name}: launch counters {launches} != "
+                                 f"wrapper calls {calls}")
+        registry_verdict(spec, res)
+        line = {"phase": "registry", "run": name, "entry": spec["entry"],
+                "twin": spec["twin"], "invokes": invokes,
+                "events": len(hist), "concurrency": spec["concurrency"],
+                "interpreter_s": interp_s,
+                "interpreter_ops_per_s": invokes / interp_s,
+                "valid": res["valid?"], "check_s": check_s,
+                "cpu_check_s": cpu_s,
+                "launches": launches if on_card else None,
+                "wrapper_calls": calls,
+                "scc_paths": {k: counters.get(k, 0) for k in (
+                    "scc.path.device", "scc.path.host")},
+                "card": nvidia_smi_line() if on_card else "cpu"}
+        emit(line)
+        for kernel, n in calls.items():
+            if n and kernel in per_kernel:
+                per_kernel[kernel][f"registry-{name}"] = n
+    emit({"phase": "registry-total",
+          "runs": len(registry_runs(sizes)),
+          "seconds": time.perf_counter() - t_phase,
+          "card": nvidia_smi_line() if on_card else "cpu"})
+    return per_kernel
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 10_000, n_elle: int = 100_000,
@@ -4040,7 +4371,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
         lifecycle_sizes: dict | None = None,
         fleet_sizes: dict | None = None,
         profiled_sizes: dict | None = None,
-        sweep: dict | None = None) -> dict:
+        sweep: dict | None = None,
+        registry_sizes: dict | None = None) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     # wall seconds of each group of phases, printed before the kernels
@@ -4347,6 +4679,15 @@ def run(dev: torch.device, n_headline: int = 500_000,
     scc_entry["launches_per_check"].update(prof_launches["scc"])
     bank_entry["launches"] += sum(prof_launches["bank_reduce"].values())
     bank_entry["launches_per_check"].update(prof_launches["bank_reduce"])
+    mark("23 profiler")
+    # 24. every workload of the registry, its twins, kafka at depth
+    registry = registry_path(dev, on_card, registry_sizes)
+    per_path.update(registry["wgl_search"])
+    scc_entry["launches"] += sum(registry["scc"].values())
+    scc_entry["launches_per_check"].update(registry["scc"])
+    bank_entry["launches"] += sum(registry["bank_reduce"].values())
+    bank_entry["launches_per_check"].update(registry["bank_reduce"])
+    mark("24 registry")
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}
@@ -4393,7 +4734,6 @@ def run(dev: torch.device, n_headline: int = 500_000,
     names = {k["name"] for k in kernels}
     if not {"wgl_search", "scc", "bank_reduce"} <= names:
         raise AssertionError(f"the kernels line lists {sorted(names)}")
-    mark("23 profiler")
     return {
         "kernels": kernels,
         "headline_runs": runs,
