@@ -266,9 +266,38 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      decides (ROADMAP C9), every twin invalid with the facts its JAX
      test asserts, no result "unknown". Prints each run's interpreter
      ops/s, check seconds on the card and the CPU and launches;
+25. the transports and the filesystem-fault layer: three whole tests
+     through core.run, each with the fixture DB of phase 21 under
+     LazyFSDB (lazyfs mounted over its data directory; its binary
+     deployed from an fs_cache pointed at a fresh directory, its clock
+     under faketime, a tcpdump capture on every node), with
+     file-corruption (lazyfs's lose-unfsynced-writes), kill (through
+     LazyFSDB.kill, which drops the page cache), clock and membership
+     faults (FixtureMembership: an in-memory member list of the five
+     nodes, never below quorum, polled by one view thread a node), about
+     24 nemesis ops at a 1 s interval. The register run (20 keys x 100
+     ops) goes over the default stack's layers,
+     RetryingRemote(ScpRemote(...)) with the dummy transport in place of
+     SshRemote, a non-root login and the run under su; its transport
+     raises TransportError once on three seeded commands, so the retry
+     layer reconnects inside the run. Its stale-read twin goes over
+     DockerRemote (a scripted docker CLI: `docker ps` resolves each
+     node's published port), list-append (10,000 txns) over K8sRemote
+     (a scripted kubectl). Each run's verdict must equal the stored
+     history analysed again on the CPU (the twin invalid on its bad
+     key), with wgl_search launched once for each register run and scc
+     at least once for list-append; coverage must show
+     lose-unfsynced-writes, membership and kill activations; every
+     node's tcpdump.pcap, tcpdump.log and lazyfs.log must be fetched by
+     snarf_logs (and on the default stack once more as root, through
+     the scp layer's sudo download); no membership view thread may
+     outlive the run, and the fs_cache directory must hold the
+     artifact alone. Prints each run's spans, ops/s, fault
+     activations, check seconds on the card and the CPU, launches and
+     the card's idle share;
      then prints one `{"kernels": [...]}` line, whose wgl_search launches
-     include those of phases 16-24, and whose scc and bank_reduce
-     launches include those of phases 19-24.
+     include those of phases 16-25, and whose scc and bank_reduce
+     launches include those of phases 19-25.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -281,6 +310,9 @@ import gc
 import json
 import logging
 import math
+import os
+import random
+import shlex
 import subprocess
 import sys
 import tempfile
@@ -298,16 +330,23 @@ from jepsen_tpu_torch import db as jdb
 from jepsen_tpu_torch import generator as gen
 from jepsen_tpu_torch import independent, interpreter, nodeprobe, store
 from jepsen_tpu_torch import ledger, telemetry, testing, tracing, util
-from jepsen_tpu_torch import workloads
+from jepsen_tpu_torch import faketime, fs_cache, lazyfs, workloads
+from jepsen_tpu_torch.control import core as ccore
+from jepsen_tpu_torch.control import scp
 from jepsen_tpu_torch.control import util as cu
+from jepsen_tpu_torch.control.docker import DockerRemote
 from jepsen_tpu_torch.control.dummy import DummyRemote
+from jepsen_tpu_torch.control.k8s import K8sRemote
+from jepsen_tpu_torch.control.retry import RetryingRemote
+from jepsen_tpu_torch.control.scp import ScpRemote
+from jepsen_tpu_torch.dbs import tcpdump
 from jepsen_tpu_torch import fleet
 from jepsen_tpu_torch.fleet import client as fclient
 from jepsen_tpu_torch.fleet import flightrec as fflightrec
 from jepsen_tpu_torch.fleet import scheduler as fsched
 from jepsen_tpu_torch.fleet import server as fserver
 from jepsen_tpu_torch.fleet import wal as fwal
-from jepsen_tpu_torch.nemesis import combined
+from jepsen_tpu_torch.nemesis import combined, membership
 from jepsen_tpu_torch.checker import cycle, linearizable, models
 from jepsen_tpu_torch.gpu import certify, ckpt, elle, ensemble, synth, wgl
 from jepsen_tpu_torch.gpu import profiler
@@ -4359,6 +4398,664 @@ def _registry_path(dev, on_card: bool, sizes: dict | None) -> dict:
     return per_kernel
 
 
+# Phase 25's whole tests under the transports and the filesystem faults:
+# phase 21's register at 20 keys x 100 ops (the profiled runs' size) and
+# a list-append run of 10,000 txns (past Elle's device dispatch), each
+# with about 24 nemesis ops at a 1 s interval. transport_faults is the
+# number of commands on which the default-stack run's dummy transport
+# raises a TransportError once; view_interval is the membership
+# nemesis's poll period.
+A3C_SIZES = {"register_keys": 20, "register_concurrency": 10,
+             "txn_ops": 10_000, "nemesis_ops": 24, "stale_every": 1,
+             "transport_faults": 3, "view_interval": 0.05}
+A3C_FAULTS = ["file-corruption", "kill", "clock", "membership"]
+LAZYFS_DIR = f"{FIXTURE_DIR}/data"
+FIXTURE_BIN = f"{FIXTURE_DIR}/bin/fixture-db"
+# the fs_cache path of the fixture DB's binary, which every node deploys
+FIXTURE_ARTIFACT = ["fixture-db", "1.0", "bin"]
+TCPDUMP_PID = "5151"
+# the port the fixture DB listens on and tcpdump captures
+FIXTURE_PORT = 7070
+SSH_USER = "admin"
+
+
+class MemberList:
+    """An in-memory member API shared by the nodes (the fake member API
+    of the JAX package's tests/test_membership.py, without a database):
+    names to member ids; a node that is not a member answers nothing."""
+
+    def __init__(self, nodes):
+        self.lock = threading.Lock()
+        self.members = {str(n): 1000 + i for i, n in enumerate(nodes)}
+        self.next_id = 2000
+
+    def view(self, node) -> dict:
+        """{name: id} as `node` sees the cluster."""
+        with self.lock:
+            if str(node) not in self.members:
+                raise ConnectionRefusedError(f"{node} is not a member")
+            return dict(self.members)
+
+    def add(self, name) -> None:
+        with self.lock:
+            self.members[str(name)] = self.next_id
+            self.next_id += 1
+
+    def remove(self, member_id) -> None:
+        with self.lock:
+            for name, mid in list(self.members.items()):
+                if mid == member_id:
+                    del self.members[name]
+                    return
+        raise KeyError(f"no member {member_id}")
+
+
+class MemberMachine:
+    """The membership state machine over a MemberList, written once and
+    subclassed with a package's MembershipState (FixtureMembership below;
+    the port's tests subclass the JAX package's as well). Views are
+    frozensets of member names and the majority view wins, ties to the
+    largest. It removes a random member while the cluster is above its
+    majority floor, then adds a removed node back: it never leaves a
+    cluster without a quorum. An add with a `db` wipes the node's stale
+    data directory and starts the DB there, through `control` (the
+    package's control module, a class attribute of the subclass)."""
+
+    control = None
+
+    def __init__(self, members: MemberList, db=None, seed=None):
+        super().__init__()
+        self.members = members
+        self.db = db
+        self.member_ids: dict = {}
+        self.rng = random.Random(seed)
+
+    def node_view(self, test, node):
+        try:
+            ids = self.members.view(node)
+        except ConnectionRefusedError:  # not a member: view unknown
+            return None
+        self.member_ids.update(ids)
+        return frozenset(ids)
+
+    def merge_views(self, test):
+        counts: dict = {}
+        for v in self.node_views.values():
+            counts[v] = counts.get(v, 0) + 1
+        if not counts:
+            return None
+        return max(counts, key=lambda v: (counts[v], len(v)))
+
+    def fs(self):
+        return {"add-member", "remove-member"}
+
+    def op(self, test):
+        if self.view is None or self.pending:
+            return "pending"
+        nodes = set(map(str, test.get("nodes", ())))
+        active = set(self.view) & nodes
+        removed = nodes - set(self.view)
+        if active and len(active) > len(nodes) // 2 + 1:
+            return {"type": "info", "f": "remove-member",
+                    "value": self.rng.choice(sorted(active))}
+        if removed:
+            return {"type": "info", "f": "add-member",
+                    "value": self.rng.choice(sorted(removed))}
+        return "pending"
+
+    def invoke(self, test, op):
+        target = op.value
+        if op.f == "remove-member":
+            mid = self.member_ids.get(target)
+            if mid is None:
+                return op.copy(value=[target, "unknown-member"])
+            self.members.remove(mid)
+            return op.copy(value=[target, "removed"])
+        if op.f == "add-member":
+            self.members.add(target)
+            if self.db is not None:
+                c = self.control
+                with c.with_session(test, target):
+                    with c.su():
+                        c.exec_("rm", "-rf", f"{LAZYFS_DIR}/{target}")
+                    self.db.start(test, target)
+            return op.copy(value=[target, "added"])
+        raise ValueError(f"unknown membership f {op.f!r}")
+
+    def resolve_op(self, test, pair):
+        _inv, done = pair
+        d = dict(done)
+        f, val = d.get("f"), d.get("value")
+        if not isinstance(val, tuple) or len(val) != 2:
+            return True
+        target = val[0]
+        if self.view is None:
+            return False
+        if f == "remove-member":
+            return target not in self.view
+        if f == "add-member":
+            return target in self.view
+        return True
+
+
+class FixtureMembership(MemberMachine, membership.MembershipState):
+    control = control
+
+
+class TcpdumpFixtureDB(FixtureDB):
+    """Phase 21's fixture DB with what a deployment adds around it: its
+    binary deployed from the control node's fs_cache (saved once, under
+    the cache's lock, by the first node to miss), its clock under
+    faketime, and a tcpdump capture on every node from setup to
+    teardown, whose files snarf_logs fetches as tcpdump.pcap and
+    tcpdump.log."""
+
+    def __init__(self):
+        self.tcpdump = tcpdump.tcpdump(ports=[FIXTURE_PORT])
+
+    def setup(self, test, node):
+        with fs_cache.locking(FIXTURE_ARTIFACT):
+            if not fs_cache.cached_p(FIXTURE_ARTIFACT):
+                fs_cache.save_string("#!/bin/sh\nexec fixture-db \"$@\"\n",
+                                     FIXTURE_ARTIFACT)
+        with control.su():
+            fs_cache.deploy_remote(FIXTURE_ARTIFACT, FIXTURE_BIN)
+            faketime.wrap(FIXTURE_BIN, 0, faketime.rand_factor(
+                2.0, random.Random(str(node))))
+        self.tcpdump.setup(test, node)
+        super().setup(test, node)
+
+    def teardown(self, test, node):
+        super().teardown(test, node)
+        self.tcpdump.teardown(test, node)
+        with control.su():
+            faketime.unwrap(FIXTURE_BIN)
+
+    def log_files(self, test, node):
+        return {FIXTURE_LOG: "fixture-db.log",
+                **self.tcpdump.log_files(test, node)}
+
+
+class A3cDB(lazyfs.LazyFSDB):
+    """LazyFSDB over the fixture DB, whose data directory lazyfs mounts;
+    the inner DB's named log files keep their names (LazyFSDB's own list
+    would take their paths' basenames)."""
+
+    def __init__(self):
+        super().__init__(LAZYFS_DIR, TcpdumpFixtureDB())
+
+    def log_files(self, test, node):
+        return {self.lazyfs["log-file"]: "lazyfs.log",
+                **self.inner.log_files(test, node)}
+
+
+def a3c_responder(faults: int = 0, seed: int = 25):
+    """Phase 21's answers plus tcpdump's daemon (its pid file while it
+    runs; `ps -p` fails once it was sent SIGINT, which ends its
+    teardown's wait) and the capture files, which the connection user
+    cannot read (`head -c 1` fails: the scp layer's sudo download copies
+    them first). Every command is recorded by node in `respond.log`.
+    With faults, the transport raises TransportError once on each of
+    `faults` commands drawn from a seeded range of the run's first
+    commands, so the retry layer reconnects inside the run."""
+    base = lifecycle_responder()
+    alive: dict = {}
+    log: dict = {}
+    lock = threading.Lock()
+    rng = random.Random(seed)
+    fail_at = set(rng.sample(range(20, 200), faults)) if faults else set()
+    count = [0]
+    raised: list = []
+
+    def respond(node, action):
+        cmd = action.cmd
+        with lock:
+            log.setdefault(node, []).append(action)
+            count[0] += 1
+            k = count[0]
+        if k in fail_at:
+            with lock:
+                fail_at.discard(k)
+                raised.append((node, cmd))
+            raise ccore.TransportError("connection reset by peer",
+                                       cmd=cmd, node=node)
+        if "start-stop-daemon" in cmd and "/usr/bin/tcpdump" in cmd:
+            alive[node] = True
+        elif cmd == f"cat {tcpdump.PID_FILE}":
+            if not alive.get(node):
+                return ccore.Result(exit=1, out="", err="No such file",
+                                    cmd=cmd)
+            return TCPDUMP_PID
+        elif cmd == f"kill -s INT {TCPDUMP_PID}":
+            alive[node] = False
+        elif cmd == f"ps -p {TCPDUMP_PID}":
+            return ccore.Result(exit=0 if alive.get(node) else 1,
+                                out="", err="", cmd=cmd)
+        elif cmd.startswith(f"head -c 1 {tcpdump.DIR}/"):
+            return ccore.Result(exit=1, out="", err="Permission denied",
+                                cmd=cmd)
+        return base(node, action)
+
+    respond.log = log
+    respond.raised = raised
+    return respond
+
+
+def _fetched(path, remote) -> None:
+    """What a transfer from a node leaves at `path` on this machine (in
+    it, under the source's name, when `path` is a directory)."""
+    p = Path(path)
+    if p.is_dir():
+        p = p / Path(str(remote[0] if isinstance(remote, (list, tuple))
+                         else remote)).name
+    p.parent.mkdir(parents=True, exist_ok=True)
+    p.write_text(f"fetched {remote}\n")
+
+
+def _sudo_fetch(out: dict, base: Path) -> None:
+    """Fetches the capture files again from every node as root over the
+    run's non-root login, through its transport stack: the scp layer's
+    sudo download. snarf_logs fetched them without an ambient su, since
+    on_nodes runs each node's body in its worker thread's own context, in
+    both packages (ROADMAP C10)."""
+    t = {k: out[k] for k in ("nodes", "remote", "ssh")}
+    for node in out["nodes"]:
+        dest = base / str(node)
+        dest.mkdir(parents=True)
+        with control.with_session(t, node):
+            with control.su():
+                control.download([tcpdump.CAP_FILE, tcpdump.LOG_FILE],
+                                 str(dest))
+
+
+class FetchingDummy(DummyRemote):
+    """The dummy transport whose downloads leave a file at their
+    destination, as scp would; it counts its connects (the retry layer
+    reconnects after a transport fault)."""
+
+    def __init__(self, responder):
+        super().__init__(responder)
+        self.connects = 0
+
+    def connect(self, conn_spec):
+        self.connects += 1
+        sess = super().connect(conn_spec)
+
+        def download(remote_paths, local_path):
+            sess.log.append(("download", remote_paths, local_path))
+            _fetched(local_path, remote_paths)
+
+        sess.download = download
+        return sess
+
+
+def _unwrapped(cmd: str) -> ccore.Action:
+    """The Action a DockerSession or K8sSession wrapped into `cmd`
+    (control/core.py wrap_sudo: `cd DIR && sudo -S -u USER bash -c
+    CMD`)."""
+    d = sudo = None
+    if cmd.startswith("cd "):
+        head, cmd = cmd.split(" && ", 1)
+        d = shlex.split(head)[1]
+    if cmd.startswith("sudo -S -u "):
+        parts = shlex.split(cmd)
+        sudo, cmd = parts[3], parts[6]
+    return ccore.Action(cmd=cmd, sudo=sudo, dir=d)
+
+
+class NodeCli:
+    """A scripted `docker` or `kubectl` CLI, the runner of a DockerRemote
+    or K8sRemote: `docker ps` lists one container per node, publishing
+    the node name's port; each `exec` goes to the responder as that
+    node's Action; each `cp` from a node leaves the file at its
+    destination. Every argv is recorded."""
+
+    def __init__(self, tool: str, nodes, respond):
+        self.tool = tool
+        self.respond = respond
+        self.calls: list = []
+        if tool == "docker":
+            self.node_of = {f"c0ffee{i:06d}": n
+                            for i, n in enumerate(nodes, 1)}
+        else:
+            self.node_of = {str(n): n for n in nodes}
+
+    def _ps(self) -> str:
+        rows = ["CONTAINER ID   IMAGE   COMMAND   CREATED   STATUS   "
+                "PORTS   NAMES"]
+        for cid, node in self.node_of.items():
+            port = str(node).rsplit(":", 1)[-1]
+            rows.append(f"{cid}   fixture-db   \"/fixture-db\"   1h ago   "
+                        f"Up 1h   0.0.0.0:{port}->{FIXTURE_PORT}/tcp   "
+                        f"jepsen-{port}")
+        return "\n".join(rows) + "\n"
+
+    def __call__(self, argv, stdin=None, timeout=600.0) -> ccore.Result:
+        argv = list(argv)
+        self.calls.append(argv)
+        joined = " ".join(argv)
+        if argv[:2] == ["docker", "ps"]:
+            return ccore.Result(0, self._ps(), "", joined)
+        if argv[1] == "exec":
+            target = argv[-4] if self.tool == "docker" else argv[-5]
+            action = _unwrapped(argv[-1])
+            action.stdin, action.timeout = stdin, timeout
+            r = self.respond(self.node_of[target], action)
+            if isinstance(r, ccore.Result):
+                return r
+            return ccore.Result(0, r or "", "", joined)
+        if argv[1] == "cp":
+            src, dst = argv[-2], argv[-1]
+            if src.split(":", 1)[0] in self.node_of:
+                _fetched(dst, src)
+            return ccore.Result(0, "", "", joined)
+        return ccore.Result(127, "", f"unknown {joined}", joined)
+
+
+def a3c_runs(sizes: dict) -> list[dict]:
+    """The three runs of phase 25: the register over the default stack's
+    layers (the dummy transport in place of SshRemote, a non-root
+    connection user, the whole run under su, transport faults), its
+    stale-read twin over DockerRemote, list-append over K8sRemote."""
+    reg = {"keys": range(sizes["register_keys"]), "group-size": 5,
+           "ops_per_key": 100, "seed": 8}
+    bad_key = sizes["register_keys"] // 2
+    return [
+        {"name": "register-ssh-stack", "workload": wl_register.workload,
+         "opts": reg, "transport": "default-stack",
+         "client": lambda: testing.KVClient(testing.KVState()),
+         "concurrency": sizes["register_concurrency"],
+         "kernel": "wgl_search", "twin": False},
+        {"name": "register-twin-docker", "workload": wl_register.workload,
+         "opts": reg, "bad_key": bad_key, "transport": "docker",
+         "client": lambda: StaleReadKVClient(testing.KVState(), bad_key,
+                                             every=sizes["stale_every"]),
+         "concurrency": sizes["register_concurrency"],
+         "kernel": "wgl_search", "twin": True},
+        {"name": "list-append-k8s", "workload": wl_append.workload,
+         "opts": {"ops": sizes["txn_ops"], "seed": 9}, "transport": "k8s",
+         "client": testing.TxnClient, "concurrency": 10,
+         "kernel": "scc", "twin": False},
+    ]
+
+
+def a3c_test(spec: dict, workload: dict, store_base, sizes: dict):
+    """A named test of phase 25 and its transport's recorder: the
+    LazyFSDB over the fixture DB on five nodes, file-corruption (lazyfs's
+    lose-unfsynced-writes), kill, clock and membership faults at a 1 s
+    interval (nemesis_ops of them beside the client ops, then the
+    package's final generator)."""
+    kind = spec["transport"]
+    nodes = ([f"localhost:{30400 + i}" for i in range(1, 6)]
+             if kind == "docker" else ["n1", "n2", "n3", "n4", "n5"])
+    respond = a3c_responder(sizes["transport_faults"]
+                            if kind == "default-stack" else 0)
+    db = A3cDB()
+    members = MemberList(nodes)
+    pkg = combined.nemesis_package({
+        "db": db, "faults": A3C_FAULTS, "interval": 1,
+        # every node spec but None: a [None, None] value is read as the
+        # key None by the independent checker, whose certificate then
+        # fails (ROADMAP C11; tests/test_torch_fs_faults.py pins it)
+        "file_corruption": {"lazyfs": db.lazyfs, "targets": [
+            "one", "minority-third", "minority", "majority", "all"],
+            "corruptions": [{"type": "lose-unfsynced-writes"}]},
+        "membership": {"state": FixtureMembership(members, db=db, seed=25),
+                       "view-interval": sizes["view_interval"]}})
+    if kind == "default-stack":
+        transport = FetchingDummy(respond)
+        remote = RetryingRemote(ScpRemote(transport))
+    elif kind == "docker":
+        transport = NodeCli("docker", nodes, respond)
+        remote = DockerRemote(transport)
+    else:
+        transport = NodeCli("kubectl", nodes, respond)
+        remote = K8sRemote(namespace="jepsen", runner=transport)
+    test = testing.noop_test()
+    test.update({
+        "name": f"a3c-{spec['name']}", "store_base": str(store_base),
+        "nodes": nodes, "remote": remote, "db": db,
+        "ssh": {"username": SSH_USER},
+        "client": spec["client"](), "concurrency": spec["concurrency"],
+        "nemesis": pkg["nemesis"], "checker": workload["checker"],
+        "generator": gen.phases(
+            gen.clients(workload["generator"],
+                        gen.limit(sizes["nemesis_ops"], pkg["generator"])),
+            gen.nemesis(pkg["final_generator"])),
+        "plot": {"nemeses": pkg["perf"]}})
+    for k, v in workload.items():
+        if k not in ("generator", "checker"):
+            test[k] = v
+    return test, {"respond": respond, "transport": transport,
+                  "members": members}
+
+
+A3C_KINDS = ("file-lost-writes", "membership", "db-kill")
+
+
+def _a3c_facts(spec: dict, out: dict, rig: dict, cache: Path,
+               sizes: dict) -> dict:
+    """What each run of phase 25 must show besides its verdict: the fault
+    kinds in coverage, the tcpdump files fetched from every node, no
+    membership view thread alive, nothing in the fs_cache but the
+    artifact, and the transport's own evidence."""
+    name = spec["name"]
+    d = Path(out["store_dir"])
+    rec = coverage.load_record(d)
+    coverage.validate_record(rec)
+    live = _fault_counts(rec["faults"], A3C_KINDS)
+    if set(live) != set(A3C_KINDS):
+        raise AssertionError(f"{name}: coverage {live} lacks "
+                             f"{set(A3C_KINDS) - set(live)}")
+    for node in out["nodes"]:
+        for f in ("tcpdump.pcap", "tcpdump.log", "lazyfs.log"):
+            if not (d / str(node) / f).is_file():
+                raise AssertionError(f"{name}: {node}/{f} not fetched")
+    views = [t.name for t in threading.enumerate()
+             if t.name.startswith("membership-view-")]
+    if views:
+        raise AssertionError(f"{name}: view threads alive: {views}")
+    files = sorted(str(p.relative_to(cache)) for p in cache.rglob("*")
+                   if p.is_file())
+    want = [str(fs_cache.file(FIXTURE_ARTIFACT).relative_to(cache))]
+    if files != want:
+        raise AssertionError(f"{name}: fs_cache holds {files}, want {want}")
+    respond, transport = rig["respond"], rig["transport"]
+    cmds = {n: [a.cmd for a in acts] for n, acts in respond.log.items()}
+    # every node's teardown waited for tcpdump and unmounted lazyfs; the
+    # faults dropped unfsynced writes on some node
+    for node in out["nodes"]:
+        c = cmds.get(node, [])
+        for want_cmd in (f"ps -p {TCPDUMP_PID}", "fusermount -u"):
+            if not any(want_cmd in x for x in c):
+                raise AssertionError(f"{name}: no {want_cmd!r} on {node}")
+    if not any("lazyfs::clear-cache" in x for c in cmds.values()
+               for x in c):
+        raise AssertionError(f"{name}: no lazyfs::clear-cache")
+    facts = {"faults": live, "membership_ops": sum(
+        1 for o in out["history"] if o.process == "nemesis"
+        and o.type == "info" and o.f in ("add-member", "remove-member")
+        and isinstance(o.value, (list, tuple))),
+        "members_after": len(rig["members"].members)}
+    if spec["transport"] == "default-stack":
+        # the run's sessions, and a fresh one for each transport fault
+        connects = transport.connects
+        if connects <= len(out["nodes"]):
+            raise AssertionError(f"{name}: {connects} connects: no "
+                                 f"reconnect after a transport fault")
+        # the capture files come through the scp layer's sudo download:
+        # copied to its tmp directory, chowned to the connection user
+        # and fetched
+        _sudo_fetch(out, cache.parent / f"sudo-fetch-{name}")
+        # read again: the fetch's commands joined the log
+        cmds = {n: [a.cmd for a in acts]
+                for n, acts in respond.log.items()}
+        for node in out["nodes"]:
+            for f in ("tcpdump", "log"):
+                if not (cache.parent / f"sudo-fetch-{name}" / str(node)
+                        / f).is_file():
+                    raise AssertionError(f"{name}: {node}'s {f} not "
+                                         f"fetched as root")
+            c = cmds.get(node, [])
+            for src in (tcpdump.CAP_FILE, tcpdump.LOG_FILE):
+                if not any(x.startswith(f"cp {src} {scp.TMP_DIR}/")
+                           for x in c):
+                    raise AssertionError(f"{name}: {src} not copied for "
+                                         f"the sudo download on {node}")
+            if not any(x.startswith(f"chown {SSH_USER} {scp.TMP_DIR}/")
+                       for x in c):
+                raise AssertionError(f"{name}: no chown on {node}")
+        if len(respond.raised) != sizes["transport_faults"]:
+            raise AssertionError(f"{name}: {len(respond.raised)} transport "
+                                 f"faults raised")
+        facts.update(transport_faults=len(respond.raised),
+                     connects=connects)
+    else:
+        tool = transport.tool
+        execs = sum(1 for a in transport.calls if a[1] == "exec")
+        cps = sum(1 for a in transport.calls if a[1] == "cp")
+        if spec["transport"] == "docker" and not any(
+                a[:2] == ["docker", "ps"] for a in transport.calls):
+            raise AssertionError(f"{name}: no docker ps")
+        facts.update({f"{tool}_exec": execs, f"{tool}_cp": cps})
+    return facts
+
+
+def transports_path(dev, on_card: bool, sizes: dict | None = None) -> dict:
+    """Phase 25: whole Jepsen tests through core.run over the default
+    stack's layers, DockerRemote and K8sRemote, under lazyfs, kill, clock
+    and membership faults; each stored run analysed again on the CPU.
+    Returns the launches per run, by kernel. The earlier phases' heap is
+    frozen out of the collector, as in phase 20."""
+    gc.collect()
+    gc.freeze()
+    try:
+        return _transports_path(dev, on_card, sizes)
+    finally:
+        gc.unfreeze()
+
+
+def _transports_path(dev, on_card: bool, sizes: dict | None) -> dict:
+    sizes = dict(A3C_SIZES, **(sizes or {}))
+    card_dev = None if on_card else dev
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    threads0 = set(threading.enumerate())
+    handlers0 = list(logging.getLogger().handlers)
+    cache_env = os.environ.get("JEPSEN_TPU_CACHE_DIR")
+    per_kernel: dict = {"wgl_search": {}, "scc": {}, "bank_reduce": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for spec in a3c_runs(sizes):
+                name = spec["name"]
+                cache = Path(tmp) / f"cache-{name}"
+                os.environ["JEPSEN_TPU_CACHE_DIR"] = str(cache)
+                w = spec["workload"](dict(spec["opts"], device=card_dev))
+                test, rig = a3c_test(spec, w, Path(tmp) / "store", sizes)
+                recorded, restore = _wrapped_kernels()
+                try:
+                    t0 = time.perf_counter()
+                    if spec["transport"] == "default-stack":
+                        # a non-root login whose whole run is under sudo
+                        with control.su():
+                            out = core.run(test)
+                    else:
+                        out = core.run(test)
+                    sync()
+                    run_s = time.perf_counter() - t0
+                finally:
+                    restore()
+                launches = _launch_counts()
+                calls = {label: len(v) for label, v in recorded.items()}
+                res = out["results"]
+                bad = _results_unsound(res)
+                if bad:
+                    raise AssertionError(f"{name}: unknown or error at "
+                                         f"{bad[:10]}")
+                if res["valid?"] is spec["twin"]:
+                    raise AssertionError(f"{name}: valid? {res['valid?']}")
+                kernel = spec["kernel"]
+                if on_card:
+                    if {k: launches[k] for k in calls} != calls:
+                        raise AssertionError(f"{name}: launch counters "
+                                             f"{launches} != wrapper calls "
+                                             f"{calls}")
+                    if launches[kernel] < 1 or (
+                            kernel != "scc" and launches[kernel] != 1):
+                        raise AssertionError(f"{name}: {launches[kernel]} "
+                                             f"{kernel} launches")
+                facts = _a3c_facts(spec, out, rig, cache, sizes)
+                if spec["twin"]:
+                    facts.update(_twin_facts(
+                        {"name": "register-twin",
+                         "bad_key": spec["bad_key"]}, out, res))
+                # the stored run analysed again on the CPU
+                loaded = store.load(out["store_dir"])
+                wcpu = spec["workload"](dict(spec["opts"], device="cpu"))
+                crecorded, crestore = _wrapped_kernels()
+                try:
+                    t0 = time.perf_counter()
+                    cres = core.analyze(dict(loaded, checker=wcpu[
+                        "checker"]))["results"]
+                    cpu_s = time.perf_counter() - t0
+                finally:
+                    crestore()
+                ccalls = {label: len(v) for label, v in crecorded.items()}
+                if _results_unsound(cres):
+                    raise AssertionError(f"{name} (cpu): unknown or error")
+                if _compared(jsonable(_checked(res))) != \
+                        _compared(jsonable(_checked(cres))):
+                    raise AssertionError(f"{name}: card and cpu verdicts "
+                                         f"differ")
+                if _certificates(res) != _certificates(cres):
+                    raise AssertionError(f"{name}: certificates differ")
+                if calls != ccalls:
+                    raise AssertionError(f"{name}: wrapper calls card "
+                                         f"{calls} != cpu {ccalls}")
+                tel = res["telemetry"]
+                hist = out["history"]
+                invokes = sum(1 for o in hist if o.type == "invoke"
+                              and isinstance(o.process, int))
+                case_s = tel["phases"].get("case", 0.0) / 1e3
+                kernel_ms = _replayed_kernel_ms(recorded, on_card)
+                emit({"phase": "transports", "run": name,
+                      "transport": spec["transport"],
+                      "valid": res["valid?"], "invokes": invokes,
+                      "events": len(hist), "run_s": run_s,
+                      "spans_ms": {k: v for k, v in tel["phases"].items()
+                                   if k in ("os-setup", "db-cycle", "case",
+                                            "snarf-logs", "analyze", "run")
+                                   or k.startswith("teardown-")},
+                      "interpreter_ops_per_s": (invokes / case_s
+                                                if case_s else None),
+                      "check_s": tel["phases"].get("analyze", 0.0) / 1e3,
+                      "cpu_analyze_s": cpu_s, "launches": launches,
+                      "wrapper_calls": calls, **facts,
+                      "kernel_ms": kernel_ms,
+                      "card_idle_share": (1 - kernel_ms / (1e3 * run_s)
+                                          if kernel_ms is not None
+                                          else None),
+                      "card": nvidia_smi_line() if on_card else "cpu"})
+                per_kernel[kernel][f"transports-{name}"] = calls[kernel]
+                del out, loaded
+        finally:
+            if cache_env is None:
+                os.environ.pop("JEPSEN_TPU_CACHE_DIR", None)
+            else:
+                os.environ["JEPSEN_TPU_CACHE_DIR"] = cache_env
+    leaked = [t.name for t in threading.enumerate() if t not in threads0]
+    if leaked:
+        raise AssertionError(f"threads started in the phase outlive it: "
+                             f"{leaked}")
+    if logging.getLogger().handlers != handlers0:
+        raise AssertionError(f"log handlers left behind: "
+                             f"{logging.getLogger().handlers}")
+    emit({"phase": "transports-total",
+          "seconds": time.perf_counter() - t_phase,
+          "card": nvidia_smi_line() if on_card else "cpu"})
+    return per_kernel
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 10_000, n_elle: int = 100_000,
@@ -4372,7 +5069,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
         fleet_sizes: dict | None = None,
         profiled_sizes: dict | None = None,
         sweep: dict | None = None,
-        registry_sizes: dict | None = None) -> dict:
+        registry_sizes: dict | None = None,
+        a3c_sizes: dict | None = None) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     # wall seconds of each group of phases, printed before the kernels
@@ -4688,6 +5386,13 @@ def run(dev: torch.device, n_headline: int = 500_000,
     bank_entry["launches"] += sum(registry["bank_reduce"].values())
     bank_entry["launches_per_check"].update(registry["bank_reduce"])
     mark("24 registry")
+    # 25. whole tests over the default stack's layers, docker and k8s,
+    # under lazyfs, kill, clock and membership faults
+    transports = transports_path(dev, on_card, a3c_sizes)
+    per_path.update(transports["wgl_search"])
+    scc_entry["launches"] += sum(transports["scc"].values())
+    scc_entry["launches_per_check"].update(transports["scc"])
+    mark("25 transports")
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}

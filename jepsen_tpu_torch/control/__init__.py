@@ -12,12 +12,12 @@ Usage:
 
     control.on_nodes(test, lambda test, node: control.exec_("date"))
 
-The port drives nodes through test["remote"] (any Remote: the dummy
-remote, the retry wrapper of control/retry.py, the chaos rig's) or
-test["ssh"]["dummy"], behind the quarantine breakers of
-control/health.py when test["health"] is set. The default SSH stack
-(ssh, scp and retry) is ROADMAP A3c: a test that needs it raises
-NotImplementedError.
+A test drives its nodes through test["remote"] (any Remote: docker.py,
+k8s.py, the dummy remote, the chaos rig's), the dummy remote when
+test["ssh"]["dummy"] is set, and otherwise the default stack that
+_default_ssh builds: ssh.py's OpenSSH sessions under scp.py's sudo-aware
+transfers under retry.py's reconnecting retries. Each sits behind the
+quarantine breakers of control/health.py when test["health"] is set.
 """
 
 from __future__ import annotations
@@ -62,12 +62,7 @@ def conn_spec(test: dict, node) -> dict:
 def remote_for(test: dict, guarded: bool = True) -> Remote:
     r = test.get("remote")
     if r is None:
-        if not (test.get("ssh") or {}).get("dummy"):
-            raise NotImplementedError(
-                "the default SSH stack (control/ssh.py, scp.py under "
-                "retry.py) is not ported (ROADMAP A3c): pass "
-                "test['remote'] or test['ssh'] = {'dummy': True}")
-        r = dummy
+        r = dummy if (test.get("ssh") or {}).get("dummy") else _default_ssh()
     hr = test.get("health")
     if hr is not None and guarded:
         # per-node circuit breakers (control/health.py): commands to a
@@ -80,6 +75,17 @@ def remote_for(test: dict, guarded: bool = True) -> Remote:
         from .health import GuardedRemote
         r = GuardedRemote(r, hr)
     return r
+
+
+def _default_ssh() -> Remote:
+    # ssh wrapped for sudo-aware transfers, then auto-reconnect +
+    # retry of transport failures, like the reference's default
+    # scp-in-retry stack (control.clj with-remote + control/retry.clj
+    # + control/scp.clj)
+    from .retry import RetryingRemote
+    from .scp import ScpRemote
+    from .ssh import SshRemote
+    return RetryingRemote(ScpRemote(SshRemote()))
 
 
 def session(test: dict, node, guarded: bool = True) -> Session:

@@ -3,7 +3,8 @@ port's copy of jepsen_tpu/db.py).
 
 Capability reference: jepsen/src/jepsen/db.clj (DB/Kill/Pause/Primary/
 LogFiles protocols 12-48, log-files-map 50-80, cycle! 158-199). The
-tcpdump DB (88-156) and the databases of the suites are not ported.
+tcpdump DB (88-156) is dbs/tcpdump.py; the databases of the suites are
+not ported.
 """
 
 from __future__ import annotations

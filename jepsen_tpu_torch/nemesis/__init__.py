@@ -2,8 +2,8 @@
 
 Capability reference: jepsen/src/jepsen/nemesis.clj. The core protocol,
 pure grudge/partition math, and process/file nemeses live in `core`;
-composed packages in `combined`; clock manipulation in `time`. The membership nemesis
-(nemesis/membership.py) is ROADMAP A3c.
+composed packages in `combined`; clock manipulation in `time`; the
+membership state machine and its nemesis in `membership`.
 """
 
 from .core import (Nemesis, NoopNemesis, Validate, noop, validate, invoke,

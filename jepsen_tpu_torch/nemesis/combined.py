@@ -2,8 +2,8 @@
 partitions, packet mangling, file corruption — each as a
 {nemesis, generator, final_generator, perf} bundle that composes (the
 port's copy of jepsen_tpu/nemesis/combined.py). The membership fault
-(nemesis/membership.py) and lazyfs's lose-unfsynced-writes (lazyfs.py)
-are ROADMAP A3c and raise NotImplementedError.
+joins from nemesis/membership.py, and file corruption takes lazyfs's
+lose-unfsynced-writes (lazyfs.py) when given a lazyfs map.
 
 Capability reference: jepsen/src/jepsen/nemesis/combined.clj —
 node-spec language db-nodes (40-71), db-package kill/pause flip-flops
@@ -342,28 +342,41 @@ def clock_package(opts: dict) -> dict:
 
 
 class FileCorruptionNemesis(n.Nemesis):
-    """bitflip/truncate on spec-selected nodes (combined.clj:364-399).
-    Ops: {'f': 'bitflip'|'truncate', 'value': [node-spec,
-    corruption-map]}. lazyfs's lose-unfsynced-writes
-    (jepsen/src/jepsen/lazyfs.clj:246-295) is not ported: a lazyfs map
-    raises."""
+    """bitflip/truncate on spec-selected nodes (combined.clj:364-399),
+    plus lazyfs lose-unfsynced-writes when a lazyfs map is supplied
+    (jepsen/src/jepsen/lazyfs.clj:246-295).
+    Ops: {'f': 'bitflip'|'truncate'|'lose-unfsynced-writes',
+          'value': [node-spec, corruption-map]}."""
 
     def __init__(self, db, bf=None, trunc=None, lazyfs_map=None):
-        if lazyfs_map is not None:
-            raise NotImplementedError(
-                "lazyfs (lose-unfsynced-writes) is not ported "
-                "(ROADMAP A3c)")
         self.db = db
         self.bf = bf or n.bitflip()
         self.trunc = trunc or n.truncate_file()
+        if lazyfs_map is not None:
+            from .. import lazyfs as lazyfs_mod
+
+            # accept a bare dir or partial map like every other
+            # lazyfs entry point
+            lazyfs_map = lazyfs_mod.lazyfs(lazyfs_map)
+        self.lazyfs_map = lazyfs_map
 
     def setup(self, test):
         return FileCorruptionNemesis(self.db, self.bf.setup(test),
-                                     self.trunc.setup(test))
+                                     self.trunc.setup(test),
+                                     self.lazyfs_map)
 
     def invoke(self, test, op):
         spec, corruption = op.value
         targets = db_nodes(test, self.db, spec) or []
+        if op.f == "lose-unfsynced-writes":
+            from .. import control, lazyfs
+
+            got = control.on_nodes(
+                test,
+                lambda t, node: lazyfs.lose_unfsynced_writes(
+                    self.lazyfs_map),
+                targets)
+            return op.copy(value=got)
         plan = {node: corruption for node in targets}
         op2 = op.copy(value=plan)
         if op.f == "bitflip":
@@ -377,11 +390,18 @@ class FileCorruptionNemesis(n.Nemesis):
         self.trunc.teardown(test)
 
     def fs(self):
-        return {"bitflip", "truncate"}
+        fs = {"bitflip", "truncate"}
+        if self.lazyfs_map is not None:
+            fs.add("lose-unfsynced-writes")
+        return fs
 
     def fault_kinds(self):
-        return {"bitflip": ("file-bitflip", "pulse"),
-                "truncate": ("file-truncate", "pulse")}
+        kinds = {"bitflip": ("file-bitflip", "pulse"),
+                 "truncate": ("file-truncate", "pulse")}
+        if self.lazyfs_map is not None:
+            kinds["lose-unfsynced-writes"] = ("file-lost-writes",
+                                              "pulse")
+        return kinds
 
 
 def file_corruption_package(opts: dict) -> dict:
@@ -390,7 +410,7 @@ def file_corruption_package(opts: dict) -> dict:
     'corruptions':
     [{'type': 'bitflip', 'file': ..., 'probability': p-or-dist},
      {'type': 'truncate', 'file': ..., 'drop': n-or-dist},
-     {'type': 'lose-unfsynced-writes'}  # needs 'lazyfs' (A3c: raises)
+     {'type': 'lose-unfsynced-writes'}  # needs 'lazyfs'
     ]}."""
     faults = opts["faults"]
     needed = "file-corruption" in faults
@@ -407,6 +427,9 @@ def file_corruption_package(opts: dict) -> dict:
     def g_fn(test, ctx):
         target = random.choice(targets)
         c = random.choice(corruptions)
+        if c["type"] == "lose-unfsynced-writes":
+            return {"type": "info", "f": "lose-unfsynced-writes",
+                    "value": [target, None]}
         corruption = {"file": c["file"]}
         if c["type"] == "bitflip":
             p = c.get("probability")
@@ -463,17 +486,19 @@ DEFAULT_FAULTS = ["partition", "packet", "kill", "pause", "clock",
 
 def nemesis_packages(opts: dict) -> list:
     """The standard package list for an option map
-    (combined.clj:512-522). The membership fault
-    (nemesis/membership.clj package) is not ported."""
+    (combined.clj:512-522); membership joins when its fault is
+    requested (nemesis/membership.clj package)."""
+    from . import membership
+
     opts = dict(opts)
     opts["faults"] = set(opts.get("faults", DEFAULT_FAULTS))
-    if "membership" in opts["faults"]:
-        raise NotImplementedError(
-            "the membership fault (nemesis/membership.py) is not ported "
-            "(ROADMAP A3c)")
-    return [partition_package(opts), packet_package(opts),
+    pkgs = [partition_package(opts), packet_package(opts),
             file_corruption_package(opts), clock_package(opts),
             db_package(opts)]
+    mp = membership.package(opts)
+    if mp is not None:
+        pkgs.append(mp)
+    return pkgs
 
 
 def nemesis_package(opts: dict) -> dict:

@@ -209,15 +209,44 @@ def test_conn_spec_and_remote_for():
 
 @pytest.mark.parametrize("test_map", [{}, {"ssh": {}},
                                       {"ssh": {"username": "admin"}}])
-def test_the_ssh_remote_is_refused(test_map):
-    from jepsen_tpu_torch import control
+def test_the_ssh_remote_is_refused(test_map, tmp_path, monkeypatch):
+    """A test with no remote and no ssh.dummy takes the default SSH
+    stack, as in the JAX package (it raised NotImplementedError before
+    ROADMAP A3c was ported): control.session and open_sessions open it
+    without touching the node, and a node whose ssh refuses the
+    connection (a fake ssh on PATH, exit 255 with ssh's message) raises
+    TransportError once the retries are spent."""
+    from test_torch_remotes import fake_ssh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
-        control.remote_for(test_map)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
-        control.session(test_map, "n1")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
-        control.open_sessions(dict(test_map, nodes=["n1"]))
+    calls = fake_ssh(tmp_path, monkeypatch, exit=255,
+                     err="ssh: connect to host n1 port 22: "
+                         "Connection refused\n")
+
+    def scen(pkg):
+        c = pkg.control
+        retry = pkg.m("control.retry")
+        monkeypatch.setattr(retry, "BACKOFF_S", 0.001)
+        monkeypatch.setattr(retry, "BACKOFF_CAP_S", 0.002)
+        n0 = len(calls())
+        r = c.remote_for(test_map)
+        stack = (type(r).__name__, type(r.remote).__name__,
+                 type(r.remote.remote).__name__)
+        sess = c.session(test_map, "n1")
+        opened = c.open_sessions(dict(test_map, nodes=["n1"]))
+        untouched = len(calls()) == n0
+        with pytest.raises(pkg.core.TransportError):
+            sess.execute(pkg.core.Action(cmd="hostname"))
+        sess.disconnect()
+        c.close_sessions(opened)
+        tried = [a for a in calls()[n0:] if "hostname" in a]
+        return stack, untouched, len(tried), tried[0][-3]
+
+    from jepsen_tpu_torch.control import retry
+
+    got = both(scen)
+    user = (test_map.get("ssh") or {}).get("username", "root")
+    assert got == (("RetryingRemote", "ScpRemote", "SshRemote"), True,
+                   retry.RETRIES + 1, f"{user}@n1")
 
 
 def test_su_cd_exec_upload_download():

@@ -414,12 +414,36 @@ def clusterless(**kw):
     ({"ssh": {"username": "root", "port": 22}}, "A3c"),
     ({"ssh": {}}, "A3c"),
     ({"ssh": {"username": "admin"}}, "A3c")])
-def test_unported_switches_raise(tmp_path, kw, item):
-    from jepsen_tpu_torch import core
+def test_unported_switches_raise(tmp_path, monkeypatch, kw, item):
+    """These switches raised NotImplementedError naming ROADMAP A3c until
+    it was ported; now each runs the test over the default SSH stack, as
+    the JAX package does. Through a fake ssh on PATH, both packages'
+    core.run send the same commands (the final heal's iptables flush)
+    as the test's login user, end valid, and leave no control socket
+    directory behind."""
+    from test_torch_remotes import ctl_free, fake_ssh
 
-    t = clusterless(name="refused", store_base=str(tmp_path), **kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        core.run(t)
+    assert item == "A3c"
+    calls = fake_ssh(tmp_path, monkeypatch)
+    argv = {}
+    for root in ROOTS:
+        n0 = len(calls())
+        t = mod(root, "testing").noop_test()
+        t.update(nodes=["n1"], concurrency=1, generator=None,
+                 name="default-stack", store_base=str(tmp_path / root),
+                 **kw)
+        out = mod(root, "core").run(t)
+        assert out["results"]["valid?"] is True
+        argv[root] = calls()[n0:]
+    assert [ctl_free(a) for a in argv["jepsen_tpu_torch"]] == \
+        [ctl_free(a) for a in argv["jepsen_tpu"]]
+    user = kw["ssh"].get("username", "root")
+    port = argv["jepsen_tpu_torch"]
+    assert any(a[-2].endswith("'iptables -F -w'") for a in port)
+    assert all(f"{user}@n1" in a for a in port)
+    ctl = {a.split("=", 1)[1] for argv_ in port for a in argv_
+           if str(a).startswith("ControlPath=")}
+    assert ctl and not any(Path(c).parent.exists() for c in ctl)
 
 
 # ---------------------------------------------------------------------------
@@ -517,11 +541,14 @@ def test_multihost_raises(monkeypatch, var):
 
 
 def test_membership_fault_raises_through_the_package():
-    from jepsen_tpu_torch.nemesis import combined
-
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
-        combined.nemesis_package({"db": fake_db("jepsen_tpu_torch"),
-                                  "faults": ["membership"]})
+    """The membership fault is ported (it raised NotImplementedError
+    naming ROADMAP A3c before): without a cluster's state machine the
+    package raises the JAX package's ValueError."""
+    for root in ROOTS:
+        combined = mod(root, "nemesis.combined")
+        with pytest.raises(ValueError, match="MembershipState"):
+            combined.nemesis_package({"db": fake_db(root),
+                                      "faults": ["membership"]})
 
 
 # ---------------------------------------------------------------------------

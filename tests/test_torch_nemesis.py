@@ -451,26 +451,41 @@ def test_start_stop_cycle_op_for_op():
 # ---------------------------------------------------------------------------
 
 def test_the_membership_fault_raises():
-    from jepsen_tpu_torch.nemesis import combined
-
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
-        combined.nemesis_package({"db": fake_db("jepsen_tpu_torch"),
-                                  "faults": ["partition", "membership"]})
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
-        combined.nemesis_packages({"db": None, "faults": ["membership"]})
+    """The membership fault is ported (ROADMAP A3c; it raised
+    NotImplementedError before): asked for without a cluster's state
+    machine, both packages raise the same ValueError."""
+    for root in ("jepsen_tpu", "jepsen_tpu_torch"):
+        combined = mod(root, "nemesis.combined")
+        with pytest.raises(ValueError, match="MembershipState"):
+            combined.nemesis_package({"db": fake_db(root), "faults": [
+                "partition", "membership"]})
+        with pytest.raises(ValueError, match="MembershipState"):
+            combined.nemesis_packages({"db": None,
+                                       "faults": ["membership"]})
 
 
 def test_lazyfs_raises():
+    """lazyfs is ported (ROADMAP A3c; a lazyfs map raised
+    NotImplementedError before): the file-corruption nemesis over a
+    lazyfs map takes lose-unfsynced-writes and raises the JAX package's
+    ValueError on an f it does not know, and the package without a
+    lazyfs map raises the reference's own ValueError."""
+    from jepsen_tpu_torch.history import op as mkop
     from jepsen_tpu_torch.nemesis import combined
 
     db = fake_db("jepsen_tpu_torch")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
-        combined.FileCorruptionNemesis(db, lazyfs_map={"dir": "/d"})
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
-        combined.file_corruption_package({
-            "db": db, "faults": ["file-corruption"],
-            "file_corruption": {"lazyfs": "/d", "corruptions": [
-                {"type": "lose-unfsynced-writes"}]}})
+    nem = combined.FileCorruptionNemesis(db, lazyfs_map={"dir": "/d"})
+    assert "lose-unfsynced-writes" in nem.fs()
+    assert nem.lazyfs_map["fifo"] == "/d.lazyfs/fifo"
+    with pytest.raises(ValueError, match="unknown f"):
+        nem.invoke({"nodes": ["n1"]}, mkop(type="info", f="scramble",
+                                           value=["all", None]))
+    pkg = combined.file_corruption_package({
+        "db": db, "faults": ["file-corruption"],
+        "file_corruption": {"lazyfs": "/d", "corruptions": [
+            {"type": "lose-unfsynced-writes"}]}})
+    assert pkg["nemesis"].fault_kinds()["lose-unfsynced-writes"] == \
+        ("file-lost-writes", "pulse")
     # without a lazyfs map the reference's own ValueError stands
     with pytest.raises(ValueError, match="lazyfs map"):
         combined.file_corruption_package({
