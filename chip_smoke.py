@@ -295,9 +295,42 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      artifact alone. Prints each run's spans, ops/s, fault
      activations, check seconds on the card and the CPU, launches and
      the card's idle share;
+26. the command line, `python -m jepsen_tpu_torch`, in a temporary
+     working directory (the store is ./store): three `test --no-ssh`
+     runs at once, each in a process of its own (register and bank at
+     the CLI's defaults, 500 ops at 100 ops/s, the bank's 8 accounts
+     folded on the host; list-append 10,000 txns), and `fleet serve`
+     on 127.0.0.1 in another. Each run must exit 2 with its `perf`
+     sub-result "unknown" from an ImportError where matplotlib does not
+     import (0 with the PNGs where it does), its workload verdict true,
+     and the launches its stored metrics.json and telemetry.jsonl
+     record: wgl_search 1 for register, scc 1 for list-append (its
+     `kernel:scc` spans), none for the bank. As each run ends,
+     `analyze` checks it again in this process on the card and with
+     `--device cpu`: results.json equal, untimed, to what `test` wrote;
+     on the card the launches as in the stored run, equal to the
+     wrapper calls and to the counters in results.json; on the CPU no
+     kernel launch, and the path counters (`wgl.kernel.launches`,
+     `scc.path.device`, which count the plain versions there too) as on
+     the card; so is a stored 32-account bank run of
+     24,000 ops (synth.bank_history), whose ~12,000 reads launch
+     bank_reduce once. Then `analyze --resume` of the list-append run
+     with results.json removed and the partial log cut to the workload
+     checker (the workload reused, checker.resumed 1, results equal);
+     a twin of the register run with one read corrupted through the
+     port's store/format writer (exit 1, the same failing key on the
+     card and the CPU); `telemetry`, `profile`, `nodes`, `trace`,
+     `certify` (on the register and list-append runs: the bank's
+     results carry no certificate) and `coverage`, each exiting 0 with
+     the text of its library call; `fleet submit` of each register key's subhistory
+     (cas-register) and of the list-append run, each verdict the
+     stored run's, then `status`, `top`, `explain`; web.serve's routes
+     (200 each, /lint 501 naming ROADMAP A7, /fleet with the tenant);
+     `fleet trace`, and the server stopped by SIGINT with exit 0.
+     Prints each step's seconds against the phase's 45 s budget;
      then prints one `{"kernels": [...]}` line, whose wgl_search launches
-     include those of phases 16-25, and whose scc and bank_reduce
-     launches include those of phases 19-25.
+     include those of phases 16-26, and whose scc and bank_reduce
+     launches include those of phases 19-26.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -313,6 +346,8 @@ import math
 import os
 import random
 import shlex
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2970,11 +3005,11 @@ def _launch_counts() -> dict:
             "bank_reduce": kbank.launches}
 
 
-def _checked(res) -> dict:
-    """A run's results without the entries core.analyze puts beside the
-    checkers' (the watchdog's and the telemetry summary)."""
-    return {k: v for k, v in res.items()
-            if k not in ("watchdog", "telemetry")}
+def _checked(res, drop=("watchdog", "telemetry")) -> dict:
+    """A run's results without the entries named in drop: by default
+    those core.analyze puts beside the checkers' (the watchdog's and the
+    telemetry summary)."""
+    return {k: v for k, v in res.items() if k not in drop}
 
 
 def _results_unsound(res) -> list[str]:
@@ -5056,6 +5091,729 @@ def _transports_path(dev, on_card: bool, sizes: dict | None) -> dict:
     return per_kernel
 
 
+# ---------------------------------------------------------------------------
+# 26. the command line on the card
+# ---------------------------------------------------------------------------
+
+# The runs of phase 26 (a): register and bank at the CLI's defaults (500
+# ops at 100 ops/s, what a user's first run is; the bank's 8 accounts
+# take the host fold, whatever the count) and list-append past Elle's
+# device dispatch; the stored 32-account bank run that `analyze` checks
+# in (b) reaches bank_reduce (about 12,000 reads).
+CLI_SIZES = {"time_limit": 10, "append_ops": 10_000,
+             "stored_bank_ops": 24_000, "stored_bank_accounts": 32}
+# ops/s asked of the append run, and its time limit: the op budget ends
+# the run, not the clock
+CLI_RATE = 100_000
+CLI_TIME_LIMIT = 300
+CLI_BUDGET_S = 45.0
+
+
+def _cli_argv(*argv) -> list:
+    return [sys.executable, "-m", "jepsen_tpu_torch", *argv]
+
+
+def _cli_env() -> dict:
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent)
+    env["PYTHONPATH"] = root + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    return env
+
+
+def cli_runs(sizes: dict, on_card: bool) -> list[dict]:
+    """The three `test` command lines of phase 26 (a)."""
+    dev = [] if on_card else ["--device", "cpu"]
+    fast = ["--rate", str(CLI_RATE), "--time-limit", str(CLI_TIME_LIMIT)]
+    defaults = ["--time-limit", str(sizes["time_limit"]), *dev]
+    return [
+        {"name": "register", "kernel": "wgl_search",
+         "argv": ["test", "--no-ssh", "--workload", "register",
+                  *defaults]},
+        {"name": "append", "kernel": "scc",
+         "argv": ["test", "--no-ssh", "--workload", "append", "--ops",
+                  str(sizes["append_ops"]), *fast, *dev]},
+        {"name": "bank", "kernel": None,
+         "argv": ["test", "--no-ssh", "--workload", "bank", *defaults]}]
+
+
+def _cli_call(argv: list) -> tuple[int, str]:
+    """(exit code, standard output) of `python -m jepsen_tpu_torch argv`
+    run in this process; the root logger is left as it was (run_cli
+    sets it up for a process of its own)."""
+    import contextlib
+    import io
+
+    from jepsen_tpu_torch.__main__ import main as cli_main
+
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    out = io.StringIO()
+    code = None
+    try:
+        with contextlib.redirect_stdout(out):
+            try:
+                cli_main(list(argv))
+            except SystemExit as e:
+                code = e.code
+    finally:
+        for h in list(root.handlers):
+            if h not in handlers:
+                root.removeHandler(h)
+        root.setLevel(level)
+    return code, out.getvalue()
+
+
+def _counted_launches(c: dict) -> dict:
+    """The launch counters of a run's telemetry, by kernel. Of these only
+    `bank.kernel.launches` counts on the card alone; `wgl.kernel.launches`
+    (batched searches) and `scc.path.device` (device-path solves; a
+    capped solve adds `scc.device-nonconverged` and a convergence
+    launch) count the plain versions on the CPU too."""
+    return {"wgl_search": c.get("wgl.kernel.launches", 0),
+            "scc": c.get("scc.path.device", 0)
+            + c.get("scc.device-nonconverged", 0),
+            "bank_reduce": c.get("bank.kernel.launches", 0)}
+
+
+def _stored_launches(d: Path) -> dict:
+    """A stored run's kernel launches: wgl_search and bank_reduce from
+    its metrics.json counters, scc from its telemetry.jsonl `kernel:scc`
+    spans (the profiler's record of each launch, the convergence launch
+    included); the counters beside them as a cross-check."""
+    events, metrics = store.load_telemetry(d)
+    counted = _counted_launches((metrics or {}).get("counters", {}))
+    names = [str(e.get("name", "")) for e in events]
+    return {"wgl_search": counted["wgl_search"],
+            "scc": names.count("kernel:scc"),
+            "bank_reduce": counted["bank_reduce"],
+            "wgl_spans": sum(n.startswith("kernel:wgl") for n in names),
+            "scc_counted": counted["scc"]}
+
+
+def _results_launches(res: dict) -> dict:
+    return _counted_launches(
+        (res.get("telemetry") or {}).get("counters", {}))
+
+
+# what a CLI check measures rather than decides: the telemetry summary
+# (durations, counters) and the offline analysis block
+CLI_MEASURED = ("telemetry", "analysis")
+
+
+def _read_results(d: Path) -> dict:
+    return json.loads((d / "results.json").read_text())
+
+
+def _workload_verdict(res: dict):
+    """The workload's verdict in a CLI run's results: the bank bundle
+    composes its balance plot beside the conservation checker, so its
+    verdict is the `bank` sub-result (the plot is "unknown" without
+    matplotlib); the other workloads' result is the verdict."""
+    wl = res["workload"]
+    return wl["bank"]["valid?"] if "bank" in wl else wl["valid?"]
+
+
+def _want_launches(name: str, plain: bool = False) -> dict:
+    """Phase 26 (a)'s launches: wgl_search for the register run (at
+    least 1), scc 1 for list-append, none for the CLI's 8-account bank,
+    bank_reduce 1 for the stored 32-account one. plain: the counters of
+    a check on the CPU, where bank_reduce counts nothing and the path
+    counters of wgl_search and scc count the plain versions."""
+    want = {"register": {"scc": 0, "bank_reduce": 0},
+            "append": {"wgl_search": 0, "scc": 1, "bank_reduce": 0},
+            "bank": {"wgl_search": 0, "scc": 0, "bank_reduce": 0},
+            "bank32": {"wgl_search": 0, "scc": 0,
+                       "bank_reduce": 1}}[name]
+    return dict(want, bank_reduce=0) if plain else want
+
+
+def _check_cli_launches(what: str, got: dict, name: str,
+                        plain: bool = False) -> None:
+    want = _want_launches(name, plain)
+    bad = {k: got[k] for k, v in want.items() if got[k] != v}
+    if name == "register" and got["wgl_search"] < 1:
+        bad["wgl_search"] = got["wgl_search"]
+    if bad:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def stored_bank_run(work: Path, sizes: dict) -> Path:
+    """A run directory as a 32-account bank test leaves it (history.jlog,
+    test.json, spec.json naming the bank workload), the history from
+    synth.bank_history: the run `analyze` checks on bank_reduce (the
+    CLI's own bank has 8 accounts, whose narrow reads take the host
+    fold)."""
+    from jepsen_tpu_torch.store import format as sformat
+
+    n = sizes["stored_bank_accounts"]
+    h = synth.bank_history(sizes["stored_bank_ops"], n_accounts=n,
+                           seed=26)
+    d = work / "store" / "bank32-demo" / "20260101T000000.000"
+    d.mkdir(parents=True)
+    sformat.write_history(d / "history.jlog", list(h))
+    accounts = list(range(n))
+    nodes = ["n1", "n2", "n3", "n4", "n5"]
+    (d / "test.json").write_text(json.dumps(
+        {"name": "bank32-demo", "start_time": "2026-01-01 00:00:00",
+         "nodes": nodes, "concurrency": 5, "accounts": accounts,
+         "total-amount": 10 * n}, indent=1))
+    (d / "spec.json").write_text(json.dumps(
+        {"workload": "bank", "opts": {"workload": "bank", "nodes": nodes,
+                                      "concurrency": 5,
+                                      "ssh": {"dummy": True},
+                                      "ops": sizes["stored_bank_ops"]}},
+        indent=1))
+    return d
+
+
+def cli_twin(src: Path, dst: Path) -> tuple:
+    """A copy of the register run src whose history has one ok read
+    changed to a value no write wrote, written with the port's
+    store/format writer; returns (the key, the op index)."""
+    from jepsen_tpu_torch.store import format as sformat
+
+    dst.mkdir(parents=True)
+    for f in ("test.json", "spec.json", "nodes.jsonl"):
+        if (src / f).exists():
+            shutil.copy2(src / f, dst / f)
+    ops = list(sformat.read_history(src / "history.jlog"))
+    for i, o in enumerate(ops):
+        if (o.type == "ok" and o.f == "read" and isinstance(
+                o.value, (list, tuple)) and o.value[1] is not None):
+            key = o.value[0]
+            ops[i] = o.copy(value=[key, 1_000_003])
+            break
+    else:
+        raise AssertionError(f"{src}: no ok read with a value")
+    sformat.write_history(dst / "history.jlog", ops)
+    return key, ops[i].index
+
+
+def _key_histories(d: Path, out: Path) -> dict:
+    """Each key's subhistory of the register run d as history.jlog under
+    out/k<key>/ (what `fleet submit` streams); {key: directory}."""
+    from jepsen_tpu_torch.store import format as sformat
+
+    hist = sformat.read_history(d / "history.jlog")
+    subs = independent.subhistories(hist)
+    dirs = {}
+    for k, sub in sorted(subs.items(), key=lambda kv: str(kv[0])):
+        kd = out / f"k{k}"
+        sformat.write_history(kd / "history.jlog", list(sub))
+        dirs[k] = kd
+    return dirs
+
+
+def _wait_addr(path: Path, proc, timeout_s: float = 180.0) -> str:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if path.exists():
+            line = path.read_text().splitlines()
+            if line and line[0].strip():
+                return line[0].strip()
+        if proc.poll() is not None:
+            raise AssertionError(f"fleet serve exited {proc.returncode}: "
+                                 f"{proc.stderr.read()[-3000:]}")
+        time.sleep(0.1)
+    raise AssertionError("fleet serve wrote no fleet.addr")
+
+
+def _http_get(url: str) -> tuple[int, bytes]:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def cli_path(dev, on_card: bool, sizes: dict | None = None) -> dict:
+    """Phase 26: the command line, through `python -m jepsen_tpu_torch`
+    (the module docstring's item 26). Returns the launches per run, by
+    kernel. The earlier phases' heap is frozen out of the collector, as
+    in phase 20."""
+    gc.collect()
+    gc.freeze()
+    try:
+        return _cli_path(dev, on_card, sizes)
+    finally:
+        gc.unfreeze()
+
+
+class _CliPhase:
+    """Phase 26's state and steps, in a temporary working directory (the
+    store is ./store there). Each step method is one of the docstring's
+    (a)-(g); `_cli_path` calls them as the test processes end."""
+
+    def __init__(self, work: Path, on_card: bool, sizes: dict,
+                 has_mpl: bool):
+        self.work = work
+        self.on_card = on_card
+        self.sizes = sizes
+        self.has_mpl = has_mpl
+        self.dev_args = [] if on_card else ["--device", "cpu"]
+        self.runs: dict = {}
+        self.analyzed: dict = {}
+        self.verdicts: dict = {}
+        self.readers: dict = {}
+        self.per_kernel: dict = {"wgl_search": {}, "scc": {},
+                                 "bank_reduce": {}}
+        self.t0 = time.perf_counter()
+        self.steps: dict = {}
+
+    def timed(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.steps[name] = time.perf_counter() - t0
+
+    def rel(self, name: str) -> str:
+        return str(Path("store") / self.runs[name]["rel"])
+
+    def count(self, kernel: str, label: str, n: int) -> None:
+        kernel = "scc" if kernel == "scc_converge" else kernel
+        if n:
+            self.per_kernel[kernel][label] = (
+                self.per_kernel[kernel].get(label, 0) + n)
+
+    # (a) ------------------------------------------------------------------
+    def test_run(self, spec: dict, proc) -> None:
+        """One `test` process's stored run: exit code, verdicts, perf
+        sub-result and the launches its metrics.json and telemetry.jsonl
+        record."""
+        from jepsen_tpu_torch.store import format as sformat
+
+        name = spec["name"]
+        _out, err = proc.communicate(timeout=900)
+        d = (self.work / "store" / f"{spec['argv'][3]}-demo"
+             / "latest").resolve()
+        if not (d / "results.json").exists():
+            raise AssertionError(f"cli {name}: exit {proc.returncode}, "
+                                 f"no results: {err[-3000:]}")
+        res = _read_results(d)
+        wl = _workload_verdict(res)
+        perf = res["perf"]
+        pngs = sorted(p.name for p in d.glob("*.png"))
+        if self.has_mpl:
+            want_code = 0
+            ok = perf["valid?"] is True and {
+                "latency-raw.png", "latency-quantiles.png", "rate.png",
+                "monitor.png"} <= set(pngs)
+        else:
+            want_code = 2
+            errs = [perf[k].get("error", "").strip().splitlines()[-1:]
+                    for k in ("latency-graph", "rate-graph")]
+            ok = (perf["valid?"] == "unknown" and not pngs
+                  and all(e and "matplotlib" in e[0] and (
+                      "ImportError" in e[0]
+                      or "ModuleNotFoundError" in e[0]) for e in errs))
+        if proc.returncode != want_code or wl is not True or not ok or \
+                res["valid?"] is False:
+            raise AssertionError(
+                f"cli {name}: exit {proc.returncode} (want {want_code}), "
+                f"workload {wl}, perf {perf['valid?']}, pngs {pngs}: "
+                f"{err[-2000:]}")
+        launches = _stored_launches(d)
+        _check_cli_launches(f"cli {name}", launches, name,
+                            plain=not self.on_card)
+        if launches["wgl_spans"] != launches["wgl_search"] or \
+                launches["scc_counted"] != launches["scc"]:
+            raise AssertionError(f"cli {name}: kernel spans {launches}")
+        self.runs[name] = {"dir": d, "results": res,
+                           "rel": str(d.relative_to(self.work / "store"))}
+        emit({"phase": "cli-test", "run": name, "argv": spec["argv"],
+              "exit": proc.returncode, "valid": res["valid?"],
+              "workload": wl, "perf": perf["valid?"], "pngs": pngs,
+              "events": len(sformat.read_history(d / "history.jlog")),
+              "launches": launches,
+              "run_ms": res["telemetry"]["phases"].get("run"),
+              "analyze_ms": res["telemetry"]["phases"].get("analyze"),
+              "ended_s": time.perf_counter() - self.t0,
+              "card": nvidia_smi_line() if self.on_card else "cpu"})
+        if spec["kernel"]:
+            self.count(spec["kernel"], f"cli-test-{name}",
+                       launches[spec["kernel"]])
+
+    # (b) ------------------------------------------------------------------
+    def analyze_both(self, name: str) -> None:
+        """The stored run checked again by `analyze` in this process, on
+        the card and with --device cpu: results.json equal, untimed, to
+        what `test` wrote. On the card the kernels' launches are (a)'s,
+        equal to the wrapper calls and to the counters in results.json;
+        on the CPU no kernel launches, and the path counters that count
+        the plain versions too (`wgl.kernel.launches`, `scc.path.device`)
+        are the card's."""
+        r = self.runs[name]
+        paths = {}
+        for where, argv in (("card", self.dev_args),
+                            ("cpu", ["--device", "cpu"])):
+            recorded, restore = _wrapped_kernels()
+            try:
+                code, _out = _cli_call(["analyze", self.rel(name), *argv])
+            finally:
+                restore()
+            calls = {k: len(v) for k, v in recorded.items()}
+            launched = _launch_counts()
+            real = dict(launched)
+            real["scc"] += real.pop("scc_converge")
+            res = _read_results(r["dir"])
+            counted = _results_launches(res)
+            if code != (0 if self.has_mpl else 2) or \
+                    res["analysis"]["offline?"] is not True:
+                raise AssertionError(f"cli analyze {name} {where}: exit "
+                                     f"{code}")
+            what = f"cli analyze {name} {where}"
+            if self.on_card and where == "card":
+                _check_cli_launches(what, real, name)
+                if launched != calls or counted != real:
+                    raise AssertionError(
+                        f"{what}: launches {launched}, wrapper calls "
+                        f"{calls}, counted {counted}")
+            else:
+                _check_cli_launches(what, counted, name, plain=True)
+                if any(real.values()):
+                    raise AssertionError(f"{what}: kernel launches {real}")
+            paths[where] = {k: counted[k] for k in ("wgl_search", "scc")}
+            untimed = _checked(res, CLI_MEASURED)
+            if name in self.analyzed:
+                if untimed != self.analyzed[name]:
+                    raise AssertionError(f"cli analyze {name}: card and "
+                                         f"cpu differ")
+            elif "results" in r and untimed != _checked(
+                    r["results"], CLI_MEASURED):
+                raise AssertionError(f"cli analyze {name}: not the "
+                                     f"results test wrote")
+            self.analyzed.setdefault(name, untimed)
+            emit({"phase": "cli-analyze", "run": name, "device": where,
+                  "exit": code, "valid": res["valid?"],
+                  "launches": real, "counted": counted,
+                  "wrapper_calls": calls,
+                  "analyze_ms": res["telemetry"]["phases"].get("analyze")})
+            if where == "card":
+                for k, n in calls.items():
+                    self.count(k, f"cli-analyze-{name}", n)
+        if paths["card"] != paths["cpu"]:
+            raise AssertionError(f"cli analyze {name}: path counters "
+                                 f"{paths}")
+
+    def stored_bank(self) -> None:
+        d = stored_bank_run(self.work, self.sizes)
+        self.runs["bank32"] = {"dir": d,
+                               "rel": str(d.relative_to(self.work / "store"))}
+        self.analyze_both("bank32")
+        if _workload_verdict(self.analyzed["bank32"]) is not True:
+            raise AssertionError(f"bank32: {self.analyzed['bank32']}")
+
+    # (c) ------------------------------------------------------------------
+    def resume(self) -> None:
+        """`analyze --resume` of the list-append run, its analysis cut
+        back: results.json gone, the partial log holding the workload
+        checker's result alone (the workload reused, checker.resumed 1,
+        results equal to (b))."""
+        from jepsen_tpu_torch.store import format as sformat
+
+        d = self.runs["append"]["dir"]
+        partial = sformat.read_partial_results(d / "results.partial.jlog")
+        (d / "results.json").unlink()
+        (d / "results.partial.jlog").unlink()
+        w = sformat.PartialResultsWriter(d / "results.partial.jlog")
+        w.put("workload", partial["workload"])
+        w.close()
+        recorded, restore = _wrapped_kernels()
+        try:
+            code, _out = _cli_call(["analyze", self.rel("append"),
+                                    "--resume", *self.dev_args])
+        finally:
+            restore()
+        res = _read_results(d)
+        counters = res["telemetry"]["counters"]
+        if code != (0 if self.has_mpl else 2) or _checked(
+                res, CLI_MEASURED) != self.analyzed["append"] or res["analysis"][
+                    "resumed-checkers"] != ["workload"] or counters.get(
+                        "checker.resumed") != 1:
+            raise AssertionError(f"cli resume: exit {code}, "
+                                 f"{res['analysis']}, "
+                                 f"{counters.get('checker.resumed')}")
+        emit({"phase": "cli-resume", "exit": code,
+              "analysis": res["analysis"],
+              "checker.resumed": counters.get("checker.resumed"),
+              "checkpoint_counters": {
+                  k: v for k, v in counters.items()
+                  if k.startswith(("ckpt.", "wgl.checkpoint."))},
+              "wrapper_calls": {k: len(v) for k, v in recorded.items()}})
+
+    # (d) ------------------------------------------------------------------
+    def twin(self) -> None:
+        """The register run's twin, one read corrupted with the port's
+        store/format writer: exit 1 with the same failing key on the
+        card and the CPU."""
+        src = self.runs["register"]["dir"]
+        twin = src.parent / (src.name + "-twin")
+        key, idx = cli_twin(src, twin)
+        rel = str(Path("store") / twin.relative_to(self.work / "store"))
+        got = {}
+        for where, argv in (("card", self.dev_args),
+                            ("cpu", ["--device", "cpu"])):
+            recorded, restore = _wrapped_kernels()
+            try:
+                code, _out = _cli_call(["analyze", rel, *argv])
+            finally:
+                restore()
+            res = _read_results(twin)
+            wres = res["workload"]
+            launches = _results_launches(res)
+            if code != 1 or wres["valid?"] is not False or wres.get(
+                    "failures") != [key] or launches["wgl_search"] != len(
+                        recorded["wgl_search"]):
+                raise AssertionError(f"cli twin {where}: exit {code}, "
+                                     f"failures {wres.get('failures')}, "
+                                     f"want [{key}], {launches}")
+            got[where] = _checked(res, CLI_MEASURED)
+            emit({"phase": "cli-twin", "device": where, "exit": code,
+                  "key": key, "op": idx, "failures": wres["failures"],
+                  "launches": launches})
+            if where == "card":
+                self.count("wgl_search", "cli-twin",
+                           len(recorded["wgl_search"]))
+        if got["card"] != got["cpu"]:
+            raise AssertionError("cli twin: card and cpu differ")
+
+    # (e) ------------------------------------------------------------------
+    def run_readers(self, name: str) -> None:
+        """`telemetry`, `profile`, `nodes`, `certify` and `trace` on the
+        stored run: exit 0, the text (trace: the file) of the library
+        call."""
+        from jepsen_tpu_torch.reports import nodes as rnodes
+        from jepsen_tpu_torch.reports import profile as rprofile
+        from jepsen_tpu_torch.reports import telemetry as rtel
+
+        d = self.runs[name]["dir"]
+        rel = self.rel(name)
+        head = f"# {d.resolve()}\n\n"
+        secs = self.readers[name] = {}
+        t0 = time.perf_counter()
+        events, metrics = store.load_telemetry(d)
+        want = {}
+        if events or metrics is not None:
+            want["telemetry"] = head + rtel.telemetry_text(
+                events, metrics) + "\n"
+            want["profile"] = head + rprofile.profile_text(
+                events, metrics) + "\n"
+        records = store.load_nodes(d)
+        if records:
+            want["nodes"] = head + rnodes.nodes_text(
+                records, store.load(d).get("history")) + "\n"
+        if name in ("register", "append"):
+            want["certify"] = None
+        secs["library"] = time.perf_counter() - t0
+        for cmd, text in want.items():
+            t0 = time.perf_counter()
+            code, out = _cli_call([cmd, rel])
+            secs[cmd] = time.perf_counter() - t0
+            if code != 0 or (text is not None and out != text):
+                raise AssertionError(f"cli {cmd} {name}: exit {code}")
+            if cmd == "certify" and " 0 error(s)" not in out:
+                raise AssertionError(f"cli certify {name}: {out}")
+        t0 = time.perf_counter()
+        code, out = _cli_call(["trace", rel])
+        secs["trace"] = time.perf_counter() - t0
+        doc = json.loads((d / "trace.json").read_text())
+        t0 = time.perf_counter()
+        lib = rtrace.write_trace(rel)
+        secs["library"] += time.perf_counter() - t0
+        if code != 0 or not out.startswith(f"wrote {lib}\n") or \
+                json.loads(Path(lib).read_text()) != doc:
+            raise AssertionError(f"cli trace {name}: exit {code}")
+        rtrace.validate_chrome_trace(doc)
+
+    def coverage(self) -> None:
+        """`coverage` over the store: exit 0 with the atlas's text."""
+        from jepsen_tpu_torch import coverage as jcoverage
+
+        code, out = _cli_call(["coverage"])
+        cells = jcoverage.aggregate(jcoverage.read_atlas(
+            Path("store") / jcoverage.ATLAS_FILE))
+        if code != 0 or not out.endswith(jcoverage.coverage_text(
+                cells, list(workloads.REGISTRY)) + "\n"):
+            raise AssertionError(f"cli coverage: exit {code}")
+        emit({"phase": "cli-readers", "seconds": self.readers,
+              "coverage_cells": len(cells)})
+
+    # (f) ------------------------------------------------------------------
+    def fleet(self, server, tmp: Path) -> None:
+        """`fleet submit` of each register key's subhistory and of the
+        list-append run to the `fleet serve` process, each verdict the
+        stored run's; then `status`, `top` and `explain`."""
+        self.fleet_addr = _wait_addr(self.work / "store" / "fleet"
+                                     / "fleet.addr", server)
+        base = ["--base", "store/fleet", "--tenant", "cli"]
+        reg = self.runs["register"]["results"]["workload"]["results"]
+        for k, kd in _key_histories(self.runs["register"]["dir"],
+                                    tmp / "keys").items():
+            code, out = _cli_call(["fleet", "submit", str(kd), *base,
+                                   "--model", "cas-register",
+                                   "--chunk-ops", "2048"])
+            got = json.loads(out)["result"]["valid?"]
+            want = reg[str(k)]["valid?"]
+            if got != want or code != {True: 0, False: 1}.get(got, 2):
+                raise AssertionError(f"fleet key {k}: {got} (exit {code}), "
+                                     f"stored {want}")
+            self.verdicts[f"register/{k}"] = got
+        code, out = _cli_call(["fleet", "submit",
+                               str(self.runs["append"]["dir"]), *base,
+                               "--model", "list-append",
+                               "--chunk-ops", "2048"])
+        env = json.loads(out)
+        stored = self.runs["append"]["results"]["workload"]
+        if env["result"]["valid?"] != stored["valid?"] or code != 0 or \
+                env["result"].get("anomaly-types") != stored.get(
+                    "anomaly-types"):
+            raise AssertionError(f"fleet append: {env['result']}")
+        self.verdicts["append"] = env["result"]["valid?"]
+        code, out = _cli_call(["fleet", "status", *base])
+        self.fleet_status = json.loads(out)
+        if code != 0 or self.fleet_status["tenants"]["cli"][
+                "verdicts"] != len(self.verdicts):
+            raise AssertionError(f"fleet status: "
+                                 f"{self.fleet_status['tenants']}")
+        code, top = _cli_call(["fleet", "top", *base, "--iterations", "1"])
+        if code != 0 or "verdict ms" not in top:
+            raise AssertionError(f"fleet top: exit {code}")
+        run_name = self.runs["append"]["dir"].name.replace(" ", "-")
+        code, explain = _cli_call(["fleet", "explain", run_name, *base])
+        if code != 0 or "dominant slice:" not in explain:
+            raise AssertionError(f"fleet explain: exit {code}")
+        self.fleet_explain = explain.splitlines()[-1]
+
+    def fleet_stop(self, server) -> None:
+        """`fleet trace`, then the server stopped by SIGINT: exit 0."""
+        code, _out = _cli_call(["fleet", "trace", "--base", "store/fleet"])
+        doc = json.loads((self.work / "store" / "fleet"
+                          / "fleet-trace.json").read_text())
+        rtrace.validate_chrome_trace(doc)
+        server.send_signal(signal.SIGINT)
+        s_out, s_err = server.communicate(timeout=120)
+        if server.returncode != 0 or code != 0:
+            raise AssertionError(f"fleet serve exited {server.returncode}"
+                                 f": {s_err[-2000:]}")
+        emit({"phase": "cli-fleet", "verdicts": self.verdicts,
+              "launches": self.fleet_status["scheduler"].get("launches"),
+              "explain": self.fleet_explain,
+              "trace_events": len(doc["traceEvents"]),
+              "server": s_out.strip().splitlines()[:1],
+              "server_exit": server.returncode})
+
+    # (g) ------------------------------------------------------------------
+    def web(self) -> None:
+        """web.serve on 127.0.0.1, port 0, over the store, the fleet still
+        up: every route 200, /lint 501 naming ROADMAP A7, /fleet with the
+        tenant."""
+        from jepsen_tpu_torch import web
+
+        srv = web.serve("127.0.0.1", 0, base=Path("store"))
+        try:
+            port = srv.server_address[1]
+            rel = self.runs["register"]["rel"]
+            pages = {}
+            for path in ("/", f"/files/{rel}/", "/coverage/", "/fleet",
+                         f"/telemetry/{rel}", f"/live/{rel}", f"/zip/{rel}",
+                         f"/files/{rel}/results.json", f"/trace/{rel}",
+                         f"/metrics?run={rel}", "/lint"):
+                code, body = _http_get(f"http://127.0.0.1:{port}{path}")
+                pages[path] = [code, len(body)]
+                if path == "/lint":
+                    if code != 501 or b"ROADMAP A7" not in body:
+                        raise AssertionError(f"web /lint: {code}")
+                elif code != 200:
+                    raise AssertionError(f"web {path}: {code}")
+                if path == "/fleet" and b"cli" not in body:
+                    raise AssertionError("web /fleet: no tenant cli")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+        emit({"phase": "cli-web", "pages": pages})
+
+
+def _cli_path(dev, on_card: bool, sizes: dict | None) -> dict:
+    sizes = dict(CLI_SIZES, **(sizes or {}))
+    try:
+        import matplotlib  # noqa: F401
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    emit({"phase": "cli-matplotlib", "imports": has_mpl})
+    threads0 = set(threading.enumerate())
+    handlers0 = list(logging.getLogger().handlers)
+    cwd0 = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp) / "work"
+        work.mkdir()
+        ph = _CliPhase(work, on_card, sizes, has_mpl)
+        env = _cli_env()
+        procs: dict = {}
+        server = None
+        try:
+            # (a) the three test runs at once, and (f)'s fleet server
+            for spec in cli_runs(sizes, on_card):
+                procs[spec["name"]] = (spec, subprocess.Popen(
+                    _cli_argv(*spec["argv"]), cwd=work, env=env,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+            server = subprocess.Popen(
+                _cli_argv("fleet", "serve", "--base", "store/fleet",
+                          "-p", "0", "--device",
+                          "cuda" if on_card else "cpu"),
+                cwd=work, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            os.chdir(work)
+            # the stored bank run needs no process: it is checked while
+            # they start; each run's steps go as soon as its process ends
+            ph.timed("b bank32", ph.stored_bank)
+            spec, proc = procs["register"]
+            ph.timed("a register", ph.test_run, spec, proc)
+            ph.timed("b register", ph.analyze_both, "register")
+            ph.timed("d twin", ph.twin)
+            ph.timed("e register", ph.run_readers, "register")
+            spec, proc = procs["append"]
+            ph.timed("a append", ph.test_run, spec, proc)
+            ph.timed("b append", ph.analyze_both, "append")
+            ph.timed("e append", ph.run_readers, "append")
+            ph.timed("c resume", ph.resume)
+            ph.timed("f fleet", ph.fleet, server, Path(tmp))
+            spec, proc = procs["bank"]
+            ph.timed("a bank", ph.test_run, spec, proc)
+            ph.timed("b bank", ph.analyze_both, "bank")
+            ph.timed("e bank", ph.run_readers, "bank")
+            ph.timed("e coverage", ph.coverage)
+            ph.timed("g web", ph.web)
+            ph.timed("f fleet stop", ph.fleet_stop, server)
+        finally:
+            os.chdir(cwd0)
+            for spec, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+            if server is not None and server.poll() is None:
+                server.kill()
+                server.communicate()
+    leaked = [t.name for t in threading.enumerate() if t not in threads0
+              and not t.daemon]
+    if leaked:
+        raise AssertionError(f"threads started in the phase outlive it: "
+                             f"{leaked}")
+    if logging.getLogger().handlers != handlers0:
+        raise AssertionError(f"log handlers left behind: "
+                             f"{logging.getLogger().handlers}")
+    emit({"phase": "cli-total", "seconds": time.perf_counter() - ph.t0,
+          "steps": ph.steps, "budget_s": CLI_BUDGET_S,
+          "card": nvidia_smi_line() if on_card else "cpu"})
+    return ph.per_kernel
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 10_000, n_elle: int = 100_000,
@@ -5070,7 +5828,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
         profiled_sizes: dict | None = None,
         sweep: dict | None = None,
         registry_sizes: dict | None = None,
-        a3c_sizes: dict | None = None) -> dict:
+        a3c_sizes: dict | None = None,
+        cli_sizes: dict | None = None) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     # wall seconds of each group of phases, printed before the kernels
@@ -5393,6 +6152,15 @@ def run(dev: torch.device, n_headline: int = 500_000,
     scc_entry["launches"] += sum(transports["scc"].values())
     scc_entry["launches_per_check"].update(transports["scc"])
     mark("25 transports")
+    # 26. the command line: test, analyze (--resume), a twin, the
+    # readers, the fleet and the web UI through python -m jepsen_tpu_torch
+    cli = cli_path(dev, on_card, cli_sizes)
+    per_path.update(cli["wgl_search"])
+    scc_entry["launches"] += sum(cli["scc"].values())
+    scc_entry["launches_per_check"].update(cli["scc"])
+    bank_entry["launches"] += sum(cli["bank_reduce"].values())
+    bank_entry["launches_per_check"].update(cli["bank_reduce"])
+    mark("26 cli")
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}

@@ -5,15 +5,18 @@ Capability reference: jepsen/src/jepsen/checker.clj (Checker protocol
 57-72, check-safe 79-90, compose 92-104, concurrency-limit 106-121,
 unhandled-exceptions 129-157, stats 159-200, linearizable 202-233, queue
 235-255, set 257-317, set-full 320-612, total-queue 648-708, unique-ids
-710-747, counter 749-819, log-file-pattern 863-905). The O(n) checkers
+710-747, counter 749-819, log-file-pattern 863-905; checker/perf.clj and
+checker/clock.clj for perf and clock_plot). The O(n) checkers
 fold directly on the host (with numpy where it pays); the linearizable
 checker runs the WGL search on the card (gpu/wgl.py), the cycle checkers
 (cycle.py) the SCC kernel, the bank checker (workloads/bank.py) the
 balance reduction. An invalid result with a test["store_dir"] leaves its
 reports there (reports/explain.py), as the JAX package's does.
 
-The latency, rate and clock plots (perf, clock_plot) need matplotlib and
-are not ported.
+The latency, rate and clock plots (perf, clock_plot; reports/perf.py,
+reports/clock.py) draw with matplotlib, imported when a figure is drawn:
+without it their checkers raise ImportError, which check_safe reports as
+valid? "unknown", as in the JAX package.
 """
 
 from __future__ import annotations
@@ -980,6 +983,22 @@ def log_file_pattern(pattern: str, filename: str) -> Checker:
     return _Fn(run)
 
 
+def perf(opts: dict | None = None) -> Checker:
+    """Latency + rate + live-monitor graphs (checker/perf.clj plus the
+    monitor time-series plot); see reports/perf.py."""
+    from ..reports.perf import latency_graph, monitor_graph, rate_graph
+
+    return compose({"latency-graph": latency_graph(opts),
+                    "rate-graph": rate_graph(opts),
+                    "monitor-graph": monitor_graph(opts)})
+
+
+def clock_plot() -> Checker:
+    """Clock-skew plot (checker/clock.clj:14-49)."""
+    from ..reports.clock import plot as clock_plot_fn
+
+    return _Fn(lambda test, hist, opts:
+               clock_plot_fn(test, hist, opts) or {"valid?": True})
 
 
 def timeline() -> Checker:

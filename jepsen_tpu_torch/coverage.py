@@ -18,9 +18,11 @@ port's copy of the recorder half of jepsen_tpu/coverage.py).
   concurrent runs append distinct ids.
 
 The records and the atlas are the JAX package's byte for byte: either
-package reads the other's. The readers behind the CLI and the web UI
-(`aggregate`, `matrix_text`, `gaps`, `suggest`, `coverage_text`,
-`prometheus_lines`) are ROADMAP A9.
+package reads the other's. The readers (`aggregate`, `cell_status`,
+`matrix_text`, `gaps`, `suggest`, `coverage_text`, `prometheus_lines`)
+fold the atlas for the `coverage` subcommand (cli.py), the web UI's
+`/coverage/` heatmap and its `/metrics` scrape (web.py); a suggested
+config names the port's own command line.
 """
 
 from __future__ import annotations
@@ -634,3 +636,245 @@ def validate_atlas(entries) -> int:
                 f"entry {i}: bad witness-frac {wf!r}")
         n += 1
     return n
+
+
+def aggregate(entries: Iterable[dict]) -> dict[tuple, dict]:
+    """{(fault, workload, anomaly): cell} over deduplicated atlas
+    entries. A run with no fault activations contributes its anomaly
+    outcomes under the baseline fault "none" — the healthy-path
+    column. Cell: {runs, witnessed, clean, unknown, first-seen,
+    last-seen, witnesses (run ids, capped)}."""
+    cells: dict[tuple, dict] = {}
+    for e in dedup_entries(entries).values():
+        kinds = sorted(e.get("faults") or {}) or ["none"]
+        wl = str(e.get("workload") or "unknown")
+        ts = e.get("ts") or 0
+        fracs = e.get("witness-frac") or {}
+        for kind in kinds:
+            for cls, out in sorted((e.get("anomalies") or {}).items()):
+                key = (kind, wl, cls)
+                c = cells.get(key)
+                if c is None:
+                    c = cells[key] = {
+                        "runs": 0, "witnessed": 0, "clean": 0,
+                        "unknown": 0, "first-seen": ts,
+                        "last-seen": ts, "witnesses": [],
+                        "earliest-witness-frac": None}
+                c["runs"] += 1
+                c[out if out in OUTCOMES else "unknown"] += 1
+                c["first-seen"] = min(c["first-seen"], ts)
+                c["last-seen"] = max(c["last-seen"], ts)
+                if out == "witnessed" and len(c["witnesses"]) < 16:
+                    c["witnesses"].append(str(e.get("run")))
+                # how early the anomaly localizes in this cell — the
+                # config-ranking signal for early-exit work
+                frac = fracs.get(cls)
+                if isinstance(frac, (int, float)):
+                    prev = c["earliest-witness-frac"]
+                    c["earliest-witness-frac"] = (
+                        float(frac) if prev is None
+                        else min(prev, float(frac)))
+    return cells
+
+
+# ---------------------------------------------------------------------------
+# Matrix, gaps, suggestions
+# ---------------------------------------------------------------------------
+
+def _axes(cells: dict[tuple, dict],
+          all_workloads: Iterable[str] | None = None,
+          all_faults: Iterable[str] | None = None) -> tuple[list, list]:
+    faults = sorted({k for k, _w, _a in cells}
+                    | set(all_faults or FAULT_KINDS) | {"none"})
+    wls = sorted({w for _k, w, _a in cells} | set(all_workloads or ()))
+    return faults, wls
+
+
+def cell_status(cells: dict[tuple, dict], fault: str,
+                workload: str) -> str:
+    """'gap' (never exercised), 'witnessed', 'clean', or 'unknown' for
+    one fault × workload cell, folded over its anomaly classes."""
+    status = "gap"
+    for (k, w, _a), c in cells.items():
+        if k != fault or w != workload:
+            continue
+        if c["witnessed"]:
+            return "witnessed"
+        if c["clean"]:
+            status = "clean"
+        elif status == "gap":
+            status = "unknown"
+    return status
+
+
+_STATUS_CHAR = {"gap": "·", "clean": "o", "witnessed": "X",
+                "unknown": "?"}
+
+
+def matrix_text(cells: dict[tuple, dict],
+                all_workloads: Iterable[str] | None = None) -> str:
+    """The fault × workload matrix: one row per workload, one column
+    per fault kind; X = anomaly witnessed, o = checked clean,
+    ? = indeterminate only, · = never exercised."""
+    faults, wls = _axes(cells, all_workloads)
+    if not wls:
+        return "(empty atlas — run some tests first)"
+    wname = max(len(w) for w in wls + ["workload"])
+    head = "workload".ljust(wname) + "  " + "  ".join(
+        f"{i:>2d}" for i in range(len(faults)))
+    lines = [head, "-" * len(head)]
+    for w in wls:
+        row = [f"{_STATUS_CHAR[cell_status(cells, k, w)]:>2s}"
+               for k in faults]
+        lines.append(w.ljust(wname) + "  " + "  ".join(row))
+    lines.append("")
+    for i, k in enumerate(faults):
+        lines.append(f"  {i:>2d} = {k}")
+    lines.append("")
+    lines.append("  X witnessed   o checked clean   ? indeterminate   "
+                 "· never exercised")
+    return "\n".join(lines)
+
+
+def gaps(cells: dict[tuple, dict],
+         all_workloads: Iterable[str] | None = None,
+         all_faults: Iterable[str] | None = None) -> list[tuple]:
+    """Never-exercised (fault, workload) cells, deterministic order."""
+    faults, wls = _axes(cells, all_workloads, all_faults)
+    return [(k, w) for w in wls for k in faults
+            if cell_status(cells, k, w) == "gap"]
+
+
+# fault kind -> the bundled-CLI nemesis flag that injects it
+# clusterlessly; kinds with no demo package fall back to a
+# nemesis_package faults hint (the suite-level combined.py option)
+SUGGEST_PACKAGES = {
+    "partition": "--nemesis partition",
+    "process-pause": "--nemesis hammer",
+    "none": "",
+}
+
+# fault kind -> the combined.nemesis_package faults option that
+# injects it on a real cluster
+PACKAGE_FAULTS = {
+    "partition": "partition", "packet": "packet",
+    "db-kill": "kill", "db-pause": "pause",
+    "clock-bump": "clock", "clock-strobe": "clock",
+    "clock-reset": "clock", "file-bitflip": "file-corruption",
+    "file-truncate": "file-corruption",
+    "file-lost-writes": "file-corruption",
+    "membership": "membership",
+}
+
+
+def suggest(cells: dict[tuple, dict],
+            all_workloads: Iterable[str] | None = None,
+            limit: int = 8) -> list[dict]:
+    """Ranked gap-filling configs — the campaign runner's input hook.
+    Greedy diversified ranking: each pick prefers the least-exercised
+    fault kind and workload, then penalizes both so consecutive
+    suggestions spread across the matrix instead of marching down one
+    dark column; ties break on names, so the ranking is deterministic
+    for a given atlas. Each suggestion names a runnable config: the
+    bundled CLI line when the fault has a clusterless package, a
+    nemesis_package faults hint otherwise."""
+    fault_runs: dict[str, int] = {}
+    wl_runs: dict[str, int] = {}
+    for (k, w, _a), c in cells.items():
+        fault_runs[k] = fault_runs.get(k, 0) + c["runs"]
+        wl_runs[w] = wl_runs.get(w, 0) + c["runs"]
+    remaining = gaps(cells, all_workloads)
+    picked_f: dict[str, int] = {}
+    picked_w: dict[str, int] = {}
+    out = []
+    while remaining and len(out) < limit:
+        kind, wl = min(remaining, key=lambda kw: (
+            picked_f.get(kw[0], 0), fault_runs.get(kw[0], 0),
+            picked_w.get(kw[1], 0), wl_runs.get(kw[1], 0),
+            kw[0], kw[1]))
+        remaining.remove((kind, wl))
+        picked_f[kind] = picked_f.get(kind, 0) + 1
+        picked_w[wl] = picked_w.get(wl, 0) + 1
+        pkg = SUGGEST_PACKAGES.get(kind)
+        if pkg is not None:
+            config = (f"python -m jepsen_tpu_torch test --no-ssh "
+                      f"--workload {wl} {pkg}").strip()
+        else:
+            hint = PACKAGE_FAULTS.get(kind, kind)
+            config = (f"suite run: workload={wl} "
+                      f"nemesis_package(faults=['{hint}'])")
+        out.append({"fault": kind, "workload": wl, "config": config,
+                    "fault-runs": fault_runs.get(kind, 0),
+                    "workload-runs": wl_runs.get(wl, 0)})
+    return out
+
+
+def coverage_text(cells: dict[tuple, dict],
+                  all_workloads: Iterable[str] | None = None,
+                  n_suggest: int = 0) -> str:
+    """The `coverage` CLI body: matrix + per-cell detail for witnessed
+    cells + gap summary (+ suggestions when asked)."""
+    lines = [matrix_text(cells, all_workloads), ""]
+    witnessed = [(key, c) for key, c in sorted(cells.items())
+                 if c["witnessed"]]
+    if witnessed:
+        lines.append("# Witnessed anomalies")
+        for (k, w, a), c in witnessed:
+            runs = ", ".join(c["witnesses"][:3])
+            more = (f" (+{len(c['witnesses']) - 3} more)"
+                    if len(c["witnesses"]) > 3 else "")
+            frac = c.get("earliest-witness-frac")
+            at = (f" (earliest witness at {frac * 100:.0f}% of the "
+                  "history)" if isinstance(frac, (int, float))
+                  else "")
+            lines.append(f"  {k} × {w} × {a}: {c['witnessed']}/"
+                         f"{c['runs']} runs — {runs}{more}{at}")
+        lines.append("")
+    gs = gaps(cells, all_workloads)
+    lines.append(f"# Gaps: {len(gs)} fault × workload cells never "
+                 "exercised")
+    if n_suggest:
+        lines.append("")
+        lines.append("# Suggested configs (largest gaps first)")
+        for s in suggest(cells, all_workloads, limit=n_suggest):
+            lines.append(f"  {s['fault']} × {s['workload']}: "
+                         f"{s['config']}")
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Prometheus exposition (web.py /metrics)
+# ---------------------------------------------------------------------------
+
+def _prom_label(v) -> str:
+    """Label-value sanitization (the reports/profile.py span-label
+    rule): workload names come from arbitrary test names, and one
+    stray quote must not invalidate the whole /metrics scrape."""
+    return str(v).replace("\\", "_").replace('"', "_")
+
+
+def prometheus_lines(cells: dict[tuple, dict]) -> list[str]:
+    """Atlas-level Prometheus samples for the existing /metrics
+    endpoint: per-cell run counters plus the cell-status summary the
+    fleet dashboards alert on."""
+    lines = ["# TYPE jepsen_tpu_coverage_runs counter"]
+    for (k, w, a), c in sorted(cells.items()):
+        k, w, a = _prom_label(k), _prom_label(w), _prom_label(a)
+        lines.append(
+            f'jepsen_tpu_coverage_runs{{fault="{k}",workload="{w}",'
+            f'anomaly="{a}"}} {c["runs"]}')
+        if c["witnessed"]:
+            lines.append(
+                f'jepsen_tpu_coverage_witnessed{{fault="{k}",'
+                f'workload="{w}",anomaly="{a}"}} {c["witnessed"]}')
+    counts = {"witnessed": 0, "clean": 0, "unknown": 0}
+    pairs = {}
+    for (k, w, _a) in cells:
+        pairs[(k, w)] = cell_status(cells, k, w)
+    for st in pairs.values():
+        if st in counts:
+            counts[st] += 1
+    lines.append("# TYPE jepsen_tpu_coverage_cells gauge")
+    for st, n in sorted(counts.items()):
+        lines.append(f'jepsen_tpu_coverage_cells{{status="{st}"}} {n}')
+    return lines

@@ -13,7 +13,8 @@ width): the kernel reads such rows' odd elements alone.
 
 bank_reduce() launches the kernel for CUDA tensors and runs
 bank_reduce_reference() for CPU tensors; it never runs the plain version
-on the card. `launches` counts kernel launches.
+on the card. `launches` counts kernel launches, and so does the
+telemetry counter `bank.kernel.launches` (a stored run's metrics.json).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import threading
 
 import torch
 
+from ... import telemetry
 from . import build
 
 launches = 0
@@ -84,6 +86,7 @@ def bank_reduce(mat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         # the checkers of a composed check launch from worker threads
         with _lib_lock:
             launches += 1
+        telemetry.count("bank.kernel.launches")
     return sums, negs
 
 

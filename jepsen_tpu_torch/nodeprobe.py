@@ -33,7 +33,8 @@ With the quarantine breakers on (test["health"], control/health.py),
 a quarantined node gets `gap` records without any transport traffic,
 breaker transitions are recorded as `breaker` records, and memory or
 CPU pressure goes to the registry as an advisory, never a breaker
-verdict. The Prometheus exposition (prometheus_lines) is ROADMAP A9.
+verdict. prometheus_lines renders the latest samples for the web UI's
+/metrics scrape (web.py).
 """
 
 from __future__ import annotations
@@ -839,6 +840,65 @@ def stamp_results(results, bound: float, depth: int = 0) -> int:
                 if isinstance(item, dict):
                     n += stamp_results(item, bound, depth + 1)
     return n
+
+
+# ---------------------------------------------------------------------------
+# Prometheus exposition (web.py /metrics?run=)
+# ---------------------------------------------------------------------------
+
+def _prom_label(v) -> str:
+    return str(v).replace("\\", "_").replace('"', "_")
+
+
+def prometheus_lines(records) -> list[str]:
+    """Node-plane samples for the run's /metrics scrape: the latest
+    resource gauges per node, plus log-event / gap counters."""
+    latest: dict[str, dict] = {}
+    logs: dict[tuple, int] = {}
+    gaps: dict[tuple, int] = {}
+    for rec in records or []:
+        node = _prom_label(rec.get("node"))
+        if rec.get("kind") == "sample":
+            latest[node] = rec
+        elif rec.get("kind") == "log":
+            key = (node, _prom_label(rec.get("class")))
+            logs[key] = logs.get(key, 0) + 1
+        elif rec.get("kind") == "gap":
+            key = (node, _prom_label(rec.get("reason")))
+            gaps[key] = gaps.get(key, 0) + 1
+    lines: list[str] = []
+    gauges = (
+        ("jepsen_tpu_node_cpu_busy", lambda r: (r.get("cpu") or {})
+         .get("busy")),
+        ("jepsen_tpu_node_mem_used_fraction",
+         lambda r: (r.get("mem") or {}).get("used_frac")),
+        ("jepsen_tpu_node_clock_offset_seconds",
+         lambda r: r.get("clock_offset_s")),
+        ("jepsen_tpu_node_net_rx_bytes_per_second",
+         lambda r: (r.get("net") or {}).get("rx_bytes_s")),
+        ("jepsen_tpu_node_net_tx_bytes_per_second",
+         lambda r: (r.get("net") or {}).get("tx_bytes_s")),
+    )
+    for name, getter in gauges:
+        rows = [(node, getter(rec)) for node, rec in sorted(
+            latest.items())]
+        rows = [(node, v) for node, v in rows if v is not None]
+        if not rows:
+            continue
+        lines.append(f"# TYPE {name} gauge")
+        lines.extend(f'{name}{{node="{node}"}} {v}'
+                     for node, v in rows)
+    if logs:
+        lines.append("# TYPE jepsen_tpu_node_log_events counter")
+        lines.extend(
+            f'jepsen_tpu_node_log_events{{node="{n}",class="{c}"}} {v}'
+            for (n, c), v in sorted(logs.items()))
+    if gaps:
+        lines.append("# TYPE jepsen_tpu_node_probe_gaps counter")
+        lines.extend(
+            f'jepsen_tpu_node_probe_gaps{{node="{n}",reason="{r}"}} {v}'
+            for (n, r), v in sorted(gaps.items()))
+    return lines
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,8 @@ Consumes the `profiler.<kernel>.*` counters/gauges the device profiler
 per-launch `kernel:<name>` spans in telemetry.jsonl, and renders the
 per-kernel cost/occupancy table (profile_text, profile_html) and the
 Prometheus text exposition of a metrics.json. Pure functions over
-loaded artifacts — no recorder access. The `profile` CLI and the web
-page that call them are ROADMAP A9."""
+loaded artifacts — no recorder access. The CLI's `profile` subcommand
+and the web UI's run page and `/metrics` route call them."""
 
 from __future__ import annotations
 

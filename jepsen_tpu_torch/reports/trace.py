@@ -38,7 +38,8 @@ events, per the trace-event spec):
 fleet_chrome_trace renders the fleet flight recorder's records
 (fleet/flightrec.py) as a session view. write_trace writes a stored
 run's `trace.json`; `ops` pre-filters the export to the ops of an
-anomaly. The CLI that calls it is ROADMAP A9. The device timeline of
+anomaly; the CLI's `trace` subcommand and the web UI's `/trace/` route
+call them. The device timeline of
 the card itself, kernel by kernel, is the torch.profiler trace of a
 profiled analysis (util.profile_trace).
 """

@@ -102,7 +102,7 @@ def save_test_map(test: dict) -> None:
 def save_spec(test: dict) -> None:
     """Writes the reconstructible test spec (test["spec"]) as
     spec.json, so a crashed run's analysis can rebuild its checker
-    stack without the original process (the CLI's `analyze`, ROADMAP A9)."""
+    stack without the original process (the CLI's `analyze`, resume.py)."""
     spec = test.get("spec")
     if not spec:
         return

@@ -6,10 +6,11 @@ Mirrors the roles of jepsen/src/jepsen/util.clj (relative-time-nanos
 util.clj:388-407, real-pmap util.clj:71-83, timeout util.clj:430,
 await-fn util.clj:443-486, with-retry util.clj:487-529, named-locks
 util.clj:855-943, rand-distribution util.clj:140-184, nemesis-intervals
-util.clj:780), and the kernel-level profiling hook (profile_trace, on
-torch.profiler where the JAX package takes jax.profiler). The
-relative-time origin is this module's own state: ops, telemetry spans
-and trace records of the port are stamped on it.
+util.clj:780, the CLI's concurrency syntax cli.clj:64-206), and the
+kernel-level profiling hook (profile_trace, on torch.profiler where
+the JAX package takes jax.profiler). The relative-time origin is this
+module's own state: ops, telemetry spans and trace records of the port
+are stamped on it.
 """
 
 from __future__ import annotations
@@ -347,6 +348,22 @@ def nemesis_intervals(history, specs=None) -> list:
         if open_start is not None:
             intervals.append([open_start, None])
     return intervals
+
+
+def coll_scaled(n_str: str, n_nodes: int) -> int:
+    """Parses a concurrency spec like '10' or '3n' (n = node count).
+
+    Mirrors the CLI's '2n' concurrency syntax (cli.clj:64-206)."""
+    s = str(n_str)
+    if s.endswith("n"):
+        return int(float(s[:-1] or 1) * n_nodes)
+    return int(s)
+
+
+def fraction_of(frac: float | str, n: int) -> int:
+    if isinstance(frac, str) and frac.endswith("%"):
+        return max(1, math.floor(n * float(frac[:-1]) / 100))
+    return int(frac)
 
 
 # The Chrome-trace JSON profile_trace exports into its directory.

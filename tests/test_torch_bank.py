@@ -18,6 +18,7 @@ import torch
 from jepsen_tpu.history import History as JHistory, op as jop
 from jepsen_tpu.tpu import synth as jsynth
 from jepsen_tpu.workloads import bank as jbank
+from jepsen_tpu_torch import telemetry
 from jepsen_tpu_torch.gpu import synth as psynth
 from jepsen_tpu_torch.gpu.kernels import bank_reduce as kbank
 from jepsen_tpu_torch.history import History as PHistory, op as pop
@@ -153,6 +154,17 @@ def test_wrapper_rejects_bad_inputs_and_counts_no_plain_launch():
     with pytest.raises(ValueError):
         kbank.bank_reduce(torch.zeros((4, 3), dtype=torch.int64,
                                       device="meta"))
+
+
+def test_device_branch_on_cpu_counts_no_kernel_launch():
+    """`bank.kernel.launches` (a stored run's metrics.json) counts the
+    wrapper's launches on the card alone: the wide branch on the CPU
+    runs the plain version and counts nothing."""
+    ph = psynth.bank_history(24_000, n_accounts=32, seed=11)
+    telemetry.reset()
+    got = pbank.check_fast(ph, 320, device="cpu")
+    assert got["read-count"] >= pbank.DEVICE_MIN_READS
+    assert "bank.kernel.launches" not in telemetry.get().counters()
 
 
 def test_synth_bank_history_matches_jax():
