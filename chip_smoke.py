@@ -328,9 +328,32 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      (200 each, /lint 501 naming ROADMAP A7, /fleet with the tenant);
      `fleet trace`, and the server stopped by SIGINT with exit 0.
      Prints each step's seconds against the phase's 45 s budget;
+27. the database suites (jepsen_tpu_torch/suites/, ROADMAP A10a): each
+     of the 13 ported suites built by its own `<name>_test(opts)` (its
+     DB, client, nemesis and checker stack) at its default workload
+     (etcd's register and append), key count and ops, in this process,
+     through core.run over the dummy remote with its client's transport
+     on an in-memory database defined here (SUITE_SIZES: 3 nodes, 6
+     threads, 5,000 ops/s within 1 s, the append runs 20,000 txns/s
+     within 3 s); etcd's runs on the suite's own generator, the others
+     on their workload's client ops (client_generator); postgres'
+     append at 10,000 txns, past scc's dispatch; the twin of consul's
+     run (key 1 answers a value nobody wrote from its 12th read on) and
+     of the postgres append (every second read of a list reversed).
+     Every run is stored; the wrapper calls must equal the launch
+     counters and the stored metrics.json and telemetry.jsonl launches;
+     every linearizable run launches wgl_search, each SCC solve of at
+     least DEVICE_MIN_EDGES live edges launches scc once and no other
+     does, and some run launches it; each append run invokes all its
+     txns; the results equal, untimed, resume.analyze_run of the stored
+     run on the CPU with the suite's builder; every certificate
+     validates; healthy runs are valid by their workload checker, twins
+     invalid with the same failing keys or anomalies on the card and
+     the CPU (consul's [1]). Prints each run's seconds against the
+     phase's 60 s budget;
      then prints one `{"kernels": [...]}` line, whose wgl_search launches
-     include those of phases 16-26, and whose scc and bank_reduce
-     launches include those of phases 19-26.
+     include those of phases 16-27, and whose scc and bank_reduce
+     launches include those of phases 19-27.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -366,6 +389,7 @@ from jepsen_tpu_torch import generator as gen
 from jepsen_tpu_torch import independent, interpreter, nodeprobe, store
 from jepsen_tpu_torch import ledger, telemetry, testing, tracing, util
 from jepsen_tpu_torch import faketime, fs_cache, lazyfs, workloads
+from jepsen_tpu_torch import resume, suites
 from jepsen_tpu_torch.control import core as ccore
 from jepsen_tpu_torch.control import scp
 from jepsen_tpu_torch.control import util as cu
@@ -5398,19 +5422,10 @@ class _CliPhase:
         wl = _workload_verdict(res)
         perf = res["perf"]
         pngs = sorted(p.name for p in d.glob("*.png"))
-        if self.has_mpl:
-            want_code = 0
-            ok = perf["valid?"] is True and {
-                "latency-raw.png", "latency-quantiles.png", "rate.png",
-                "monitor.png"} <= set(pngs)
-        else:
-            want_code = 2
-            errs = [perf[k].get("error", "").strip().splitlines()[-1:]
-                    for k in ("latency-graph", "rate-graph")]
-            ok = (perf["valid?"] == "unknown" and not pngs
-                  and all(e and "matplotlib" in e[0] and (
-                      "ImportError" in e[0]
-                      or "ModuleNotFoundError" in e[0]) for e in errs))
+        want_code = 0 if self.has_mpl else 2
+        ok = _perf_as_expected(perf, self.has_mpl) and (
+            {"latency-raw.png", "latency-quantiles.png", "rate.png",
+             "monitor.png"} <= set(pngs) if self.has_mpl else not pngs)
         if proc.returncode != want_code or wl is not True or not ok or \
                 res["valid?"] is False:
             raise AssertionError(
@@ -5740,11 +5755,7 @@ class _CliPhase:
 
 def _cli_path(dev, on_card: bool, sizes: dict | None) -> dict:
     sizes = dict(CLI_SIZES, **(sizes or {}))
-    try:
-        import matplotlib  # noqa: F401
-        has_mpl = True
-    except ImportError:
-        has_mpl = False
+    has_mpl = _has_matplotlib()
     emit({"phase": "cli-matplotlib", "imports": has_mpl})
     threads0 = set(threading.enumerate())
     handlers0 = list(logging.getLogger().handlers)
@@ -5814,6 +5825,895 @@ def _cli_path(dev, on_card: bool, sizes: dict | None) -> dict:
     return ph.per_kernel
 
 
+# ---------------------------------------------------------------------------
+# 27. the database suites (A10a) against in-memory databases
+# ---------------------------------------------------------------------------
+
+# Phase 27 runs each of the 13 ported suites once through its own test
+# builder (`<name>_test(opts)`: its DB, client, nemesis and checker
+# stack) and the port's core.run over the dummy remote, at the suites'
+# default workload, key count and ops; only the rate is raised and the
+# time limit cut. Each client's transport (redis-cli, aql, _sql over
+# curl, ReQL, psql, mysql, sqlcmd, mongosh, the HTTP APIs; zkCli through
+# the dummy remote's responder) is replaced by one of the in-memory
+# databases below; the DB's setup and teardown commands go to the dummy
+# remote. etcd's runs keep the suite's own generator: its nemesis cycle
+# sleeps 5 s before its first fault, so none fires and each run lasts
+# 5 s. The other suites' cycles sleep 10 s, which the interpreter waits
+# out past any time limit, so their runs take client_generator's
+# instead (zookeeper's own staggers its ops 1 s apart, with no rate
+# option). The postgres append run is the one Elle run past scc's
+# dispatch (big_txns txns).
+SUITE_SIZES = {"time_limit": 1, "rate": 5000, "concurrency": 6,
+               "append_time_limit": 3, "append_rate": 20_000,
+               "big_txns": 10_000, "big_time_limit": 8}
+# the run opts the tests cut (phase 27 leaves each to its suite)
+SUITE_CUTS = ("ops", "keys", "ops_per_key")
+# each suite's append_workload default txns
+APPEND_TXNS = {"postgres": 2000, "stolon": 2000, "etcd": 1000}
+# the runs on their suite's own generator
+OWN_GENERATOR = ("etcd",)
+ZK_OPS = 500
+SUITES_BUDGET_S = 60.0
+SUITE_NODES = ["n1", "n2", "n3"]
+SUITE_SEED = 27
+# the seeded twin of a wgl_search suite: reads of this key answer a value
+# nobody wrote from the PHANTOM_FROM-th read of it on
+PHANTOM_KEY = 1
+PHANTOM_FROM = 12
+
+
+class _Locked:
+    def __init__(self):
+        self.lock = threading.Lock()
+
+
+class ZkFake(_Locked):
+    """One znode with a dataVersion, answering zkCli.sh (the 3.4 dialect)
+    through the dummy remote's responder."""
+
+    def __init__(self):
+        super().__init__()
+        self.value = None
+        self.version = -1
+
+    def respond(self, node, action):
+        cmd = action.cmd
+        if "zkCli.sh" not in cmd:
+            return None
+        args = shlex.split(cmd.split("zkCli.sh", 1)[1])[2:]
+        if len(args) == 1:
+            args = args[0].split()
+
+        def res(exit_, out="", err=""):
+            return ccore.Result(exit=exit_, out=out, err=err, cmd=cmd)
+
+        with self.lock:
+            if args[0] == "get":
+                if self.value is None:
+                    return res(1, err="NoNode for /jepsen")
+                return res(0, f"{self.value}\ndataVersion = "
+                              f"{self.version}\n")
+            if args[0] == "create":
+                if self.value is not None:
+                    return res(1, err="NodeExists")
+                self.value, self.version = int(args[2]), 0
+                return res(0, "Created")
+            if args[0] == "set":
+                if self.value is None:
+                    return res(1, err="NoNode")
+                if len(args) >= 4 and int(args[3]) != self.version:
+                    return res(1, err="KeeperErrorCode = BadVersion")
+                self.value = int(args[2])
+                self.version += 1
+                return res(0)
+        return res(1, err=f"unknown zkCli command {args}")
+
+
+class RedisFake(_Locked):
+    """Redis keys behind redis-cli replies (raftis' register and counter,
+    the sentinel's master address and its EVAL cas)."""
+
+    def __init__(self):
+        super().__init__()
+        self.kv: dict = {}
+
+    def cli(self, *args) -> str:
+        cmd = args[0].upper()
+        with self.lock:
+            if cmd == "SENTINEL":
+                return "n1\n6379"
+            if cmd == "GET":
+                v = self.kv.get(args[1])
+                return "" if v is None else str(v)
+            if cmd == "SET":
+                self.kv[args[1]] = int(args[2])
+                return "OK"
+            if cmd in ("INCRBY", "DECRBY"):
+                d = int(args[2]) * (1 if cmd == "INCRBY" else -1)
+                self.kv[args[1]] = self.kv.get(args[1], 0) + d
+                return str(self.kv[args[1]])
+            if cmd == "EVAL":
+                frm, to = int(args[-2]), int(args[-1])
+                if self.kv.get(args[3]) == frm:
+                    self.kv[args[3]] = to
+                    return "1"
+                return "0"
+        raise ValueError(f"unexpected redis command {args}")
+
+
+class _Cli:
+    """A transport object over a fake: run(*args) -> reply text."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.master = None
+
+    def run(self, *args):
+        return self.fn(*args)
+
+    def stmt(self, sql, args=None):
+        return self.fn(sql, args)
+
+    def run_command(self, command, admin=False):
+        return self.fn(command)
+
+    def resolve_master(self):
+        self.master = ("n1", 6379)
+        return self.master
+
+    def forget_master(self):
+        self.master = None
+
+    def close(self):
+        pass
+
+
+def _factory(fn):
+    """A client's transport factory: every node's transport is the same
+    in-memory database."""
+    return lambda *_a, **_kw: _Cli(fn)
+
+
+class AqlFake(_Locked):
+    """One aerospike record, answering aql's table output; the jepsen.lua
+    UDF's cas runs under the lock as it runs server-side."""
+
+    def __init__(self):
+        super().__init__()
+        self.value = None
+
+    @staticmethod
+    def _table(v) -> str:
+        return f"+---+\n| v |\n+---+\n| {v} |\n+---+\n1 row in set\n"
+
+    def run(self, statement: str) -> str:
+        import re
+
+        with self.lock:
+            if statement.startswith("SELECT"):
+                return ("0 rows in set (0.000 secs)\n"
+                        if self.value is None else self._table(self.value))
+            m = re.match(r"EXECUTE jepsen\.put\((-?\d+)\)", statement)
+            if m:
+                self.value = int(m.group(1))
+                return self._table(1)
+            m = re.match(r"EXECUTE jepsen\.cas\((-?\d+), (-?\d+)\)",
+                         statement)
+            if m:
+                if self.value != int(m.group(1)):
+                    return self._table(0)
+                self.value = int(m.group(2))
+                return self._table(1)
+        raise ValueError(f"unexpected aql {statement!r}")
+
+
+class CrateFake(_Locked):
+    """One crate row behind _sql's JSON replies (rowcount proves a
+    conditional UPDATE)."""
+
+    def __init__(self):
+        super().__init__()
+        self.value = None
+
+    def stmt(self, sql, args=None):
+        s = sql.strip().upper()
+        args = args or []
+        with self.lock:
+            if s.startswith(("REFRESH", "CREATE")):
+                return {"rows": [], "rowcount": 0}
+            if s.startswith("SELECT"):
+                rows = [] if self.value is None else [[self.value]]
+                return {"rows": rows, "rowcount": len(rows)}
+            if s.startswith("INSERT"):
+                self.value = int(args[0])
+                return {"rows": [], "rowcount": 1}
+            if s.startswith("UPDATE"):
+                if self.value is None or self.value != int(args[1]):
+                    return {"rows": [], "rowcount": 0}
+                self.value = int(args[0])
+                return {"rows": [], "rowcount": 1}
+        raise ValueError(f"unexpected crate sql {sql!r}")
+
+
+class RethinkFake(_Locked):
+    """The one rethinkdb document, answering the node-side query helper's
+    reply lines."""
+
+    def __init__(self):
+        super().__init__()
+        self.val = None
+
+    def run(self, *args) -> str:
+        with self.lock:
+            if args[0] == "read":
+                return "NONE" if self.val is None else f"VAL {self.val}"
+            if args[0] == "write":
+                self.val = int(args[3])
+                return "OK"
+            if args[0] == "cas":
+                if self.val != int(args[3]):
+                    return "CAS 0"
+                self.val = int(args[4])
+                return "CAS 1"
+            if args[0] == "setup":
+                return "OK"
+        raise ValueError(f"unexpected helper call {args}")
+
+
+class ConsulFake(_Locked):
+    """consul's KV HTTP API with a ModifyIndex per key and ?cas=
+    semantics. phantom_key: from the PHANTOM_FROM-th GET of that key on,
+    it answers 99, a value no client writes (the twin)."""
+
+    def __init__(self, nodes=SUITE_NODES, phantom_key=None):
+        super().__init__()
+        self.kv: dict = {}
+        self.index = 0
+        self.nodes = list(nodes)
+        self.phantom = (None if phantom_key is None
+                        else f"/v1/kv/register/{phantom_key}")
+        self.phantom_reads = 0
+
+    def request(self, method, path, params=None, body=None):
+        import base64
+
+        with self.lock:
+            if path == "/v1/catalog/nodes":
+                return 200, json.dumps([{"Node": n} for n in self.nodes])
+            key = path[len("/v1/kv/"):]
+            if method == "GET":
+                if path == self.phantom:
+                    self.phantom_reads += 1
+                    if self.phantom_reads >= PHANTOM_FROM:
+                        return 200, json.dumps([{
+                            "Key": key, "ModifyIndex": 1,
+                            "Value": base64.b64encode(b"99").decode()}])
+                if key not in self.kv:
+                    return 404, ""
+                value, idx = self.kv[key]
+                return 200, json.dumps([{
+                    "Key": key, "ModifyIndex": idx,
+                    "Value": base64.b64encode(value.encode()).decode()}])
+            if method == "PUT":
+                if "cas" in (params or {}) and int(params["cas"]) != \
+                        self.kv.get(key, (None, 0))[1]:
+                    return 200, "false"
+                self.index += 1
+                self.kv[key] = (body, self.index)
+                return 200, "true"
+        raise ValueError(f"unexpected consul request {method} {path}")
+
+    def factory(self, mod):
+        def make(node, consistency=None, timeout=5.0):
+            http = mod.ConsulHttp(node, consistency=consistency,
+                                  timeout=timeout)
+            http.request = self.request
+            return http
+
+        return make
+
+
+class MongoFake(_Locked):
+    """A mongo collection of register documents behind runCommand: find,
+    upsert and the value-guarded update, plus the replica set's initiate
+    and hello on the primary."""
+
+    def __init__(self):
+        super().__init__()
+        self.docs: dict = {}
+
+    def run_command(self, command):
+        with self.lock:
+            if "replSetInitiate" in command:
+                return {"ok": 1}
+            if "hello" in command:
+                return {"ok": 1, "isWritablePrimary": True}
+            if "find" in command:
+                k = command["filter"]["_id"]
+                batch = ([{"_id": k, "value": self.docs[k]}]
+                         if k in self.docs else [])
+                return {"ok": 1, "cursor": {"firstBatch": batch}}
+            if "update" in command:
+                u = command["updates"][0]
+                q, upd = u["q"], u["u"]
+                if "value" in q:
+                    if self.docs.get(q["_id"], object()) != q["value"]:
+                        return {"ok": 1, "n": 0, "nModified": 0}
+                    self.docs[q["_id"]] = upd["$set"]["value"]
+                    return {"ok": 1, "n": 1, "nModified": 1}
+                self.docs[q["_id"]] = upd["value"]
+                return {"ok": 1, "n": 1, "nModified": 1}
+        raise ValueError(f"unexpected mongo command {command}")
+
+
+class VoltFake(_Locked):
+    """voltdb's registers table behind sqlcmd's output: the guarded
+    UPDATE answers its modified-tuple count."""
+
+    def __init__(self):
+        super().__init__()
+        self.registers: dict = {}
+
+    def run(self, sql: str) -> str:
+        import re
+
+        out = []
+        with self.lock:
+            for s in filter(None, (x.strip() for x in sql.split(";"))):
+                m = re.match(r"SELECT 'v=' \|\| CAST\(value AS VARCHAR\) "
+                             r"FROM registers WHERE id = (\d+)", s)
+                if m:
+                    v = self.registers.get(int(m.group(1)))
+                    if v is not None:
+                        out.append(f"v={v}")
+                    continue
+                m = re.match(r"UPSERT INTO registers \(id, value\) "
+                             r"VALUES \((\d+), (-?\d+)\)", s)
+                if m:
+                    self.registers[int(m.group(1))] = int(m.group(2))
+                    out.append("1")
+                    continue
+                m = re.match(r"UPDATE registers SET value = (-?\d+) "
+                             r"WHERE id = (\d+) AND value = (-?\d+)", s)
+                if m:
+                    new, k, old = map(int, m.groups())
+                    ok = self.registers.get(k) == old
+                    if ok:
+                        self.registers[k] = new
+                    out.append("1" if ok else "0")
+                    continue
+                raise ValueError(f"unexpected voltdb sql {s!r}")
+        return "\n".join(out)
+
+
+class MysqlFake(_Locked):
+    """galera's accounts table behind mysql's batch output: a transfer
+    applies whole or not at all."""
+
+    def __init__(self, accounts=8, balance=10):
+        super().__init__()
+        self.accounts = {i: balance for i in range(accounts)}
+
+    def run(self, sql: str) -> str:
+        import re
+
+        with self.lock:
+            if "CONCAT('b='" in sql:
+                return "b=" + ",".join(
+                    f"{i}:{b}" for i, b in sorted(self.accounts.items()))
+            if "START TRANSACTION" in sql:
+                a, f = map(int, re.search(
+                    r"balance - (\d+) WHERE id = (\d+)", sql).groups())
+                t = int(re.search(r"balance \+ \d+ WHERE id = (\d+)",
+                                  sql).group(1))
+                if self.accounts[f] < a:
+                    return "applied=0"
+                self.accounts[f] -= a
+                self.accounts[t] += a
+                return "applied=1"
+        raise ValueError(f"unexpected mysql batch {sql!r}")
+
+
+class PgFake(_Locked):
+    """postgres' txn tables behind psql's unaligned output: one psql -c
+    batch executes whole under the lock (serializable). reverse_every:
+    the twin; every reverse_every-th read of a list of two or more
+    elements answers it reversed."""
+
+    def __init__(self, tables=8, reverse_every=0):
+        super().__init__()
+        import re
+
+        self.tables = {f"txn{i}": {} for i in range(tables)}
+        self.reverse_every = reverse_every
+        self.reads = 0
+        self.read_re = re.compile(
+            r"SELECT 'm(\d+)=' \|\| COALESCE\(\(SELECT val FROM (txn\d+) "
+            r"WHERE id = (\d+)\), '~'\)")
+        self.append_re = re.compile(
+            r"INSERT INTO (txn\d+) AS t \(id, val\) VALUES \((\d+), "
+            r"'(\d+)'\) ON CONFLICT")
+
+    def run(self, sql: str) -> str:
+        out = []
+        with self.lock:
+            for s in filter(None, (x.strip() for x in sql.split(";"))):
+                m = self.read_re.search(s)
+                if m:
+                    val = self.tables[m.group(2)].get(int(m.group(3)))
+                    if val is not None and "," in val and \
+                            self.reverse_every:
+                        self.reads += 1
+                        if self.reads % self.reverse_every == 0:
+                            val = ",".join(reversed(val.split(",")))
+                    out.append(f"m{m.group(1)}=" + ("~" if val is None
+                                                    else val))
+                    continue
+                m = self.append_re.search(s)
+                if m:
+                    t, k, v = m.group(1), int(m.group(2)), m.group(3)
+                    cur = self.tables[t].get(k)
+                    self.tables[t][k] = v if cur is None else f"{cur},{v}"
+                    continue
+                if s.startswith(("BEGIN", "COMMIT")):
+                    continue
+                raise ValueError(f"unexpected psql statement {s!r}")
+        return "\n".join(out) + ("\n" if out else "")
+
+
+class EtcdFake(_Locked):
+    """etcd v3's KV through the suite's gateway calls, with a mod
+    revision per key so guarded txns behave as etcd's."""
+
+    def __init__(self):
+        super().__init__()
+        self.kv: dict = {}
+        self.rev: dict = {}
+        self.next_rev = 0
+
+    def _write(self, key, value):
+        self.next_rev += 1
+        self.kv[key] = value
+        self.rev[key] = self.next_rev
+
+    def factory(self, _node):
+        return self
+
+    def get(self, key):
+        with self.lock:
+            if key not in self.kv:
+                return None, None
+            return self.kv[key], self.rev[key]
+
+    def put(self, key, value):
+        with self.lock:
+            self._write(key, value)
+
+    def cas(self, key, old, new):
+        with self.lock:
+            if self.kv.get(key) != old:
+                return False
+            self._write(key, new)
+            return True
+
+    def cas_create(self, key, new):
+        with self.lock:
+            if key in self.kv:
+                return False
+            self._write(key, new)
+            return True
+
+    def txn_rw(self, guards, puts):
+        with self.lock:
+            if any((self.rev.get(k) or 0) != (rev or 0)
+                   for k, rev in guards):
+                return False
+            for k, v in puts:
+                self._write(k, v)
+            return True
+
+
+def suite_responder(zk: ZkFake | None = None):
+    """The dummy remote's answers to the DB commands: node addresses
+    (getent), the network device (ip link), install_archive's probes (nothing cached; the archive's
+    one top-level directory), postgres' hba_file, crate's schema curl,
+    and zkCli through the zookeeper fake."""
+
+    def respond(node, action):
+        cmd = action.cmd
+        if zk is not None:
+            r = zk.respond(node, action)
+            if r is not None:
+                return r
+        if cmd.startswith("getent ahostsv4"):
+            host = cmd.split()[-1]
+            digits = "".join(ch for ch in str(host) if ch.isdigit())
+            return f"10.0.0.{int(digits or 0) % 250 + 1}   STREAM {host}"
+        if cmd == "ip -o link show":
+            return ("1: lo: <LOOPBACK,UP> mtu 65536\n"
+                    "2: eth0: <BROADCAST,MULTICAST,UP> mtu 1500")
+        if cmd.startswith("stat "):
+            return ccore.Result(exit=1, out="", err="no such file",
+                                cmd=cmd)
+        if cmd.startswith("dirname "):
+            return cmd.split()[-1].rsplit("/", 1)[0]
+        if cmd.startswith("ls -A"):
+            return "pkg"
+        if "SHOW hba_file" in cmd:
+            return "/etc/postgresql/15/main/pg_hba.conf"
+        if cmd.startswith("curl"):
+            return '{"rows": [], "rowcount": 1}'
+        return None
+
+    return respond
+
+
+def rig_suite(test: dict, spec: dict) -> object:
+    """Puts a suite's test on the dummy remote and its client (and the
+    DB's own client, where setup talks to the database) on a fresh
+    in-memory database; returns the database."""
+    suite = spec["suite"]
+    zk = ZkFake() if suite == "zookeeper" else None
+    test["remote"] = DummyRemote(suite_responder(zk))
+    client, db = test["client"], test["db"]
+    if zk is not None:
+        return zk
+    if suite in ("raftis", "redis_sentinel"):
+        fake = RedisFake()
+        client.cli_factory = _factory(fake.cli)
+    elif suite == "aerospike":
+        fake = AqlFake()
+        client.cli_factory = _factory(fake.run)
+    elif suite == "crate":
+        fake = CrateFake()
+        client.sql_factory = _factory(fake.stmt)
+    elif suite == "rethinkdb":
+        fake = RethinkFake()
+        client.cli_factory = _factory(fake.run)
+    elif suite == "consul":
+        fake = ConsulFake(phantom_key=spec.get("phantom_key"))
+        client.http_factory = db.http_factory = fake.factory(
+            suites.load("consul"))
+    elif suite == "mongodb":
+        fake = MongoFake()
+        client.shell_factory = db.shell_factory = _factory(
+            fake.run_command)
+    elif suite == "voltdb":
+        fake = VoltFake()
+        client.sql_factory = _factory(fake.run)
+    elif suite == "galera":
+        fake = MysqlFake()
+        client.mysql_factory = _factory(fake.run)
+    elif suite in ("postgres", "stolon"):
+        fake = PgFake(tables=suites.load("postgres").TABLE_COUNT,
+                      reverse_every=spec.get("reverse_every", 0))
+        client.psql_factory = _factory(fake.run)
+    elif suite == "etcd":
+        fake = EtcdFake()
+        client.http_factory = fake.factory
+    else:
+        raise ValueError(f"no in-memory database for {suite}")
+    return fake
+
+
+# suite -> (builder, default workload)
+SUITE_BUILDERS = {
+    "zookeeper": ("zk_test", None), "raftis": ("raftis_test", "register"),
+    "redis_sentinel": ("redis_sentinel_test", "register"),
+    "aerospike": ("aerospike_test", "register"),
+    "crate": ("crate_test", "register"),
+    "rethinkdb": ("rethinkdb_test", "register"),
+    "consul": ("consul_test", "register"),
+    "mongodb": ("mongodb_test", "cas"),
+    "voltdb": ("voltdb_test", "register"),
+    "galera": ("galera_test", "bank"),
+    "postgres": ("postgres_test", "append"),
+    "stolon": ("stolon_test", "append"),
+    "etcd": ("etcd_test", "register"),
+}
+# suite module -> registry name
+SUITE_KEYS = {m: m.replace("_", "-") for m in SUITE_BUILDERS}
+# the kernel each run's workload reaches: wgl_search for the
+# linearizable registers (zookeeper's checker is "linear", the others'
+# "workload"), scc for Elle's list-append past its dispatch
+LINEARIZABLE_SUITES = ("zookeeper", "raftis", "redis_sentinel",
+                       "aerospike", "crate", "rethinkdb", "consul",
+                       "mongodb", "voltdb", "etcd")
+
+
+def suite_runs(sizes: dict) -> list[dict]:
+    """Phase 27's runs: each suite at its default workload (etcd's
+    register and append), the twin of consul's (phantom reads of one key)
+    and postgres' append at big_txns txns with its twin (reversed list
+    reads). Each append spec carries the txns its run must invoke."""
+    base = {"nodes": SUITE_NODES, "concurrency": sizes["concurrency"],
+            "ssh": {"dummy": True}, "time_limit": sizes["time_limit"],
+            "rate": sizes["rate"], "seed": SUITE_SEED, "recovery_time": 0,
+            **{k: sizes[k] for k in SUITE_CUTS if k in sizes}}
+    appends = {"rate": sizes["append_rate"],
+               "time_limit": sizes["append_time_limit"]}
+    big = {"ops": sizes["big_txns"], "rate": sizes["append_rate"],
+           "time_limit": sizes["big_time_limit"]}
+    specs = []
+    for suite, (builder, wl) in SUITE_BUILDERS.items():
+        for w in (("register", "append") if suite == "etcd" else (wl,)):
+            opts = dict(base, workload=w)
+            if w == "append":
+                opts.update(big if suite == "postgres" else appends)
+            spec = {"name": f"{suite}-{w}" if w else suite,
+                    "suite": suite, "builder": builder, "workload": w,
+                    "twin": False, "opts": opts}
+            if w == "append":
+                spec["txns"] = opts.get("ops", APPEND_TXNS[suite])
+            specs.append(spec)
+    consul = next(s for s in specs if s["suite"] == "consul")
+    specs.append(dict(consul, name="consul-register-twin", twin=True,
+                      phantom_key=PHANTOM_KEY))
+    pg = next(s for s in specs if s["suite"] == "postgres")
+    specs.append(dict(pg, name="postgres-append-twin", twin=True,
+                      reverse_every=2))
+    return specs
+
+
+def suite_test(spec: dict, store_base, device=None) -> tuple[dict, object]:
+    """The named, stored test of one phase-27 run, built by the port
+    suite's own builder with opts["device"] = device, on its in-memory
+    database; returns (test, the database). Its spec.json carries the
+    opts, so resume.analyze_run rebuilds its checkers."""
+    mod = suites.load(SUITE_KEYS[spec["suite"]])
+    opts = dict(spec["opts"], device=device)
+    test = getattr(mod, spec["builder"])(dict(opts))
+    fake = rig_suite(test, spec)
+    if spec["suite"] not in OWN_GENERATOR:
+        test["generator"] = client_generator(mod, spec, opts)
+    test.update(store_base=str(store_base),
+                spec={"workload": spec["workload"], "opts": opts})
+    return test, fake
+
+
+def client_generator(mod, spec: dict, opts: dict):
+    """A phase-27 run's client ops without its suite's nemesis cycle: the
+    workload's generator (zookeeper's cas mix, ZK_OPS of it) staggered
+    at the run's rate within its time limit; cut to `ops` where opts
+    name them (galera's bank is bounded by time alone)."""
+    if spec["suite"] == "zookeeper":
+        rng = random.Random(opts["seed"])
+        ops = gen.limit(opts.get("ops", ZK_OPS),
+                        lambda: wl_register.cas_op_mix(rng))
+    else:
+        ops = mod.WORKLOADS[spec["workload"]](dict(opts))["generator"]
+        if "ops" in opts:
+            ops = gen.limit(opts["ops"], ops)
+    return gen.time_limit(opts["time_limit"], gen.clients(
+        gen.stagger(1.0 / opts["rate"], ops)))
+
+
+def suite_checker_key(spec: dict) -> str:
+    return "linear" if spec["suite"] == "zookeeper" else "workload"
+
+
+def suite_verdict(spec: dict, res: dict):
+    """The run's verdict as the suite decides it: its workload checker's
+    (the composed result is "unknown" where matplotlib is missing, from
+    the perf checker)."""
+    return res[suite_checker_key(spec)]["valid?"]
+
+
+def _failing_keys(res: dict, spec: dict):
+    """The keys of an independent checker's failures, or the anomaly
+    types of an Elle result."""
+    r = res[suite_checker_key(spec)]
+    if "failures" in r:
+        return sorted(r["failures"], key=str)
+    return sorted(r.get("anomaly-types", []))
+
+
+def _every_certificate(hist, res) -> int:
+    """certify.validate over every certificate in a result tree, each
+    against the whole history; returns how many."""
+    n = 0
+
+    def walk(x):
+        nonlocal n
+        if isinstance(x, dict):
+            if isinstance(x.get("certificate"), dict) and \
+                    "absent" not in x["certificate"]:
+                certify.validate(hist, x["certificate"])
+                n += 1
+            for v in x.values():
+                walk(v)
+
+    walk(res)
+    return n
+
+
+def _has_matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _perf_as_expected(perf: dict, has_mpl: bool) -> bool:
+    """The perf checker's result: valid with its plots drawn where
+    matplotlib imports, else "unknown" with each plot's error naming
+    matplotlib's import."""
+    if has_mpl:
+        return perf["valid?"] is True
+    errs = [perf[k].get("error", "").strip().splitlines()[-1:]
+            for k in ("latency-graph", "rate-graph")]
+    return perf["valid?"] == "unknown" and all(
+        e and "matplotlib" in e[0] and ("ImportError" in e[0]
+                                        or "ModuleNotFoundError" in e[0])
+        for e in errs)
+
+
+def _edges_recorded():
+    """Records the live edges of every SCC solve (Edges.scc), the count
+    scc's dispatch holds against DEVICE_MIN_EDGES; returns (the list,
+    restore)."""
+    live: list = []
+    original = scc_mod.Edges.scc
+
+    def recording(self, emask=None):
+        live.append(int(self._mask(emask).sum()))
+        return original(self, emask)
+
+    scc_mod.Edges.scc = recording
+
+    def restore():
+        scc_mod.Edges.scc = original
+
+    return live, restore
+
+
+def suites_path(dev, on_card: bool, sizes: dict | None = None) -> dict:
+    """Phase 27. Returns the launches per run, by kernel."""
+    gc.collect()
+    gc.freeze()
+    try:
+        return _suites_path(dev, on_card, sizes)
+    finally:
+        gc.unfreeze()
+
+
+def _suites_path(dev, on_card: bool, sizes: dict | None) -> dict:
+    sizes = dict(SUITE_SIZES, **(sizes or {}))
+    card_dev = None if on_card else dev.type
+    has_mpl = _has_matplotlib()
+    t_phase = time.perf_counter()
+    per_kernel: dict = {"wgl_search": {}, "scc": {}, "bank_reduce": {}}
+    steps = []
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-suites-"))
+    try:
+        for i, spec in enumerate(suite_runs(sizes)):
+            name = spec["name"]
+            t0 = time.perf_counter()
+            test, fake = suite_test(spec, work / f"{i:02d}",
+                                    device=card_dev)
+            mod = suites.load(SUITE_KEYS[spec["suite"]])
+            recorded, restore = _wrapped_kernels()
+            live_edges, restore_edges = _edges_recorded()
+            telemetry.reset()
+            try:
+                t1 = time.perf_counter()
+                out = core.run(test)
+            finally:
+                restore()
+                restore_edges()
+            run_s = time.perf_counter() - t1
+            calls = {k: len(v) for k, v in recorded.items()}
+            launches = _launch_counts()
+            res = out["results"]
+            d = store.path(out)
+            stored = _stored_launches(d)
+            hist = out["history"]
+            invokes = sum(1 for o in hist if o.type == "invoke"
+                          and o.process != "nemesis")
+            t2 = time.perf_counter()
+            again = resume.analyze_run(d, test_fn=getattr(
+                mod, spec["builder"]), device="cpu")["results"]
+            cpu_s = time.perf_counter() - t2
+            got, want = (_norm(_checked(res, CLI_MEASURED + ("watchdog",))),
+                         _norm(_checked(again, CLI_MEASURED
+                                        + ("watchdog",))))
+            if got != want:
+                diff = sorted(k for k in set(got) | set(want)
+                              if got.get(k) != want.get(k))
+                raise AssertionError(f"{name}: the card's results differ "
+                                     f"from the CPU's re-analysis at "
+                                     f"{diff}")
+            # without matplotlib (the card machine) the perf checker's
+            # plots are "unknown" from its import, and so is the
+            # composed verdict of a valid run
+            unsound = [w for w in _results_unsound(res) if has_mpl or not (
+                w == "/" or w.startswith("/perf"))]
+            if unsound:
+                raise AssertionError(f"{name}: unsound results at {unsound}")
+            if not _perf_as_expected(res["perf"], has_mpl) or \
+                    res["valid?"] not in (suite_verdict(spec, res),
+                                          "unknown"):
+                raise AssertionError(f"{name}: perf {res['perf']}, "
+                                     f"valid? {res['valid?']}")
+            uncertified = _uncertified(res)
+            if uncertified:
+                raise AssertionError(f"{name}: uncertified at {uncertified}")
+            certs = _every_certificate(hist, res)
+            verdict = suite_verdict(spec, res)
+            if verdict is not (not spec["twin"]):
+                raise AssertionError(f"{name}: verdict {verdict}")
+            if on_card:
+                if {k: launches[k] for k in ("wgl_search", "scc",
+                                             "bank_reduce")} != \
+                        {k: calls[k] for k in ("wgl_search", "scc",
+                                               "bank_reduce")}:
+                    raise AssertionError(f"{name}: launch counters "
+                                         f"{launches} != wrapper calls "
+                                         f"{calls}")
+                if (stored["wgl_search"], stored["scc"],
+                        stored["bank_reduce"]) != (
+                        calls["wgl_search"],
+                        calls["scc"] + calls["scc_converge"],
+                        calls["bank_reduce"]):
+                    raise AssertionError(f"{name}: stored launches "
+                                         f"{stored} != wrapper calls "
+                                         f"{calls}")
+            if spec["suite"] in LINEARIZABLE_SUITES and \
+                    spec["workload"] != "append" and calls["wgl_search"] < 1:
+                raise AssertionError(f"{name}: no wgl_search launch")
+            if spec["workload"] == "append" and invokes != spec["txns"]:
+                raise AssertionError(f"{name}: {invokes} txns invoked, "
+                                     f"want {spec['txns']}")
+            # one launch for each solve at or past scc's dispatch
+            past = sum(e >= scc_mod.DEVICE_MIN_EDGES for e in live_edges)
+            if calls["scc"] != past:
+                raise AssertionError(f"{name}: scc launches {calls['scc']}"
+                                     f" for {past} solves past dispatch "
+                                     f"(live edges {live_edges})")
+            keys = _failing_keys(res, spec)
+            if spec["twin"] and keys != _failing_keys(again, spec):
+                raise AssertionError(f"{name}: failing keys {keys} on the "
+                                     f"card, {_failing_keys(again, spec)} "
+                                     f"on the CPU")
+            if spec["twin"] and spec["suite"] == "consul" and \
+                    keys != [PHANTOM_KEY]:
+                raise AssertionError(f"{name}: failing keys {keys}")
+            seconds = time.perf_counter() - t0
+            steps.append(seconds)
+            emit({"phase": "suites", "run": name, "suite": spec["suite"],
+                  "workload": spec["workload"], "twin": spec["twin"],
+                  "invokes": invokes, "txns": spec.get("txns"),
+                  "events": len(hist),
+                  "valid": verdict, "failing": keys,
+                  "wrapper_calls": calls,
+                  "launches": launches if on_card else None,
+                  "stored_launches": stored, "certificates": certs,
+                  "scc_live_edges": live_edges,
+                  "scc_min_edges": scc_mod.DEVICE_MIN_EDGES,
+                  "run_s": run_s, "cpu_reanalysis_s": cpu_s,
+                  "seconds": seconds,
+                  "elapsed_s": time.perf_counter() - t_phase,
+                  "card": nvidia_smi_line() if on_card else "cpu"})
+            for kernel in ("wgl_search", "bank_reduce"):
+                if calls[kernel]:
+                    per_kernel[kernel][f"suite-{name}"] = calls[kernel]
+            n_scc = calls["scc"] + calls["scc_converge"]
+            if n_scc:
+                per_kernel["scc"][f"suite-{name}"] = n_scc
+            del out, test, fake, hist
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if on_card and not per_kernel["scc"]:
+        raise AssertionError("no suite run launched scc")
+    total = time.perf_counter() - t_phase
+    emit({"phase": "suites-total", "runs": len(steps), "seconds": total,
+          "budget_s": SUITES_BUDGET_S,
+          "card": nvidia_smi_line() if on_card else "cpu"})
+    return per_kernel
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 10_000, n_elle: int = 100_000,
@@ -5829,7 +6729,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
         sweep: dict | None = None,
         registry_sizes: dict | None = None,
         a3c_sizes: dict | None = None,
-        cli_sizes: dict | None = None) -> dict:
+        cli_sizes: dict | None = None,
+        suite_sizes: dict | None = None) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     # wall seconds of each group of phases, printed before the kernels
@@ -6161,6 +7062,14 @@ def run(dev: torch.device, n_headline: int = 500_000,
     bank_entry["launches"] += sum(cli["bank_reduce"].values())
     bank_entry["launches_per_check"].update(cli["bank_reduce"])
     mark("26 cli")
+    # 27. the database suites (A10a) on in-memory databases
+    suite_launches = suites_path(dev, on_card, suite_sizes)
+    per_path.update(suite_launches["wgl_search"])
+    scc_entry["launches"] += sum(suite_launches["scc"].values())
+    scc_entry["launches_per_check"].update(suite_launches["scc"])
+    bank_entry["launches"] += sum(suite_launches["bank_reduce"].values())
+    bank_entry["launches_per_check"].update(suite_launches["bank_reduce"])
+    mark("27 suites")
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}

@@ -1050,10 +1050,19 @@ def test_recorder_off_keeps_verdict_bytes_and_drops_latency(tmp_path):
     assert envs["on"]["result"] == envs["off"]["result"]
 
 
+def final_parked(sched, tenant: str) -> bool:
+    """Whether the scheduler holds a final of the tenant in its queue."""
+    with sched._lock:
+        q = sched._queues.get(tenant)
+        return q is not None and any(i.kind == "final" for i in q.items)
+
+
 def drain_and_fold(p: Pkg, tmp_path):
     """A graceful stop flushes a final parked in a long batching window
     as a `drain` launch; a kill()ed server's successor folds its saved
-    SLO histograms."""
+    SLO histograms. The stop waits until the fin has reached the
+    scheduler: on a loaded host the server can take longer than any
+    fixed pause to get it there, and a stop before it drains nothing."""
     fc = p.m("fleet.client")
     sched = p.scheduler(window_s=30.0)
     srv = p.server(tmp_path / "drain", scheduler=sched).start()
@@ -1070,7 +1079,10 @@ def drain_and_fold(p: Pkg, tmp_path):
 
     ft = threading.Thread(target=fin, daemon=True)
     ft.start()
-    time.sleep(0.5)
+    deadline = time.monotonic() + 30
+    while not final_parked(sched, "t") and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert final_parked(sched, "t"), "the fin never reached the scheduler"
     srv.stop()
     ft.join(timeout=10)
     snap = srv.flightrec.snapshot()
