@@ -9,8 +9,8 @@ jepsen_tpu_torch.suites.<name> test --device cuda ...` — plus a
 `<name>_test(opts)` builder whose checkers run on the card
 (opts["device"]: None, the default, or "cpu").
 
-Thirteen suites are ported. The other eight (UNPORTED) are ROADMAP
-A10b: `load` refuses them with NotImplementedError naming it."""
+All 21 suites are ported: `load` returns the port's module for every
+name of SUITES."""
 
 from importlib import import_module
 
@@ -38,17 +38,10 @@ SUITES = {
     "zookeeper": "jepsen_tpu_torch.suites.zookeeper",
 }
 
-UNPORTED = ("cockroach", "dgraph", "disque", "elasticsearch",
-            "hazelcast", "rabbitmq", "tidb", "yugabyte")
-
-UNPORTED_REFUSAL = "the {} suite is not ported yet: ROADMAP A10b"
-
 
 def load(name: str):
     """Imports and returns a suite module by registry name."""
     if name not in SUITES:
         raise KeyError(f"unknown suite {name!r}; known: "
                        + ", ".join(sorted(SUITES)))
-    if name in UNPORTED:
-        raise NotImplementedError(UNPORTED_REFUSAL.format(name))
     return import_module(SUITES[name])

@@ -3,9 +3,9 @@ the JAX package's, and the helpers the other tests/test_torch_suites_*.py
 files share.
 
 - SUITES has the JAX package's 21 names in the same order; `load` of each
-  of the 13 ported names returns the port's module, each of the eight
-  names of ROADMAP A10b raises NotImplementedError naming A10b, an
-  unknown name raises KeyError with the JAX package's message.
+  name returns the port's module (all 21 are ported: the A10a suites and
+  ROADMAP A10b's eight), an unknown name raises KeyError with the JAX
+  package's message.
 - The helpers drive one package's suite (`root` "jepsen_tpu" or
   "jepsen_tpu_torch") against the in-memory fakes of the JAX suite tests
   (tests/test_<suite>.py): each package's clients see their own
@@ -40,11 +40,13 @@ ROOTS = (JAX, PORT)
 RENAME = {"tpu": "gpu", "tpu-segmented": "gpu-segmented",
           "tpu-extend": "gpu-extend",
           "tpu+host-fallback": "gpu+host-fallback"}
-PORTED = ("aerospike", "consul", "crate", "etcd", "galera", "mongodb",
-          "postgres", "raftis", "redis-sentinel", "rethinkdb", "stolon",
-          "voltdb", "zookeeper")
-UNPORTED = ("cockroach", "dgraph", "disque", "elasticsearch",
-            "hazelcast", "rabbitmq", "tidb", "yugabyte")
+PORTED = ("aerospike", "cockroach", "consul", "crate", "dgraph", "disque",
+          "elasticsearch", "etcd", "galera", "hazelcast", "mongodb",
+          "postgres", "rabbitmq", "raftis", "redis-sentinel", "rethinkdb",
+          "stolon", "tidb", "voltdb", "yugabyte", "zookeeper")
+# ROADMAP A10b: the suites chip_smoke runs in phase 28
+A10B = ("cockroach", "dgraph", "disque", "elasticsearch", "hazelcast",
+        "rabbitmq", "tidb", "yugabyte")
 
 
 def mod(root, name):
@@ -210,10 +212,16 @@ class Raising:
                 raise outer.make(outer.root)
 
             run = stmt = run_command = get = put = cas = _raise
-            cas_create = txn_rw = request = _raise
+            cas_create = txn_rw = request = cmd = _raise
+            upsert_unless_exists = delete_where = query_eq = _raise
+            write_value = txn_query = txn_set = txn_commit = _raise
+            alter_schema = _raise
 
             def forget_master(self):
                 pass
+
+            def txn_begin(self):
+                return {"start_ts": None, "keys": [], "preds": []}
 
             def close(self):
                 pass
@@ -244,32 +252,45 @@ def norm(x):
 
 def run_workload(root, name, workload, opts, attr, factory, nodes=("n1",
                  "n2"), concurrency=4, stagger=0.0004, limit=None,
-                 final=False):
-    """core.run of root's suite workload over the noop test, its client's
-    transport `attr` set to factory(root); returns (test, workload
-    function). limit bounds the generator; final runs the workload's
-    final generator after it, on every thread."""
+                 final=False, extra=()):
+    """core.run of root's suite workload (a function's name, or
+    workload(suite module, opts)) over the noop test, its client's
+    transport `attr` set to factory(root); returns the test. limit
+    bounds the generator; final runs the workload's
+    final generator after it, on every thread; extra names the
+    workload's keys the test map carries (tidb's "lf-table", the bank's
+    "total-amount" and "accounts")."""
     s = suite(root, name)
     gen = mod(root, "generator")
-    w = getattr(s, workload)(device_opts(root, opts))
+    w = built(s, workload, device_opts(root, opts))
     setattr(w["client"], attr, factory(root))
-    g = w["generator"]
+    g = w["generator"] if "generator" in w else w["mix"]
     if limit is not None:
         g = gen.limit(limit, g)
     g = gen.clients(gen.stagger(stagger, g))
     if final:
-        g = gen.phases(g, gen.clients(w["final_generator"]))
+        g = gen.phases(g, gen.clients(w.get("final_generator",
+                                            w.get("drain"))))
     test = mod(root, "testing").noop_test()
     test.update(nodes=list(nodes), concurrency=concurrency,
-                client=w["client"], checker=w["checker"], generator=g)
+                client=w["client"], checker=w["checker"], generator=g,
+                **{k: w[k] for k in extra if k in w})
     return mod(root, "core").run(test)
+
+
+def built(s, workload, opts) -> dict:
+    """Suite module s's workload: a function's name, or a function of
+    (s, opts)."""
+    if callable(workload):
+        return workload(s, opts)
+    return getattr(s, workload)(opts)
 
 
 def workload_checker(name, workload, opts):
     """make_checker for check_both: the suite workload's checker on a
     package."""
-    return lambda root: getattr(suite(root, name), workload)(
-        device_opts(root, opts))["checker"]
+    return lambda root: built(suite(root, name), workload,
+                              device_opts(root, opts))["checker"]
 
 
 def check_both(make_checker, test) -> tuple[dict, dict]:
@@ -361,10 +382,11 @@ def parsed(root, name, argv) -> dict:
 
 
 def suite_run_test(root, spec, base, device="cpu") -> dict:
-    """chip_smoke's phase-27 test of spec on root's package. The port's
-    is the phase's own; the JAX suite's is built by its own builder and
-    put on the same in-memory database, its dummy remote answering with
-    JAX Results and consul's client on the JAX ConsulHttp."""
+    """chip_smoke's phase-27 or phase-28 test of spec on root's package.
+    The port's is the phase's own; the JAX suite's is built by its own
+    builder and put on the same in-memory database, its dummy remote
+    answering with JAX Results, consul's and elasticsearch's clients on
+    the JAX package's ConsulHttp and EsHttp."""
     if root == PORT:
         return cs.suite_test(spec, base, device=device)[0]
     s = suite(JAX, spec["suite"])
@@ -376,6 +398,8 @@ def suite_run_test(root, spec, base, device="cpu") -> dict:
     if spec["suite"] == "consul":
         test["client"].http_factory = test["db"].http_factory = \
             fake.factory(s)
+    if spec["suite"] == "elasticsearch":
+        test["client"].http_factory = fake.factory(s)
     if spec["suite"] not in cs.OWN_GENERATOR:
         test["generator"] = jax_client_generator(s, spec, opts)
     test.update(store_base=str(base),
@@ -386,20 +410,26 @@ def suite_run_test(root, spec, base, device="cpu") -> dict:
 def jax_client_generator(s, spec, opts):
     """chip_smoke.client_generator on the JAX package."""
     g = mod(JAX, "generator")
+    final = None
     if spec["suite"] == "zookeeper":
         rng = random.Random(opts["seed"])
         mix = mod(JAX, "workloads.register").cas_op_mix
         ops = g.limit(opts.get("ops", cs.ZK_OPS), lambda: mix(rng))
     else:
-        ops = s.WORKLOADS[spec["workload"]](dict(opts))["generator"]
-        if "ops" in opts:
+        w = s.WORKLOADS[spec["workload"]](dict(opts))
+        ops = w["generator"] if "generator" in w else w["mix"]
+        final = w.get("final_generator", w.get("drain"))
+        if "ops" in opts and (spec["suite"], spec["workload"]) not in \
+                cs.DRAINED_WORKLOADS:
             ops = g.limit(opts["ops"], ops)
-    return g.time_limit(opts["time_limit"], g.clients(
+    main = g.time_limit(opts["time_limit"], g.clients(
         g.stagger(1.0 / opts["rate"], ops)))
+    return main if final is None else g.phases(main, g.clients(final))
 
 
 def stored_run(root, spec, base, device="cpu"):
-    """chip_smoke's phase-27 run on root's suite, stored under base;
+    """chip_smoke's phase-27 or phase-28 run on root's suite, stored
+    under base;
     returns (the run, its directory)."""
     out = mod(root, "core").run(suite_run_test(root, spec, base, device))
     return out, mod(root, "store").path(out)
@@ -446,24 +476,39 @@ def stored_across(writer, spec, tmp_path) -> None:
 SMALL = {"time_limit": 1, "rate": 5000, "ops": 150, "ops_per_key": 60,
          "keys": 2, "concurrency": 4, "append_time_limit": 2,
          "append_rate": 5000, "big_txns": 200, "big_time_limit": 2}
+# phase 28's suites at a small size: the same cuts but `keys`, which
+# several A10b workloads read as a list of keys, not a count, and at 6
+# threads, which yugabyte's multi-key ACID groups of 3 divide
+SMALL_A10B = dict({k: v for k, v in SMALL.items() if k != "keys"},
+                  concurrency=6)
 
 
 def small_specs(suites_=None) -> dict:
-    """Phase 27's runs at SMALL, by name, for the suites named."""
-    return {s["name"]: s for s in cs.suite_runs(dict(cs.SUITE_SIZES,
-                                                     **SMALL))
-            if suites_ is None or s["suite"] in suites_}
+    """Phases 27's and 28's runs at SMALL (SMALL_A10B for phase 28's
+    suites), by name, for the suites named."""
+    return {s["name"]: s
+            for sizes in (SMALL, SMALL_A10B)
+            for s in cs.suite_runs(dict(cs.SUITE_SIZES, **sizes))
+            if (suites_ is None or s["suite"] in suites_)
+            and (s["phase"] == 28) == (sizes is SMALL_A10B)}
 
 
-def phase_27(suites_, monkeypatch) -> dict:
-    """chip_smoke's phase 27 on the CPU at SMALL over the suites
-    named."""
+def phase_27(suites_, monkeypatch, phase: int = 27) -> dict:
+    """chip_smoke's phase 27 (or 28) on the CPU at SMALL (SMALL_A10B)
+    over the suites named."""
     import torch
 
     orig = cs.suite_runs
     monkeypatch.setattr(cs, "suite_runs", lambda sizes: [
         s for s in orig(sizes) if s["suite"] in suites_])
-    return cs.suites_path(torch.device("cpu"), False, SMALL)
+    return cs.suites_path(torch.device("cpu"), False,
+                          SMALL if phase == 27 else SMALL_A10B, phase)
+
+
+def phase_28(suites_, monkeypatch) -> dict:
+    """chip_smoke's phase 28 on the CPU at SMALL_A10B over the suites
+    named."""
+    return phase_27(suites_, monkeypatch, phase=28)
 
 
 # ---------------------------------------------------------------------------
@@ -473,8 +518,10 @@ def phase_27(suites_, monkeypatch) -> dict:
 def test_suite_names_in_the_jax_order():
     assert list(mod(PORT, "suites").SUITES) == \
         list(mod(JAX, "suites").SUITES)
-    assert sorted(PORTED + UNPORTED) == sorted(mod(JAX, "suites").SUITES)
-    assert set(mod(PORT, "suites").UNPORTED) == set(UNPORTED)
+    assert sorted(PORTED) == sorted(mod(JAX, "suites").SUITES)
+    # the refusal of A10b's names went with the last of them
+    assert not hasattr(mod(PORT, "suites"), "UNPORTED")
+    assert not hasattr(mod(PORT, "suites"), "UNPORTED_REFUSAL")
 
 
 def test_module_paths_name_the_port():
@@ -489,15 +536,6 @@ def test_ported_suite_loads_the_port_module(name):
     assert m.__name__ == mod(PORT, "suites").SUITES[name]
     assert m is importlib.import_module(m.__name__)
     assert callable(m.main)
-
-
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_suite_refuses_naming_a10b(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        mod(PORT, "suites").load(name)
-    # the JAX package has it
-    assert mod(JAX, "suites").load(name).__name__ == \
-        f"jepsen_tpu.suites.{name}"
 
 
 def test_unknown_suite_raises_keyerror_as_jax():
@@ -542,7 +580,7 @@ def test_no_suite_module_imports_jax():
 
     root = Path(__file__).resolve().parent.parent / PORT / "suites"
     files = sorted(root.glob("*.py"))
-    assert len(files) == 15
+    assert len(files) == 23
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []
@@ -557,16 +595,39 @@ def test_no_suite_module_imports_jax():
 def test_suite_runs_of_phase_27_cover_every_ported_suite():
     specs = cs.suite_runs(dict(cs.SUITE_SIZES))
     assert {cs.SUITE_KEYS[s["suite"]] for s in specs} == set(PORTED)
+    # phase 28 runs A10b's eight, phase 27 the other 13, in that order
+    assert {cs.SUITE_KEYS[s["suite"]] for s in specs
+            if s["phase"] == 28} == set(A10B)
+    assert [s["phase"] for s in specs] == sorted(s["phase"] for s in specs)
     assert [s["name"] for s in specs if s["twin"]] == [
-        "consul-register-twin", "postgres-append-twin"]
-    big = [s for s in specs if s["suite"] == "postgres"]
+        "consul-register-twin", "postgres-append-twin",
+        "cockroach-register-twin", "yugabyte-ysql-append-twin"]
+    big = [s for s in specs if s["suite"] in ("postgres", "yugabyte")
+           and s["workload"] in cs.APPEND_WORKLOADS]
+    assert len(big) == 4
     assert all(s["opts"]["ops"] == s["txns"] == 10_000 for s in big)
     # every other run at its suite's ops and key count
     for s in specs:
         cut = set(cs.SUITE_CUTS) & set(s["opts"])
         assert cut == ({"ops"} if s in big else set()), s["name"]
     assert {s["suite"]: s["txns"] for s in specs if "txns" in s
-            and s not in big} == {"stolon": 2000, "etcd": 1000}
+            and s not in big} == {"stolon": 2000, "etcd": 1000,
+                                  "tidb": 2000}
+    # each suite's default workload once (etcd's append, dgraph's
+    # linearizable-register and yugabyte's multi-key ACID besides)
+    assert {(s["suite"], s["workload"]) for s in specs
+            if not s["twin"]} == {
+        (m, w) for m, (_b, wl) in cs.SUITE_BUILDERS.items()
+        for w in (wl,) + cs.EXTRA_WORKLOADS.get(m, ())}
+    assert {s["name"] for s in specs if cs.linearizable_run(s)
+            and s["phase"] == 28} == {
+        "hazelcast-lock", "cockroach-register", "cockroach-register-twin",
+        "dgraph-linearizable-register", "yugabyte-ysql-multi-key-acid"}
+    # 6 threads but dgraph's 8 (its key groups of 4, ROADMAP C13)
+    assert {s["opts"]["concurrency"] for s in specs
+            if s["suite"] != "dgraph"} == {6}
+    assert {s["opts"]["concurrency"] for s in specs
+            if s["suite"] == "dgraph"} == {8}
 
 
 
@@ -599,9 +660,9 @@ DRAINED = [s for s in cs.suite_runs(dict(cs.SUITE_SIZES)) if not s["twin"]]
 
 @pytest.mark.parametrize("spec", DRAINED, ids=[s["name"] for s in DRAINED])
 def test_builder_generator_drains_equal(spec):
-    """Each phase-27 run's builder generator yields the same ops in both
-    packages; an append run invokes the txns phase 27 expects (the
-    suite's default, postgres' 10,000)."""
+    """Each phase-27 and phase-28 run's builder generator yields the
+    same ops in both packages; an append run invokes the txns its phase
+    expects (the suite's default, postgres' and yugabyte's 10,000)."""
     port = drained(PORT, spec)
     assert port == drained(JAX, spec)
     clients = [o for o in port if o[0] == "invoke" and o[1] != "nemesis"]
