@@ -35,8 +35,12 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      the card equals check_segmented on the CPU (the plain kernel), and
      analysis(certify=True) / the linearizable checker on the card give
      certificates the port's validator accepts;
-  6. replays the main path's kernel launches to time the kernel and its
-     plain version on them;
+  6. replays the main path's kernel launches to time the kernel on each
+     of them, and holds every one against its plain version, run once
+     over all the rows of the launches of one search shape (M, S, W, F,
+     reach, crash-free; `plain_against`): each launch's per-row outputs
+     must equal its rows of that call, the call's level count the
+     launches' largest and its level series the sum of theirs;
   7. holds the scc and bank_reduce kernels against their plain PyTorch
      versions on the card: seeded graphs (many large components, edge-mask
      subsets, a 3,000-node decreasing chain that hits SWEEP_CAP, one above
@@ -331,7 +335,7 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      the text of its library call; `fleet submit` of each register key's subhistory
      (cas-register) and of the list-append run, each verdict the
      stored run's, then `status`, `top`, `explain`; web.serve's routes
-     (200 each, /lint 501 naming ROADMAP A7, /fleet with the tenant);
+     (200 each, /lint the graftlint report, /fleet with the tenant);
      `fleet trace`, and the server stopped by SIGINT with exit 0.
      Prints each step's seconds against the phase's 45 s budget;
 27. the database suites (jepsen_tpu_torch/suites/, ROADMAP A10a): each
@@ -381,6 +385,18 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      registry cannot have (yugabyte's MultiRegister) are counted as
      honest absences. Prints each run's seconds against the phase's
      60 s budget;
+ 29. the static analysis (jepsen_tpu_torch.analysis, gpu/lint.py):
+     `python -m jepsen_tpu_torch lint --baseline lint-baseline-torch.json
+     --json` in a process of its own must exit 0 with no NEW and no
+     stale finding; in this process, after every launch above,
+     run_lint(runtime_buckets=True, full=True) builds the libraries and
+     must find each launch's Python scratch and shared-memory sizes
+     equal to the library's at every registry bucket and every runtime
+     bucket (wgl and scc ones among them), with no trace error, and the
+     default mode's finding keys must be the committed baseline's;
+     /lint and /lint?json=1 from a web.serve must answer 200 with the
+     gated report. Launches no kernel. Prints the traces by kernel, the
+     findings by rule and each part's seconds against a 20 s budget;
      then prints one `{"kernels": [...]}` line, whose wgl_search launches
      include those of phases 16-28, and whose scc and bank_reduce
      launches include those of phases 19-28.
@@ -609,6 +625,54 @@ def _event_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def plain_group_key(packed, kw) -> tuple:
+    """(M, S, W, F, max_iters, reach, crash-free): launches that agree on
+    these can share one call of the plain version (plain_against)."""
+    return (int(packed[0].shape[1]), int(packed[2].shape[2]), kw["W"],
+            kw["F"], kw["max_iters"], bool(kw["reach"]),
+            bool(kw["crash_free"]))
+
+
+def plain_against(launches, sync=lambda: None) -> tuple[int, float]:
+    """(max abs error, plain ms) of the kernel's outputs of `launches`
+    ((packed, row_seg, st0, kw, out) of one plain_group_key) against ONE
+    call of the plain version over all their rows: the launches' tables
+    stacked along K, each launch's row segments offset past the tables
+    before it. The plain version searches each row on its own (a row's
+    state, verdict and mask never read another row's), so each launch's
+    per-row outputs must equal its rows of the call; the call runs until
+    its last row stops, so its level count must be the launches' largest
+    and each level series the sum of theirs (a launch's series is 0 past
+    its own levels). A launch's own level count is held to its live
+    series: a running row keeps a live configuration, so the series is
+    positive at each of the launch's levels and 0 after them."""
+    kw = launches[0][3]
+    packed = tuple(torch.cat([x[0][i] for x in launches])
+                   for i in range(5))
+    offsets = np.cumsum([0] + [x[0][0].shape[0] for x in launches])
+    rs = torch.cat([x[1] + int(off) for x, off in zip(launches, offsets)])
+    s0 = torch.cat([x[2] for x in launches])
+    sync()
+    t0 = time.perf_counter()
+    want = ws.wgl_search_reference(packed, rs, s0, **kw)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err, row = 0, 0
+    for _, rs_i, _, _, out in launches:
+        b = rs_i.numel()
+        err = max(err, _max_abs_err(out[:-4], [w[row:row + b]
+                                               for w in want[:-4]]))
+        row += b
+        n, live = int(out[-4]), out[-3]
+        err = max(err, int((live[:n] <= 0).sum()),
+                  int((live[n:] != 0).sum()))
+    n_it = max(int(x[4][-4]) for x in launches)
+    err = max(err, abs(int(want[-4]) - n_it))
+    series = [sum(x[4][k].to(torch.int64) for x in launches)
+              for k in (-3, -2, -1)]
+    return max(err, _max_abs_err(series, want[-3:])), plain_ms
 
 
 def _launch_bound(packed, rs, kw, out) -> tuple[float, float, float]:
@@ -1413,8 +1477,7 @@ def ensemble_against_plain(dev, on_card: bool, n_rows: int) -> int:
     total = 0
     pb = wgl.PackedBatch(encs[:n_rows])
     rows = [(i, e.init_state) for i, e in enumerate(encs[:n_rows])]
-    smem = (ws._lib().wgl_search_smem_bytes(32, 64, 0) if on_card
-            else None)
+    smem = ws.library_smem_bytes(32, 64, False) if on_card else None
     for reach in (False, True):
         packed, rs, s0 = pb.tensors(*pb.rows(rows), dev)
         kw = dict(W=32, F=64, max_iters=pb.M + 4, reach=reach,
@@ -5779,7 +5842,7 @@ class _CliPhase:
     # (g) ------------------------------------------------------------------
     def web(self) -> None:
         """web.serve on 127.0.0.1, port 0, over the store, the fleet still
-        up: every route 200, /lint 501 naming ROADMAP A7, /fleet with the
+        up: every route 200, /lint the graftlint report, /fleet with the
         tenant."""
         from jepsen_tpu_torch import web
 
@@ -5794,10 +5857,9 @@ class _CliPhase:
                          f"/metrics?run={rel}", "/lint"):
                 code, body = _http_get(f"http://127.0.0.1:{port}{path}")
                 pages[path] = [code, len(body)]
-                if path == "/lint":
-                    if code != 501 or b"ROADMAP A7" not in body:
-                        raise AssertionError(f"web /lint: {code}")
-                elif code != 200:
+                if path == "/lint" and b"graftlint" not in body:
+                    raise AssertionError(f"web /lint: {body[:200]}")
+                if code != 200:
                     raise AssertionError(f"web {path}: {code}")
                 if path == "/fleet" and b"cli" not in body:
                     raise AssertionError("web /fleet: no tenant cli")
@@ -7166,6 +7228,110 @@ def _suites_path(dev, on_card: bool, sizes: dict | None,
     return per_kernel
 
 
+LINT_BUDGET_S = 20.0
+LINT_BASELINE = Path(__file__).resolve().parent / "lint-baseline-torch.json"
+
+
+def lint_path(dev, on_card: bool) -> dict:
+    """Phase 29: the static analysis (jepsen_tpu_torch.analysis) after
+    the earlier phases' launches. (a) `python -m jepsen_tpu_torch lint
+    --baseline lint-baseline-torch.json --json` in a process of its own
+    must exit 0 with 0 NEW and 0 stale findings; (b) run_lint with the
+    runtime buckets of this process and, on the card, full mode (the
+    libraries built and asked for every launch's scratch and shared
+    memory), with no trace error, the library's sizes equal to the
+    plan's at every registry and runtime bucket, and the default mode's
+    finding keys those of the committed baseline; (c) /lint and /lint?
+    json=1 from a web.serve answer 200 with the gated report. Launches
+    no kernel. Returns the phase's numbers."""
+    from jepsen_tpu_torch import web
+    from jepsen_tpu_torch.analysis import driver
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    # (a) the command line, in a process of its own
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        _cli_argv("lint", "--baseline", str(LINT_BASELINE), "--json"),
+        capture_output=True, text=True, env=_cli_env(), timeout=300,
+        cwd=Path(__file__).resolve().parent)
+    out["cli_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"lint exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    if doc["ratchet"]["new"] or doc["ratchet"]["stale"]:
+        raise AssertionError(f"lint vs its baseline: {doc['ratchet']}")
+    out["cli"] = {"findings": doc["aggregates"]["findings"],
+                  "traces": len(doc["traces"]),
+                  "pinned": doc["ratchet"]["baselined"],
+                  "lint_wall_s": doc["wall_s"]}
+    # (b) this process: runtime buckets, full mode on the card
+    t0 = time.perf_counter()
+    rep = driver.run_lint(runtime_buckets=True, full=on_card)
+    out["full_s"] = time.perf_counter() - t0
+    if rep.errors:
+        raise AssertionError(f"lint trace errors: {rep.errors[:5]}")
+    sized, by_kernel, runtime = 0, {}, {}
+    for t in rep.traces:
+        by_kernel[t["kernel"]] = by_kernel.get(t["kernel"], 0) + 1
+        if t["bucket"].startswith("rt-"):
+            runtime[t["kernel"]] = runtime.get(t["kernel"], 0) + 1
+        for k, v in t.get("library", {}).items():
+            if t[k] != v:
+                raise AssertionError(f"{t['kernel']}/{t['bucket']}: {k} "
+                                     f"{t[k]} in Python, {v} in the "
+                                     f"library")
+            sized += 1
+    if on_card and not (runtime.get("wgl") and runtime.get("scc")):
+        raise AssertionError(f"no runtime bucket traced: {runtime}")
+    want = [e["key"] for e in
+            json.loads(LINT_BASELINE.read_text())["findings"]]
+    default = driver.run_lint()
+    got = sorted(f.key for f in default.findings)
+    if got != sorted(want):
+        raise AssertionError(f"default-mode keys differ from the "
+                             f"baseline: {sorted(set(got) ^ set(want))}")
+    out["full"] = {"traces": len(rep.traces), "by_kernel": by_kernel,
+                   "runtime_buckets": runtime,
+                   "library_sizes_compared": sized,
+                   "findings": rep.by_rule(), "lint_wall_s": rep.wall_s,
+                   "default_findings": default.by_rule(),
+                   "default_lint_wall_s": default.wall_s,
+                   "default_traces": [
+                       {k: t[k] for k in ("kernel", "bucket", "args_bytes",
+                                          "scratch_bytes", "smem_bytes",
+                                          "carry_bytes")}
+                       for t in default.traces]}
+    # (c) the web UI's /lint
+    t0 = time.perf_counter()
+    srv = web.serve("127.0.0.1", 0, base=Path(tempfile.mkdtemp(
+        prefix="chip-smoke-lint-")))
+    try:
+        port = srv.server_address[1]
+        code, body = _http_get(f"http://127.0.0.1:{port}/lint?json=1"
+                               "&refresh=1")
+        page = json.loads(body) if code == 200 else {}
+        if code != 200 or page["ratchet"]["new"] or \
+                page["ratchet"]["stale"]:
+            raise AssertionError(f"web /lint?json=1: {code} "
+                                 f"{body[:300]}")
+        code2, body2 = _http_get(f"http://127.0.0.1:{port}/lint")
+        if code2 != 200 or b"graftlint" not in body2:
+            raise AssertionError(f"web /lint: {code2}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    out["web_s"] = time.perf_counter() - t0
+    out["web"] = {"json": code, "html": code2,
+                  "findings": len(page["findings"])}
+    out["seconds"] = time.perf_counter() - t_phase
+    out["budget_s"] = LINT_BUDGET_S
+    emit({"phase": "lint", **out,
+          "card": nvidia_smi_line() if on_card else "cpu"})
+    return out
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 10_000, n_elle: int = ELLE_TXNS,
@@ -7356,27 +7522,42 @@ def run(dev: torch.device, n_headline: int = 500_000,
               "analyzer": res["analyzer"], "certified": True})
 
     mark("5 cross-check")
-    # 6. the kernel on the main path's own launches
+    # 6. the kernel on the main path's own launches: every launch timed,
+    # and every launch held against the plain version, in one plain call
+    # a search shape (plain_against: the waves' screens at M = 128 or
+    # 256 and their main launches at M = 16,384), which keeps the script
+    # inside its time limit (the plain version's time goes to its
+    # per-level loop, not to the rows)
     per_launch = []
     max_err = 0
+    groups: dict = {}
     for packed, rs, s0, kw, out in main_launches:
         nbytes, ops, bound_ms = _launch_bound(packed, rs, kw, out)
         kernel_ms = (_event_ms(lambda: original(packed, rs, s0, **kw),
                                reps=3) if on_card else None)
         paths = _path_levels(packed, rs, s0, kw, on_card)
-        sync()
-        t0 = time.perf_counter()
-        want = ws.wgl_search_reference(packed, rs, s0, **kw)
-        sync()
+        key = plain_group_key(packed, kw)
+        groups.setdefault(key, []).append(len(per_launch))
         per_launch.append({
-            "rows": int(rs.numel()), "M": int(packed[0].shape[1]),
+            "rows": int(rs.numel()), "segments": int(packed[0].shape[0]),
+            "M": int(packed[0].shape[1]),
             "reach": kw["reach"], "levels": int(out[-4]),
             "kernel_ms": kernel_ms,
             "us_per_level": _us_per_level(kernel_ms, int(out[-4])),
             "path_levels": paths,
-            "plain_ms": 1e3 * (time.perf_counter() - t0),
+            "plain_call": list(groups).index(key),
             "bound_ms": bound_ms, "bytes": nbytes, "operations": ops})
-        max_err = max(max_err, _max_abs_err(out, want))
+    plain_calls = []
+    for key, idx in groups.items():
+        err, plain_ms = plain_against([main_launches[i] for i in idx],
+                                      sync)
+        max_err = max(max_err, err)
+        plain_calls.append({"M": key[0], "launches": idx,
+                            "rows": sum(per_launch[i]["rows"]
+                                        for i in idx),
+                            "levels": max(per_launch[i]["levels"]
+                                          for i in idx),
+                            "plain_ms": plain_ms, "max_abs_err": err})
     if max_err:
         raise AssertionError(f"main-path launches differ from the plain "
                              f"version by up to {max_err}")
@@ -7384,6 +7565,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
     ops = sum(x["operations"] for x in per_launch)
     kernel_ms = (sum(x["kernel_ms"] for x in per_launch)
                  if on_card else None)
+    emit({"phase": "headline-plain-replays", "launches": len(per_launch),
+          "plain_calls": plain_calls})
 
     mark("6 headline launches")
     # 7. scc and bank_reduce against their plain versions
@@ -7534,6 +7717,9 @@ def run(dev: torch.device, n_headline: int = 500_000,
     bank_entry["launches"] += sum(suite_launches["bank_reduce"].values())
     bank_entry["launches_per_check"].update(suite_launches["bank_reduce"])
     mark("28 suites a10b")
+    # 29. the static analysis over the kernels' launches
+    lint_path(dev, on_card)
+    mark("29 lint")
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}
@@ -7547,7 +7733,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
             "max_abs_err": max_err,
             "mismatches": total_mism,
             "ms": kernel_ms,
-            "plain_ms": sum(x["plain_ms"] for x in per_launch),
+            "plain_ms": sum(x["plain_ms"] for x in plain_calls),
+            "plain_calls": plain_calls,
             "bound_ms": sum(x["bound_ms"] for x in per_launch),
             "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
                          >= ops / PEAK_OPS_PER_S else "operations"),

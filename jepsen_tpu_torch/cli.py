@@ -20,9 +20,9 @@ anything of the run starts, so without a card and without
 message and writes no run directory. `--compile-cache` names the JAX
 package's XLA compilation cache: the port's kernels are cached by a hash
 of their sources in the build directory (gpu/kernels/build.py), so the
-option is parsed, logs one warning and has no effect. `lint` (the
-static analysis, ROADMAP A7) is not ported: it raises
-NotImplementedError, which exits 255.
+option is parsed, logs one warning and has no effect. `lint` runs the
+port's static analysis (jepsen_tpu_torch.analysis) under the JAX
+package's options and exit codes.
 """
 
 from __future__ import annotations
@@ -617,18 +617,21 @@ def coverage_cmd(all_workloads=None) -> dict:
     return {"coverage": {"parser_fn": build, "run": run}}
 
 
-# the lint's refusal: the subcommand and the web UI's /lint say the same
-LINT_REFUSAL = "the static analysis (lint) is not ported: ROADMAP A7"
-
-
 def lint_cmd() -> dict:
-    """A 'lint' subcommand: in the JAX package, graftlint — static
-    analysis of the compiled device kernels plus the threaded modules'
-    lock-discipline lint, gated by a committed baseline. Not ported
-    (ROADMAP A7): the subcommand parses the JAX package's flags and
-    raises NotImplementedError, which run_cli turns into exit 255."""
+    """A 'lint' subcommand: graftlint — static analysis of the hand
+    kernels' launches (host syncs in launch loops, dtype widening,
+    copies before a launch, sharding readiness, values compiled into a
+    kernel that Python also holds, carry bloat) plus the threaded
+    modules' lock-discipline lint, gated by the committed baseline
+    ratchet (jepsen_tpu_torch.analysis; doc/static-analysis-torch.md).
+    The default mode reads the launch plans on meta tensors: CPU-safe,
+    no execution — tier-1 runs `lint --baseline
+    lint-baseline-torch.json`. Exit: 0 clean or fully baselined, 1 NEW
+    findings, 2 a launch failed to trace (or, with --full, its sizes
+    are not the library's), 254 a refused --update."""
     def build(p):
-        # the JAX package's lint flags, so its command lines parse
+        # the driver owns the full flag set; mirror it here so
+        # `lint --help` works through the standard dispatcher
         p.add_argument("--baseline", default=None, metavar="FILE")
         p.add_argument("--update", action="store_true")
         p.add_argument("--json", action="store_true", dest="json_")
@@ -638,7 +641,22 @@ def lint_cmd() -> dict:
         return p
 
     def run(options):
-        raise NotImplementedError(LINT_REFUSAL)
+        from .analysis import driver
+
+        argv = []
+        if options.baseline:
+            argv += ["--baseline", options.baseline]
+        if options.update:
+            argv.append("--update")
+        if options.json_:
+            argv.append("--json")
+        if options.runtime_buckets:
+            argv.append("--runtime-buckets")
+        if options.full:
+            argv.append("--full")
+        if options.rules:
+            argv += ["--rules", options.rules]
+        return driver.main(argv)
 
     return {"lint": {"parser_fn": build, "run": run}}
 

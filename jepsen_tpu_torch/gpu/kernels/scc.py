@@ -47,7 +47,10 @@ its plain version (scc_converge_reference) mirrors them exactly.
 
 Both launch their kernel for CUDA tensors and run the plain version for
 CPU tensors; neither runs the plain version on the card. `launches` and
-`converge_launches` count kernel launches.
+`converge_launches` count kernel launches. Each launch is built by
+launch_plan(), which the lint (gpu/lint.py) also calls on meta tensors;
+carve_bytes() is the library's scratch size computed in Python, and the
+launch keeps asking the library (scratch_bytes()).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ import threading
 
 import torch
 
-from . import build
+from . import LaunchPlan, build
 
 SWEEP_CAP = 512
 ROUND_CAP = 64
@@ -83,6 +86,11 @@ FIRST_ROUND_SWEEPS = 64
 # launch: tests set it to -1 (never) or 2**31 - 1 (from the start) to
 # reach either schedule on a small graph.
 TAIL_WORK = 1 << 19
+
+# csrc/scc.cu's kMaxBlocks and kSlot: carve_bytes() mirrors the library's
+# carve_capped and carve_conv, so changing one side alone breaks it
+_MAX_BLOCKS = 1024
+_SLOT = 8
 
 launches = 0
 converge_launches = 0
@@ -168,14 +176,13 @@ def scc_labels(src, dst, edge_on, n: int,
     if src.device.type == "cpu":
         return _reference(src, dst, edge_on, n, SWEEP_CAP, ROUND_CAP)
     lib = _lib()
-    E = src.shape[0]
-    out = torch.empty(n + 3, dtype=torch.int32, device=src.device)
-    _launch(lib.scc_launch, lib.scc_scratch_bytes(n, E), src, dst,
-            edge_on, n, E, (SWEEP_CAP, ROUND_CAP), out, syncs, events)
+    plan = launch_plan(src, dst, edge_on, n,
+                       scratch=lib.scc_scratch_bytes(n, src.shape[0]))
+    _launch(lib.scc_launch, plan, syncs, events)
     # the checkers of a composed check launch from worker threads
     with _lib_lock:
         launches += 1
-    return out
+    return plan.outputs["out"]
 
 
 def scc_labels_to_convergence(src, dst, edge_on, n: int,
@@ -190,15 +197,14 @@ def scc_labels_to_convergence(src, dst, edge_on, n: int,
     if src.device.type == "cpu":
         return _converge(src, dst, edge_on, n)
     lib = _lib()
-    E = src.shape[0]
-    out = torch.empty(n + 4, dtype=torch.int32, device=src.device)
-    tail = max(-1, min(int(TAIL_WORK), 2 ** 31 - 1))
-    _launch(lib.scc_converge_launch, lib.scc_converge_scratch_bytes(n, E),
-            src, dst, edge_on, n, E, (tail,), out, syncs, events)
+    plan = launch_plan(src, dst, edge_on, n, converge=True,
+                       scratch=lib.scc_converge_scratch_bytes(
+                           n, src.shape[0]))
+    _launch(lib.scc_converge_launch, plan, syncs, events)
     # the checkers of a composed check launch from worker threads
     with _lib_lock:
         converge_launches += 1
-    return out
+    return plan.outputs["out"]
 
 
 def scratch_bytes(n: int, E: int, converge: bool = False) -> int:
@@ -211,22 +217,73 @@ def scratch_bytes(n: int, E: int, converge: bool = False) -> int:
     return int(fn(n, E))
 
 
-def _launch(fn, scratch_bytes, src, dst, edge_on, n, E, params, out,
-            syncs, events):
+def _take(count: int, itemsize: int) -> int:
+    """Bytes of one array carved from the scratch: at least one
+    element, rounded up to 16 bytes (the library's Carve::take)."""
+    return (max(count, 1) * itemsize + 15) & ~15
+
+
+def carve_bytes(n: int, E: int, converge: bool = False) -> int:
+    """The device scratch one launch over n nodes and E edges takes,
+    computed in Python as the library's carve_capped (or, with converge,
+    carve_conv) carves it; scratch_bytes() asks the library."""
+    if converge:
+        # state; c, m, act, fr twice; stamp, top, cnt_out, cnt_in,
+        # outdeg, indeg; out_off, in_off; out_adj, in_adj; bsum; ctl
+        return (_take(n, 4) + 8 * _take(n, 4) + 6 * _take(n, 4)
+                + 2 * _take(n + 1, 4) + 2 * _take(E, 4)
+                + _take(2 * _MAX_BLOCKS, 4) + _take(3 * _SLOT, 4))
+    # active; c, m, stamp, ls, ld twice; block_flag; ctl
+    return (_take(n, 1) + 2 * (3 * _take(n, 4)
+                               + 2 * _take(E + _MAX_BLOCKS, 4))
+            + _take(_MAX_BLOCKS, 4) + _take(3 * _SLOT, 4))
+
+
+def launch_plan(src, dst, edge_on, n: int, converge: bool = False,
+                scratch: int | None = None) -> LaunchPlan:
+    """The launch scc_labels() (or, with converge,
+    scc_labels_to_convergence()) makes on CUDA tensors: the output and
+    the uninitialised scratch (the kernel sets up its own state) on the
+    inputs' device, `scratch` bytes of it (the library's answer on the
+    card; carve_bytes() when None), and the call's parameters."""
     dev = src.device
-    # uninitialised: the kernel sets up its own state
-    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+    E = src.shape[0]
+    if scratch is None:
+        scratch = carve_bytes(n, E, converge)
+    params = {"n": n, "E": E}
+    if converge:
+        params["tail_work"] = max(-1, min(int(TAIL_WORK), 2 ** 31 - 1))
+    else:
+        params.update(sweep_cap=SWEEP_CAP, round_cap=ROUND_CAP)
+    return LaunchPlan(
+        args={"src": src, "dst": dst, "edge_on": edge_on},
+        outputs={"out": torch.empty(n + (4 if converge else 3),
+                                    dtype=torch.int32, device=dev)},
+        params=params,
+        scratch=torch.empty(scratch, dtype=torch.uint8, device=dev))
+
+
+def _submit(fn, plan: LaunchPlan, syncs, stream, ev_start, ev_end) -> int:
+    """Calls scc_launch or scc_converge_launch (`fn`) with the plan's
+    tensors and parameters in the C signature's order; returns its CUDA
+    error code."""
+    return fn(*(t.data_ptr() for t in plan.args.values()),
+              *plan.params.values(), plan.scratch.data_ptr(),
+              plan.outputs["out"].data_ptr(),
+              None if syncs is None else syncs.data_ptr(), stream,
+              ev_start, ev_end)
+
+
+def _launch(fn, plan: LaunchPlan, syncs, events):
+    dev = plan.args["src"].device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ev_start, ev_end = build.event_handles(events)
-        rc = fn(src.data_ptr(), dst.data_ptr(), edge_on.data_ptr(), n, E,
-                *params, scratch.data_ptr(), out.data_ptr(),
-                None if syncs is None else syncs.data_ptr(), stream,
-                ev_start, ev_end)
+        rc = _submit(fn, plan, syncs, stream, ev_start, ev_end)
     if rc != 0:
         raise RuntimeError(
             f"scc launch failed: CUDA error {rc} "
-            f"({_lib().scc_error_string(rc).decode()}); n={n} E={E}")
+            f"({_lib().scc_error_string(rc).decode()}); {plan.params}")
 
 
 def scc_labels_reference(src, dst, edge_on, n: int) -> torch.Tensor:

@@ -18,7 +18,9 @@ series are int32 [max_iters], summed over the batch.
 
 wgl_search() launches the kernel for CUDA tensors and runs
 wgl_search_reference() for CPU tensors; it never runs the plain version
-on the card. `launches` counts kernel launches.
+on the card. `launches` counts kernel launches. The launch is built by
+launch_plan(), which the lint (gpu/lint.py) also calls on meta tensors,
+and smem_bytes() is the library's shared-memory size computed in Python.
 """
 
 from __future__ import annotations
@@ -29,13 +31,18 @@ import threading
 import torch
 
 from ..encode import INF
-from . import build
+from . import LaunchPlan, build
 
 BIG = int(INF)  # the "never" position; padding reads as BIG
 VALID = 1
 INVALID = 0
 UNKNOWN = -1
 RUNNING = -2
+
+# csrc/wgl_search.cu's kWarps and kSeries: smem_bytes() mirrors the
+# library's wgl_search_smem_bytes, so changing one side alone breaks it
+_WARPS = 8
+_SERIES = 64
 
 launches = 0
 
@@ -89,6 +96,77 @@ def _check(packed, row_seg, st0, W, F, max_iters, reach):
         raise ValueError("reach mode packs states into a uint32 (S <= 32)")
 
 
+def _successor_slots(W: int, F: int, crash_free: bool) -> int:
+    cap = F * W * (1 if crash_free else 2)
+    n = 1
+    while n < cap:
+        n <<= 1
+    return n
+
+
+def _ring_entries(W: int) -> int:
+    r = 64
+    while r < 4 * W:
+        r <<= 1
+    return r
+
+
+def smem_bytes(W: int, F: int, crash_free: bool) -> int:
+    """The dynamic shared memory one block of the search takes, in bytes,
+    as the library's wgl_search_smem_bytes computes it: the successor
+    buffer (a u64 key and an int state a slot), the frontier, the scan's
+    partial sums, the level series and the ring."""
+    return (_successor_slots(W, F, crash_free) * (8 + 4) + F * 3 * 4
+            + _WARPS * 4 + _SERIES * 3 * 4 + _ring_entries(W) * 3 * 4)
+
+
+def library_smem_bytes(W: int, F: int, crash_free: bool) -> int:
+    """The library's own answer to smem_bytes() (builds it if needed)."""
+    return int(_lib().wgl_search_smem_bytes(W, F, int(crash_free)))
+
+
+def launch_plan(packed, row_seg, st0, W: int, F: int, max_iters: int,
+                reach: bool = False, crash_free: bool = False
+                ) -> LaunchPlan:
+    """The launch wgl_search() makes on CUDA tensors: the inputs checked,
+    the outputs allocated on the inputs' device (zeroed where the library
+    accumulates into them) and the call's parameters."""
+    _check(packed, row_seg, st0, W, F, max_iters, reach)
+    inv_t, ret_t, trans, mseg, sufmin = packed
+    dev = inv_t.device
+    B = row_seg.shape[0]
+    return LaunchPlan(
+        args={"inv_t": inv_t, "ret_t": ret_t, "trans": trans,
+              "mseg": mseg, "sufmin": sufmin, "row_seg": row_seg,
+              "st0": st0},
+        outputs={
+            "result": torch.empty(B, dtype=torch.int8, device=dev),
+            "out_mask": torch.empty(B, dtype=torch.uint32, device=dev),
+            "unknown": torch.empty(B, dtype=torch.bool, device=dev),
+            "it": torch.zeros((), dtype=torch.int32, device=dev),
+            "lvl": torch.zeros((3, max(max_iters, 1)), dtype=torch.int32,
+                               device=dev)},
+        params={"B": B, "M": inv_t.shape[1], "S": trans.shape[2], "W": W,
+                "F": F, "max_iters": max_iters, "reach": int(reach),
+                "crash_free": int(crash_free)},
+        smem_bytes=smem_bytes(W, F, crash_free))
+
+
+def _submit(lib, plan: LaunchPlan, path_levels, stream, ev_start,
+            ev_end) -> int:
+    """Calls wgl_search_launch with the plan's tensors and parameters in
+    the C signature's order; returns its CUDA error code."""
+    o = plan.outputs
+    lvl = o["lvl"]
+    return lib.wgl_search_launch(
+        *(t.data_ptr() for t in plan.args.values()), *plan.params.values(),
+        o["result"].data_ptr(), o["out_mask"].data_ptr(),
+        o["unknown"].data_ptr(), o["it"].data_ptr(), lvl[0].data_ptr(),
+        lvl[1].data_ptr(), lvl[2].data_ptr(),
+        None if path_levels is None else path_levels.data_ptr(), stream,
+        ev_start, ev_end)
+
+
 def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
                reach: bool = False, crash_free: bool = False,
                path_levels: torch.Tensor | None = None, events=None):
@@ -106,9 +184,7 @@ def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
     that start.elapsed_time(end) is the kernel's time alone, whatever
     the host does around the call. Refused with CPU tensors."""
     global launches
-    _check(packed, row_seg, st0, W, F, max_iters, reach)
-    inv_t, ret_t, trans, mseg, sufmin = packed
-    dev = inv_t.device
+    dev = packed[0].device
     if path_levels is not None and (
             path_levels.dtype != torch.int32 or path_levels.shape != (3,)
             or path_levels.device != dev or dev.type != "cuda"):
@@ -119,46 +195,33 @@ def wgl_search(packed, row_seg, st0, W: int, F: int, max_iters: int,
     if events is not None and dev.type != "cuda":
         raise ValueError(f"events time a launch on the card, not on {dev}")
     if dev.type == "cpu":
+        _check(packed, row_seg, st0, W, F, max_iters, reach)
         return wgl_search_reference(packed, row_seg, st0, W, F, max_iters,
                                     reach=reach, crash_free=crash_free)
     if dev.type != "cuda":
         raise ValueError(f"wgl_search runs on cuda or cpu, not {dev}")
+    # the plan checks the inputs
+    plan = launch_plan(packed, row_seg, st0, W, F, max_iters, reach=reach,
+                       crash_free=crash_free)
     lib = _lib()
-    K, M = inv_t.shape
-    S = trans.shape[2]
-    B = row_seg.shape[0]
-    result = torch.empty(B, dtype=torch.int8, device=dev)
-    out_mask = torch.empty(B, dtype=torch.uint32, device=dev)
-    unknown = torch.empty(B, dtype=torch.bool, device=dev)
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    lvl = torch.zeros((3, max(max_iters, 1)), dtype=torch.int32,
-                      device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ev_start, ev_end = build.event_handles(events)
-        rc = lib.wgl_search_launch(
-            inv_t.data_ptr(), ret_t.data_ptr(), trans.data_ptr(),
-            mseg.data_ptr(), sufmin.data_ptr(), row_seg.data_ptr(),
-            st0.data_ptr(), B, M, S, W, F, max_iters, int(reach),
-            int(crash_free), result.data_ptr(), out_mask.data_ptr(),
-            unknown.data_ptr(), it.data_ptr(), lvl[0].data_ptr(),
-            lvl[1].data_ptr(), lvl[2].data_ptr(),
-            None if path_levels is None else path_levels.data_ptr(), stream,
-            ev_start, ev_end)
+        rc = _submit(lib, plan, path_levels, stream, ev_start, ev_end)
     if rc != 0:
         raise RuntimeError(
             f"wgl_search launch failed: CUDA error {rc} "
-            f"({lib.wgl_search_error_string(rc).decode()}); B={B} M={M} "
-            f"S={S} W={W} F={F} shared memory "
-            f"{lib.wgl_search_smem_bytes(W, F, int(crash_free))} bytes")
-    if B:
+            f"({lib.wgl_search_error_string(rc).decode()}); {plan.params} "
+            f"shared memory {plan.smem_bytes} bytes")
+    if plan.params["B"]:
         # the checkers of a composed check launch from worker threads
         with _lib_lock:
             launches += 1
-    lvl = lvl[:, :max_iters]
+    o = plan.outputs
+    lvl = o["lvl"][:, :max_iters]
     if reach:
-        return out_mask, unknown, it, lvl[0], lvl[1], lvl[2]
-    return result, it, lvl[0], lvl[1], lvl[2]
+        return o["out_mask"], o["unknown"], o["it"], lvl[0], lvl[1], lvl[2]
+    return o["result"], o["it"], lvl[0], lvl[1], lvl[2]
 
 
 def wgl_search_reference(packed, row_seg, st0, W: int, F: int,

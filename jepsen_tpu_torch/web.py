@@ -1,7 +1,7 @@
 """Web UI over the store: browse tests, results, and artifacts (the
 port's copy of jepsen_tpu/web.py; every page is the JAX module's, byte
-for byte over the same store, but for the lint and the port's command
-name).
+for byte over the same store, but for the lint's report, which reads
+the port's kernel launches, and the port's command name).
 
 Capability reference: jepsen/src/jepsen/web.clj — home page scanning
 the store with cheap header reads (51-112), per-test file browser with
@@ -19,9 +19,10 @@ JSON, optionally pre-filtered to an anomaly's participating ops — the
 run page lists each anomaly with such drill-down links (anomaly
 provenance, tracing.py).
 
-The static analysis (graftlint) is not ported (ROADMAP A7): `/lint`
-answers 501 with a body naming it, and the run page's lint panel is one
-line saying the same.
+`/lint` serves the port's graftlint report (jepsen_tpu_torch.analysis)
+gated against lint-baseline-torch.json, with `?json=1` and
+`?refresh=1`, and the run page shows its panel, both from one report
+cached per process (the report describes the code, not a run).
 """
 
 from __future__ import annotations
@@ -661,13 +662,146 @@ def _explorer_html(d: Path, rel: str) -> str:
     return "".join(parts)
 
 
-def lint_panel_html() -> str:
-    """The run page's graftlint panel: one line naming the refusal (the
-    lint is ROADMAP A7), linked to /lint."""
-    from .cli import LINT_REFUSAL
+# graftlint report cache: the report describes the CODE, not a run,
+# so one compute per process serves every page (?refresh=1 re-lints).
+_lint_cache: dict = {}
+_lint_lock = threading.Lock()
 
-    return (f"<h2>graftlint</h2><p><a href='/lint'>"
-            f"{_html.escape(LINT_REFUSAL)}</a></p>")
+
+def _lint_baseline_path() -> Path:
+    return (Path(__file__).resolve().parent.parent
+            / "lint-baseline-torch.json")
+
+
+def _compute_lint_report():
+    from .analysis import driver
+
+    rep = driver.run_lint()
+    bp = _lint_baseline_path()
+    if bp.exists():
+        driver.gate(rep, bp)
+    return rep
+
+
+def _lint_report(refresh: bool = False):
+    """Synchronous report for /lint (the user asked for it). The
+    compute runs OUTSIDE _lint_lock so concurrent page requests never
+    queue behind a trace; a racing duplicate compute is harmless."""
+    with _lint_lock:
+        rep = _lint_cache.get("rep")
+    if rep is not None and not refresh:
+        return rep
+    rep = _compute_lint_report()
+    with _lint_lock:
+        _lint_cache["rep"] = rep
+    return rep
+
+
+def _lint_report_cached():
+    """Non-blocking report for the run-page panel: the cached report,
+    or None after kicking off a one-shot background warm — a run page
+    must never stall seconds on the lint's imports and traces inside
+    the request handler."""
+    with _lint_lock:
+        rep = _lint_cache.get("rep")
+        if rep is not None:
+            return rep
+        if _lint_cache.get("warming"):
+            return None
+        _lint_cache["warming"] = True
+
+    def warm():
+        try:
+            r = _compute_lint_report()
+            with _lint_lock:
+                _lint_cache["rep"] = r
+        except Exception:  # noqa: BLE001 — warm is best-effort
+            logger.exception("lint warm failed")
+        finally:
+            with _lint_lock:
+                _lint_cache["warming"] = False
+
+    threading.Thread(target=warm, name="jepsen-lint-warm",
+                     daemon=True).start()
+    return None
+
+
+def lint_panel_html() -> str:
+    """The run-page graftlint panel: per-rule counts, the R3/R4
+    aggregates, and the baseline gate status — linked to the full /lint
+    report. Renders a warming placeholder until the cached report
+    exists."""
+    try:
+        rep = _lint_report_cached()
+    except Exception:  # noqa: BLE001 — the panel must not 500 the page
+        logger.exception("lint panel failed")
+        return ""
+    if rep is None:
+        return ("<h2>graftlint</h2><p><a href='/lint'>report "
+                "warming…</a> (computed in the background; "
+                "refresh shortly)</p>")
+    agg = rep.aggregates()
+    rules = " ".join(f"{r}={n}" for r, n in agg["findings"].items()) \
+        or "clean"
+    gatetxt = ""
+    if rep.ratchet is not None:
+        new = len(rep.ratchet["new"])
+        gatetxt = (f" · baseline: <b style='color:#b00'>{new} NEW"
+                   "</b>" if new else " · baseline: ok")
+    return ("<h2>graftlint</h2><p>"
+            f"<a href='/lint'>{len(rep.findings)} finding(s)</a> "
+            f"({_html.escape(rules)}) · copied "
+            f"{agg['non_donated_bytes'] // 1024} KiB · replicated "
+            f"{agg['replicated_bytes'] // 1024} KiB · unsharded axes "
+            f"{agg['unsharded_axes']}{gatetxt}</p>")
+
+
+def lint_html(refresh: bool = False) -> str:
+    rep = _lint_report(refresh=refresh)
+    agg = rep.aggregates()
+    new_keys = ({f.key for f in rep.ratchet["new"]}
+                if rep.ratchet is not None else set())
+    rows = []
+    for f in rep.findings:
+        where = f"{f.file}:{f.line}" if f.file else ""
+        flag = "<b style='color:#b00'>NEW</b>" if f.key in new_keys \
+            else ("baselined" if rep.ratchet is not None else "")
+        rows.append(
+            f"<tr><td>{_html.escape(f.rule)}</td>"
+            f"<td>{_html.escape(f.kernel)}</td>"
+            f"<td>{_html.escape(f.site)}</td>"
+            f"<td>{_html.escape(f.message)}"
+            + (f"<br><i>fix: {_html.escape(f.hint)}</i>" if f.hint
+               else "")
+            + f"</td><td>{_html.escape(where)}</td>"
+            f"<td>{flag}</td></tr>")
+    stale = ""
+    if rep.ratchet is not None and rep.ratchet["stale"]:
+        stale = ("<p>stale baseline entries (fixed): "
+                 + ", ".join(_html.escape(k)
+                             for k in rep.ratchet["stale"])
+                 + " — prune with <code>python -m jepsen_tpu_torch lint "
+                   "--baseline lint-baseline-torch.json --update</code></p>")
+    return ("<!DOCTYPE html><html><head><style>"
+            "table { border-collapse: collapse } "
+            "td, th { padding: 3px 10px; text-align: left; "
+            "vertical-align: top; border-bottom: 1px solid #eee; "
+            "font-size: 13px }</style></head><body>"
+            "<h1>graftlint — kernel-launch static analysis</h1>"
+            f"<p>{len(rep.findings)} finding(s) across "
+            f"{len(rep.traces)} launch trace(s) in {rep.wall_s:.2f}s"
+            " · R3 copied "
+            f"{agg['non_donated_bytes'] // 1024} KiB · R4 replicated "
+            f"{agg['replicated_bytes'] // 1024} KiB · R4 unsharded "
+            f"axes {agg['unsharded_axes']} · "
+            "<a href='/lint?refresh=1'>re-lint</a> · "
+            "<a href='/lint?json=1'>json</a> · rule catalog: "
+            "doc/static-analysis-torch.md</p>"
+            + stale
+            + "<table><tr><th>rule</th><th>kernel</th><th>site</th>"
+              "<th>finding</th><th>provenance</th><th>baseline</th>"
+              "</tr>" + "".join(rows) + "</table>"
+            "<p><a href='/'>home</a></p></body></html>")
 
 
 def _nodes_html(d: Path) -> str:
@@ -992,10 +1126,17 @@ class StoreHandler(BaseHTTPRequestHandler):
                     self._send(200, json.dumps(doc).encode(),
                                "application/json")
             elif path == "/lint" or path == "/lint/":
-                # graftlint, the static analysis, is not ported
-                from .cli import LINT_REFUSAL
-
-                self._send(501, LINT_REFUSAL.encode(), "text/plain")
+                # graftlint: the kernel-launch static-analysis report
+                # (jepsen_tpu_torch.analysis; repo state, cached per
+                # process)
+                refresh = bool(query.get("refresh"))
+                if query.get("json"):
+                    rep = _lint_report(refresh=refresh)
+                    self._send(200,
+                               json.dumps(rep.to_dict()).encode(),
+                               "application/json")
+                else:
+                    self._send(200, lint_html(refresh).encode())
             elif path == "/fleet" or path == "/fleet/":
                 # checking-as-a-service status (fleet/):
                 # reads <base>/fleet/fleet.addr and asks the live

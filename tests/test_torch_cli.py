@@ -11,8 +11,8 @@ package's on the CPU.
   option, `--device`, is left out of the parsed options.
 - `python -m jepsen_tpu_torch` offers every subcommand of `python -m
   jepsen_tpu` under the same options, plus `--device` on test,
-  test-all, analyze and fleet; `lint` is refused (ROADMAP A7) with
-  exit 255.
+  test-all, analyze and fleet; `lint` gates the port's static analysis
+  against lint-baseline-torch.json with the JAX package's exit codes.
 - The readers of a stored run (telemetry, profile, nodes, trace,
   certify, coverage) print the same text in both packages over the same
   run directory, and each package's `analyze` of a run the other stored
@@ -300,12 +300,43 @@ def test_every_subcommand_under_the_same_options():
             name
 
 
-def test_lint_is_refused(tmp_path):
-    code, out = main(PORT, ["lint", "--baseline", "lint-baseline.json",
+def test_lint_gates_against_the_port_baseline(tmp_path):
+    code, out = main(PORT, ["lint", "--baseline",
+                            str(ROOT / "lint-baseline-torch.json"),
                             "--json"], cwd=tmp_path)
-    assert code == 255 and out == ""
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        commands(PORT)["lint"]["run"](argparse.Namespace())
+    assert code == 0
+    doc = json.loads(out)
+    assert doc["ratchet"]["new"] == [] and doc["ratchet"]["stale"] == []
+    assert doc["ratchet"]["baselined"] == len(doc["findings"]) > 0
+    assert not doc.get("errors")
+    code, out = main(PORT, ["lint", "--baseline",
+                            str(ROOT / "lint-baseline-torch.json")],
+                     cwd=tmp_path)
+    assert code == 0 and out.startswith("graftlint: ")
+    assert "0 NEW, 0 stale" in out
+
+
+@pytest.mark.parametrize("argv", [
+    ["--update", "--rules", "R1"], ["--update", "--full"],
+    ["--update", "--runtime-buckets"], ["--update"]],
+    ids=["rules", "full", "runtime-buckets", "no-baseline"])
+def test_lint_refused_updates_exit_as_in_jax(tmp_path, argv):
+    base = tmp_path / "b.json"
+    base.write_text((ROOT / "lint-baseline-torch.json").read_text())
+    extra = [] if argv == ["--update"] else ["--baseline", str(base)]
+    codes = {root: main(root, ["lint", *argv, *extra], cwd=tmp_path)[0]
+             for root in ROOTS}
+    assert codes[PORT] == codes["jepsen_tpu"] == 254
+    assert base.read_text() == \
+        (ROOT / "lint-baseline-torch.json").read_text()
+
+
+def test_lint_reports_new_findings_with_exit_1(tmp_path):
+    empty = tmp_path / "empty.json"
+    empty.write_text('{"version": 1, "findings": []}')
+    code, out = main(PORT, ["lint", "--baseline", str(empty)],
+                     cwd=tmp_path)
+    assert code == 1 and "NEW R1 " in out
 
 
 # ---------------------------------------------------------------------------

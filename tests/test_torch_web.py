@@ -11,8 +11,9 @@ telemetry page, the live page and its event stream, the Perfetto export
 (with and without an op filter), the coverage heatmap and a cell,
 /metrics, the zip and the 404s. The port's own name (`python -m
 jepsen_tpu_torch`) is read as the JAX package's. The run page's lint
-panel is set aside: the lint is not ported (ROADMAP A7), so the port's
-panel is one line naming it and /lint answers 501.
+panel is set aside in that comparison: each package's report reads its
+own kernels, so /lint and the panel are tested on the port alone (the
+port's report, gated against lint-baseline-torch.json).
 
 Counterparts of test_cli.py::test_web_ui, test_fleet.py::TestServerE2E::
 test_fleet_page_and_metrics, the web half of test_flightrec.py::
@@ -219,18 +220,47 @@ def test_live_event_streams_equal(store_base, servers):
         assert body.endswith(b"event: end\ndata: {}\n\n")
 
 
-def test_lint_is_refused_and_the_panel_says_so(store_base, servers):
+def test_lint_page_and_panel(store_base, servers):
+    """Counterpart of test_lint.py::test_web_lint_page_and_panel over
+    the port's server: /lint answers 200 (HTML, ?json=1, ?refresh=1)
+    with the port's report gated against its baseline, and the run
+    page shows one graftlint panel, from the cached report."""
+    web = mod(PORT, "web")
+    web._lint_cache.clear()
     base, rels = store_base
     port = servers(base)[PORT]
-    for path in ("/lint", "/lint/", "/lint?json=1", "/lint?refresh=1"):
+    status, ctype, body = get(port, "/lint?json=1")
+    assert status == 200 and ctype == "application/json"
+    doc = json.loads(body)
+    assert doc["ratchet"]["new"] == [] and doc["ratchet"]["stale"] == []
+    assert {t["kernel"] for t in doc["traces"]} >= {"wgl", "scc",
+                                                    "bank_reduce"}
+    for path in ("/lint", "/lint/", "/lint?refresh=1"):
         status, ctype, body = get(port, path)
-        assert status == 501 and ctype == "text/plain"
-        assert b"ROADMAP A7" in body
+        assert status == 200 and ctype.startswith("text/html")
+        page = body.decode()
+        assert "graftlint" in page and "R1" in page
+        assert "doc/static-analysis-torch.md" in page
     page = get(port, f"/files/{rels['port']}/")[2].decode()
-    assert page.count("ROADMAP A7") == 1
-    assert "<h2>graftlint</h2>" in page
+    assert page.count("<h2>graftlint</h2>") == 1
+    assert "finding(s)</a>" in page and "baseline: ok" in page
     home = get(port, "/")[2].decode()
     assert "<a href='/lint'>graftlint</a>" in home
+
+
+def test_lint_panel_warms_in_the_background():
+    """A run page never waits for the lint: a cold cache gives the
+    warming placeholder and starts one background compute."""
+    web = mod(PORT, "web")
+    web._lint_cache.clear()
+    panel = web.lint_panel_html()
+    assert "warming" in panel and "/lint" in panel
+    deadline = time.monotonic() + 120
+    while web._lint_cache.get("rep") is None:
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+    panel = web.lint_panel_html()
+    assert "unsharded axes 0" in panel and "baseline: ok" in panel
 
 
 @pytest.mark.parametrize("fn", ["home_html", "fast_tests"])
