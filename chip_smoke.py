@@ -397,9 +397,37 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      /lint and /lint?json=1 from a web.serve must answer 200 with the
      gated report. Launches no kernel. Prints the traces by kernel, the
      findings by rule and each part's seconds against a 20 s budget;
-     then prints one `{"kernels": [...]}` line, whose wgl_search launches
-     include those of phases 16-28, and whose scc and bank_reduce
-     launches include those of phases 19-28.
+ 30. the multi-device form (ROADMAP A6), on meshes of MESH_SHARDS (4)
+     shards sharing the card (the machine has one: spmd.spmd_devices()
+     must be 1, so no earlier phase sharded): (a) phase 12's 768
+     histories through check_batch_sharded over the mesh and over the
+     card alone, and every start state of 64 of them in reach mode, 0
+     mismatches, one wgl_search launch a shard, each shard's launch
+     replayed on the kernel and its plain version; a launch routed over
+     the shards returns while a 0.5 s sleep queued on the card just
+     before its dispatch still holds it; check_segmented of
+     phase 16's history and its 85%-corrupted twin with spmd.cards()
+     read as 4 entries of the card (the automatic route), results and
+     certificates byte for byte the one-device check's, certificates
+     validated; (b) phase 8's corrupted list-append through the Elle
+     check over the shards (key-block layout, sharded solves), its
+     anomalies those of the one-device search over the edges in the
+     same key-block order, with the scc_shard launch counts set to 0
+     just before and read just after; every sharded solve of phase 8's
+     two graphs, the twin's graded subsets and a tests/test_spmd.py-
+     shaped graph (2,500 nodes, 30,040 edges) at 2, 4 and 8 shards with
+     labels, ok, rounds and sweeps equal to scc_kernel's; every recorded
+     scc_sweep, scc_apply and scc_step launch replayed against its
+     plain version, timed between its launcher's events, beside the
+     PyTorch call that computes the same values where there is one;
+     (c) a 2-rank gloo group, each rank a process of its own sharing
+     the card, equal to the in-process 2-shard mesh, each rank counting
+     the shared card once (spmd.spmd_devices() 1); prints that NCCL
+     across cards was not run, and why; then prints one
+     `{"kernels": [...]}` line, whose wgl_search launches include those
+     of phases 16-28, whose scc and bank_reduce launches include those
+     of phases 19-28, and which lists the mesh form's wgl_search and
+     the three scc_shard kernels with phase 30's launches.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -455,13 +483,15 @@ from jepsen_tpu_torch.fleet import wal as fwal
 from jepsen_tpu_torch.nemesis import combined, membership
 from jepsen_tpu_torch.checker import cycle, linearizable, models
 from jepsen_tpu_torch.gpu import certify, ckpt, elle, ensemble, synth, wgl
-from jepsen_tpu_torch.gpu import profiler
+from jepsen_tpu_torch.gpu import dist as gdist
+from jepsen_tpu_torch.gpu import elle_device, profiler, spmd
 from jepsen_tpu_torch.gpu import scc as scc_mod
 from jepsen_tpu_torch.history import History, op
 from jepsen_tpu_torch.gpu.encode import encode
 from jepsen_tpu_torch.gpu.kernels import bank_reduce as kbank
 from jepsen_tpu_torch.gpu.kernels import build
 from jepsen_tpu_torch.gpu.kernels import scc as kscc
+from jepsen_tpu_torch.gpu.kernels import scc_shard as kshard
 from jepsen_tpu_torch.gpu.kernels import wgl_search as ws
 from jepsen_tpu_torch.reports import explain
 from jepsen_tpu_torch.reports import profile as rprofile
@@ -1513,18 +1543,28 @@ def ensemble_against_plain(dev, on_card: bool, n_rows: int) -> int:
         calls: list = []
         original = _recording(wgl, "_run", calls)
         try:
-            wgl._drain(ensemble.sharded_launch(sub, lrows, 32, 64,
-                                               reach=reach, devices=dev),
-                       reach=reach)
+            got = wgl._drain(ensemble.sharded_launch(sub, lrows, 32, 64,
+                                                     reach=reach, mesh=dev),
+                             reach=reach)
         finally:
             wgl._run = original
         r = _replay(calls[0], on_card)
-        total += r["mismatches"]
+        # the launch's rows in caller order: the plain version's outputs
+        # gathered through inv_perm on the host
+        (packed, rs, s0, W, F, max_iters, _r), kw, _out = calls[0]
+        want = ws.wgl_search_reference(packed, rs, s0, W=W, F=F,
+                                       max_iters=max_iters, reach=reach,
+                                       crash_free=kw["crash_free"])
+        idx = lay.inv_perm[:len(lrows)]
+        gathered = sum(int(np.sum(np.asarray(g) != w.cpu().numpy()[idx]))
+                       for g, w in zip(got if reach else (got,), want))
+        total += r["mismatches"] + gathered
         emit({"phase": "kernel-vs-plain",
               "case": f"ensemble-layout-{'reach' if reach else 'verdict'}",
               "segments": sub.B, "layout_segments": int(lay.mseg.size),
               "rows": len(lrows), "layout_rows": int(lay.row_seg.size),
-              "levels": r["levels"], "mismatches": r["mismatches"]})
+              "levels": r["levels"], "mismatches": r["mismatches"],
+              "gathered_mismatches": gathered})
     return total
 
 
@@ -1598,7 +1638,7 @@ def ensemble_path(dev, on_card: bool, hists, chunk: int, bad: int) -> dict:
                 res = wgl.analysis_batch(model, hists, device=dev)
             else:
                 res = ensemble.analysis_batch_sharded(model, hists,
-                                                      devices=dev)
+                                                      mesh=dev)
             sync()
             t1 = time.perf_counter()
             launches = ws.launches
@@ -1810,36 +1850,23 @@ def slices_path(dev, on_card: bool, hists, n: int) -> int:
 
 
 def _replay(rec, on_card: bool) -> dict:
-    """One recorded `wgl._run` call replayed: the kernel (with the on-card
-    gather of a sharded launch) by CUDA events, the plain version (plus
-    a numpy gather), its bound, and the largest difference between the
+    """One recorded `wgl._run` call replayed: the kernel by CUDA events,
+    the plain version, its bound, and the largest difference between the
     recorded outputs and the plain version's."""
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     args, kw, launch = rec
     packed, rs, s0, W, F, max_iters, reach = args
     kkw = dict(W=W, F=F, max_iters=max_iters, reach=reach,
                crash_free=kw["crash_free"])
-    gather = kw.get("gather")
-    n_res = 2 if reach else 1
 
     def card():
-        outs = ws.wgl_search(packed, rs, s0, **kkw)
-        if gather is not None:
-            idx = gather.long()
-            return [o.view(torch.int32).index_select(0, idx)
-                    if o.dtype == torch.uint32 else o.index_select(0, idx)
-                    for o in outs[:n_res]]
-        return outs
+        return ws.wgl_search(packed, rs, s0, **kkw)
 
     kernel_ms = _event_ms(card, reps=3) if on_card else None
     paths = _path_levels(packed, rs, s0, kkw, on_card)
     sync()
     t0 = time.perf_counter()
     want = list(ws.wgl_search_reference(packed, rs, s0, **kkw))
-    if gather is not None:
-        idx = gather.long()
-        want = [w.to(torch.int64).index_select(0, idx)
-                for w in want[:n_res]] + want[n_res:]
     sync()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     got = [o.to(rs.device) for o in launch.outs]
@@ -7332,6 +7359,634 @@ def lint_path(dev, on_card: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 30. the multi-device form (A6): meshes of shards sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_BUDGET_S = 45.0
+# the 2-rank group's inputs: phase 12's first histories and a graph of
+# tests/test_spmd.py's shape
+MESH_RANK_HISTORIES = 64
+
+
+def _shared_card(dev, n: int):
+    """spmd.cards() as n entries of `dev` until the returned function is
+    called: the automatic route then lays every launch out over n shards
+    sharing the one card, as it would over n cards."""
+    original = spmd.cards
+    spmd.cards = lambda: [(0, dev)] * n
+
+    def restore():
+        spmd.cards = original
+    return restore
+
+
+def _spmd_graph(seed: int, n: int = 2500, e: int = 30_000):
+    rng = np.random.default_rng(seed)
+    ring = np.arange(40)
+    return (n, np.concatenate([rng.integers(0, n, e), ring]),
+            np.concatenate([rng.integers(0, n, e), np.roll(ring, -1)]))
+
+
+def _scc_one_device(n, src, dst, mask, dev) -> np.ndarray:
+    """scc_kernel's (or off the card its plain version's) [n + 3] on the
+    masked edges: the sharded solve's reference."""
+    on = np.ones(len(src), bool) if mask is None else mask
+    return kscc.scc_labels(*_scc_tensors(np.asarray(src, np.int32),
+                                         np.asarray(dst, np.int32), on,
+                                         dev), n).cpu().numpy()
+
+
+def _rank_inputs(n_hists: int):
+    m = models.cas_register()
+    encs = [encode(m, ensemble_hist(i)) for i in range(n_hists)]
+    rows = [(i, s) for i, e in enumerate(encs)
+            for s in range(min(e.n_states, 2))]
+    return encs, rows, _spmd_graph(5)
+
+
+def mesh_rank_outputs(mesh, n_hists: int) -> dict:
+    """What a 2-rank group and the in-process 2-shard mesh must agree on:
+    a reach launch over the first start states of n_hists of phase 12's
+    histories, their verdicts, and the sharded SCC of a test_spmd-shaped
+    graph."""
+    encs, rows, (n, src, dst) = _rank_inputs(n_hists)
+    mask, unk = wgl._drain(ensemble.sharded_launch(
+        wgl.PackedBatch(encs), rows, 16, 16, reach=True, mesh=mesh),
+        reach=True)
+    res = ensemble.check_batch_sharded(encs, mesh=mesh, W=32, F=64)
+    graph = scc_mod.Edges(n, src, dst, mesh=mesh)
+    return {"mask": mask.tolist(), "unknown": unk.tolist(),
+            "result": res.tolist(), "scc": graph.solve_sharded().tolist()}
+
+
+def mesh_rank(rank: int, rdv: str, dev: str, n_hists: int) -> None:
+    """One rank of phase 30's 2-rank gloo group (run in a process of its
+    own by _mesh_group): joins through a file rendezvous, lays a mesh of
+    two shards of `dev` over the two ranks and prints its outputs."""
+    import datetime
+
+    import torch.distributed as tdist
+
+    tdist.init_process_group("gloo", init_method=f"file://{rdv}",
+                             world_size=2, rank=rank,
+                             timeout=datetime.timedelta(seconds=120))
+    try:
+        if not gdist.ensure_initialized():
+            raise AssertionError("the process group was not adopted")
+        mesh = spmd.mesh_of([dev, dev])
+        out = mesh_rank_outputs(mesh, n_hists)
+        out["info"] = gdist.process_info()
+        out["info"]["spmd_devices"] = spmd.spmd_devices()
+        out["mesh_ranks"] = list(mesh.ranks)
+        print("MESH-RANK " + json.dumps(out), flush=True)
+    finally:
+        tdist.destroy_process_group()
+
+
+def _mesh_group(dev, tmp: Path, n_hists: int) -> dict:
+    """Two ranks of a gloo group, each in a process of its own, sharing
+    `dev`: both must answer what the in-process 2-shard mesh answers."""
+    t0 = time.perf_counter()
+    rdv = tmp / "rdv"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as cs; cs.mesh_rank({r}, {str(rdv)!r}, "
+         f"{str(dev)!r}, {n_hists})"],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    want = mesh_rank_outputs(spmd.mesh_of([dev, dev]), n_hists)
+    mism = 0
+    infos = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MESH-RANK ")]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"mesh rank {r} exited {p.returncode}: "
+                                 f"{err[-3000:]}")
+        got = json.loads(lines[0][len("MESH-RANK "):])
+        infos.append(got.pop("info"))
+        if got.pop("mesh_ranks") != [0, 1]:
+            raise AssertionError(f"rank {r}: the mesh's ranks")
+        mism += sum(int(np.sum(np.asarray(got[k]) != np.asarray(want[k])))
+                    for k in want)
+    # the two ranks share one card (none off the card): the group lists
+    # it once, so its automatic route keeps the one-device launch
+    n_cards = int(dev.type == "cuda")
+    if [i["backend"] for i in infos] != ["gloo", "gloo"] or \
+            [i["process_index"] for i in infos] != [0, 1] or \
+            [(i["global_devices"], i["spmd_devices"]) for i in infos] != \
+            [(n_cards, n_cards)] * 2:
+        raise AssertionError(f"the group's ranks: {infos}")
+    return {"ranks": 2, "backend": "gloo", "mismatches": mism,
+            "rows": len(want["mask"]), "histories": len(want["result"]),
+            "scc_nodes": len(want["scc"]) - 3, "info": infos,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _returns_before_search(encs, dev, shards: int,
+                           sleep_s: float = 0.5) -> tuple:
+    """(seconds wgl._launch took to return, the seconds of the sleep
+    queued on the card just before its dispatch, whether its `done`
+    event had fired at the return) for a launch routed over `shards`
+    shards of `dev`. Every input is uploaded before the dispatch, so
+    the launch returns while the sleep holds the card."""
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    end.record()
+    end.synchronize()
+    cycles = int(10 ** 8 * sleep_s / (start.elapsed_time(end) / 1e3))
+    pb = wgl.PackedBatch(encs)
+    rows = [(i, e.init_state) for i, e in enumerate(encs)]
+    timed = wgl._timed_launch
+
+    def sleeping(bucket, dispatch, kernel, meta):
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        return timed(bucket, dispatch, kernel=kernel, meta=meta)
+
+    restore = _shared_card(dev, shards)
+    wgl._timed_launch = sleeping
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wgl._launch(pb, rows, 32, 64, False, dev)
+        ret_s = time.perf_counter() - t0
+        fired = out.done.query()
+        wgl._drain(out, reach=False)
+    finally:
+        wgl._timed_launch = timed
+        restore()
+    return ret_s, start.elapsed_time(end) / 1e3, fired
+
+
+class _ShardCalls:
+    """Records each call of the scc_shard wrappers (its inputs cloned,
+    since the solve updates them in place, and its outputs), for the
+    replays of phase 30 (b)."""
+
+    def __init__(self):
+        self.calls = {"scc_sweep": [], "scc_apply": [], "scc_step": []}
+        self.originals = {k: getattr(kshard, k) for k in self.calls}
+
+    def __enter__(self):
+        orig = self.originals
+
+        def sweep(src, dst, on, active, x, col, prop, backward, **kw):
+            args = (src, dst, on, active.clone(), x.clone(), col.clone())
+            out = orig["scc_sweep"](src, dst, on, active, x, col, prop,
+                                    backward, **kw)
+            self.calls["scc_sweep"].append((args, backward, prop.clone()))
+            return out
+
+        def apply(x, prop, ctl, **kw):
+            args = (x.clone(), prop.clone())
+            orig["scc_apply"](x, prop, ctl, **kw)
+            self.calls["scc_apply"].append((args, x.clone(),
+                                            ctl[:1].clone()))
+
+        def step(kind, active, c, m, out, ctl, **kw):
+            args = (active.clone(), c.clone(), m.clone(), out.clone())
+            orig["scc_step"](kind, active, c, m, out, ctl, **kw)
+            self.calls["scc_step"].append((kind, args, (
+                active.clone(), c.clone(), m.clone(), out.clone(),
+                ctl[1:].clone() if kind == kshard.RETIRE else None)))
+
+        kshard.scc_sweep, kshard.scc_apply, kshard.scc_step = \
+            sweep, apply, step
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.originals.items():
+            setattr(kshard, k, v)
+        return False
+
+
+def _ms_of(fn, on_card: bool, reps: int = 3) -> float:
+    """ms of one call of fn: CUDA events around back-to-back calls on
+    the card (at these sizes the host's launch rate may set it), the host
+    clock off the card."""
+    if on_card:
+        return _event_ms(fn, reps)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def _kernel_ms(fn, on_card: bool, reps: int = 3) -> float:
+    """ms of the kernels of one launch alone: fn(events) launches with a
+    (start, end) pair, which the wrapper's launcher records just around
+    its kernels, so the host's time between launches is left out; the
+    mean over reps. Off the card, _ms_of's host clock."""
+    if not on_card:
+        return _ms_of(lambda: fn(None), on_card, reps)
+    fn(None)
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for ev in pairs:
+        fn(ev)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def _bound_ms(nbytes: int) -> float:
+    return 1e3 * nbytes / PEAK_BYTES_PER_S
+
+
+def shard_kernel_timing(rec: _ShardCalls, launches: dict,
+                        on_card: bool) -> list[dict]:
+    """Phase 30 (b): every scc_shard launch of the main path replayed on
+    its recorded inputs: the kernel by the CUDA events its launcher
+    records just around its kernels (the mean of 3), its plain version
+    (the same PyTorch code the CPU runs, here on the card's tensors),
+    against the recorded output, and where one PyTorch call computes
+    the same values its time (scatter_reduce_ of the live edges' values
+    for a sweep, torch.maximum for an apply). Bytes bounds: a sweep reads
+    each edge's src, dst and edge_on (9 bytes) and each node's active
+    (1), x (4) and, backward, col (4), and writes prop (4); an apply
+    reads x and prop and writes x (12 a node); a step reads active and
+    c (kInit), and m (kRoots), then out (kRetire), and writes c, m, or
+    out and active."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rows = []
+    # sweeps
+    ms = plain = lib = bound = 0.0
+    err = 0
+    for (src, dst, on, active, x, col), backward, out in \
+            rec.calls["scc_sweep"]:
+        n, E = x.numel(), src.numel()
+        prop = torch.empty_like(x)
+        ms += _kernel_ms(lambda ev: rec.originals["scc_sweep"](
+            src, dst, on, active, x, col, prop, backward, events=ev),
+            on_card)
+        want = torch.empty_like(x)
+        sync()
+        t0 = time.perf_counter()
+        kshard.sweep_reference(src, dst, on, active, x, col, want, backward)
+        sync()
+        plain += 1e3 * (time.perf_counter() - t0)
+        err = max(err, _max_abs_err([out, prop], [want, want]))
+        s, d = src.long(), dst.long()
+        live = on & active[s] & active[d]
+        if backward:
+            live &= col[s] == col[d]
+            s, d = d, s
+        to, vals = d[live], x[s[live]]
+        lib += _ms_of(lambda: want.scatter_reduce_(0, to, vals, "amax"),
+                      on_card)
+        bound += _bound_ms(9 * E + n * (9 + 4 * backward))
+    rows.append({"name": "scc_sweep", "launches": launches["scc_sweep"],
+                 "replayed": len(rec.calls["scc_sweep"]),
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": bound, "library_ms": lib,
+                 "library_call": "Tensor.scatter_reduce_(0, dst, "
+                                 "values, 'amax') of the live edges"})
+    # applies
+    ms = plain = lib = bound = 0.0
+    err = 0
+    ctl = None
+    for (x, prop), x_out, changed in rec.calls["scc_apply"]:
+        ctl = torch.zeros(2, dtype=torch.int32, device=x.device)
+        xk = x.clone()
+        rec.originals["scc_apply"](xk, prop, ctl)
+        got = [xk, ctl[:1].clone()]
+        xr = x.clone()
+        ms += _kernel_ms(lambda ev: rec.originals["scc_apply"](
+            xr, prop, ctl, events=ev), on_card)
+        xp, ctl_p = x.clone(), torch.zeros(2, dtype=torch.int32,
+                                           device=x.device)
+        sync()
+        t0 = time.perf_counter()
+        kshard.apply_reference(xp, prop, ctl_p)
+        sync()
+        plain += 1e3 * (time.perf_counter() - t0)
+        err = max(err, _max_abs_err(got + [x_out, changed],
+                                     [xp, ctl_p[:1], xp, ctl_p[:1]]))
+        xl = x.clone()
+        lib += _ms_of(lambda: torch.maximum(xl, prop, out=xl), on_card)
+        bound += _bound_ms(12 * x.numel() + 4)
+    rows.append({"name": "scc_apply", "launches": launches["scc_apply"],
+                 "replayed": len(rec.calls["scc_apply"]),
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": bound, "library_ms": lib,
+                 "library_call": "torch.maximum(x, prop, out=x), "
+                                 "without the changed flag"})
+    # steps
+    ms = plain = bound = 0.0
+    err = 0
+    for kind, (active, c, m, out), after in rec.calls["scc_step"]:
+        n = active.numel()
+
+        def fresh():
+            return (active.clone(), c.clone(), m.clone(), out.clone(),
+                    torch.zeros(2, dtype=torch.int32, device=c.device))
+        got = fresh()
+        rec.originals["scc_step"](kind, *got)
+        again = fresh()
+        ms += _kernel_ms(lambda ev: rec.originals["scc_step"](
+            kind, *again, events=ev), on_card)
+        want = fresh()
+        sync()
+        t0 = time.perf_counter()
+        kshard.step_reference(kind, *want)
+        sync()
+        plain += 1e3 * (time.perf_counter() - t0)
+        pairs = list(zip(got[:4], want[:4])) + list(zip(after[:4], want[:4]))
+        if kind == kshard.RETIRE:
+            pairs += [(got[4][1:], want[4][1:]), (after[4], want[4][1:])]
+        err = max(err, _max_abs_err([a for a, _b in pairs],
+                                    [b for _a, b in pairs]))
+        bound += _bound_ms(n * {kshard.INIT: 5, kshard.ROOTS: 9,
+                                kshard.RETIRE: 14}[kind] + 4)
+    rows.append({"name": "scc_step", "launches": launches["scc_step"],
+                 "replayed": len(rec.calls["scc_step"]),
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": bound, "library_ms": None,
+                 "library_call": None})
+    return rows
+
+
+def _shard_launch_counts() -> dict:
+    return {"scc_sweep": kshard.sweep_launches,
+            "scc_apply": kshard.apply_launches,
+            "scc_step": kshard.step_launches}
+
+
+def _zero_counts() -> None:
+    ws.launches = ensemble.launches = 0
+    kshard.sweep_launches = kshard.apply_launches = kshard.step_launches = 0
+
+
+def mesh_path(dev, on_card: bool, hists, ext_ops: int, elle_hists: dict,
+              shards: int = MESH_SHARDS,
+              group_histories: int = MESH_RANK_HISTORIES) -> dict:
+    """Phase 30: the multi-device form (ROADMAP A6) over `shards` shards
+    sharing the card (see the module docstring's item 30). Returns the
+    launches of its main paths and the kernels line's entries of the
+    sharded SCC's kernels and of the ensemble's mesh form."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    seconds = {}
+    mark = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - mark[0]
+        mark[0] = now
+
+    if spmd.spmd_devices() > 1 and on_card:
+        raise AssertionError("the card machine routes launches over "
+                             f"{spmd.spmd_devices()} cards: the main path "
+                             "would not be the one-device launch")
+    m = models.cas_register()
+    mesh = [dev] * shards
+    per_path = {}
+    # (a) the ensemble: phase 12's histories over the mesh and over one
+    # device; reach masks over every start state of 64 of them
+    encs = [encode(m, h) for h in hists]
+    ensemble.check_batch_sharded(encs, mesh=dev)  # warm, as the mesh is
+    sync()
+    t0 = time.perf_counter()
+    one = ensemble.check_batch_sharded(encs, mesh=dev)
+    sync()
+    one_s = time.perf_counter() - t0
+    calls: list = []
+    original = _recording(wgl, "_run", calls)
+    try:
+        _zero_counts()
+        profiler.reset()
+        sync()
+        t0 = time.perf_counter()
+        got = ensemble.check_batch_sharded(encs, mesh=mesh)
+        sync()
+        ens_s = time.perf_counter() - t0
+        per_path["mesh-ensemble"] = ws.launches
+        shard_launches = ensemble.launches
+    finally:
+        wgl._run = original
+    rec = [r for r in profiler.get().records()
+           if r["kernel"] == "wgl-sharded"]
+    ens_mism = int(np.sum(np.asarray(got) != np.asarray(one)))
+    sub = encs[:64]
+    rows = [(i, s) for i, e in enumerate(sub) for s in range(e.n_states)]
+    r1 = ensemble.check_batch_sharded(sub, mesh=dev, reach=True, rows=rows)
+    r4 = ensemble.check_batch_sharded(sub, mesh=mesh, reach=True, rows=rows)
+    reach_mism = sum(int(np.sum(np.asarray(a) != np.asarray(b)))
+                     for a, b in zip(r1, r4))
+    if ens_mism or reach_mism:
+        raise AssertionError(f"mesh ensemble: {ens_mism} verdicts and "
+                             f"{reach_mism} reach rows differ")
+    if on_card and (shard_launches != shards or
+                    per_path["mesh-ensemble"] != shards):
+        raise AssertionError(f"mesh ensemble: {shard_launches} shard "
+                             f"launches, {per_path['mesh-ensemble']} "
+                             f"wgl_search launches for {shards} shards")
+    replays = [_replay(c, on_card) for c in calls]
+    if any(x["max_abs_err"] for x in replays):
+        raise AssertionError("mesh ensemble shards differ from the "
+                             "plain version")
+    emit({"phase": "mesh-ensemble", "shards": shards,
+          "histories": len(encs), "mismatches": ens_mism,
+          "reach_rows": len(rows), "reach_mismatches": reach_mism,
+          "wall_s": ens_s, "one_device_wall_s": one_s,
+          "wgl_search_launches": per_path["mesh-ensemble"],
+          "devices": rec[0]["devices"] if rec else None,
+          "device_entries": rec[0]["device_entries"] if rec else None,
+          "balance": rec[0]["balance"] if rec else None,
+          "kernel_ms": [x["kernel_ms"] for x in replays]})
+    if on_card:
+        ret_s, sleep_s, fired = _returns_before_search(encs[:64], dev,
+                                                       shards)
+        emit({"phase": "mesh-launch-returns", "return_s": ret_s,
+              "queued_sleep_s": sleep_s, "done_at_return": fired})
+        if fired or ret_s >= sleep_s / 2:
+            raise AssertionError(
+                f"a routed launch waited on the card: it returned after "
+                f"{ret_s:.3f} s behind a {sleep_s:.3f} s sleep, its search "
+                f"{'done' if fired else 'not done'}")
+    lap("ensemble")
+    # (a) check_segmented of phase 16's history and its twin, automatic
+    # route over the shards: results and certificates the one-device's
+    ext_hist = synth.register_history(ext_ops, n_procs=5, seed=42)
+    ext_bad = synth.corrupt_register_history(ext_hist, at_frac=0.85)[0]
+    seg_launches = 0
+    for label, h in (("valid", ext_hist), ("invalid", ext_bad)):
+        enc = encode(m, h)
+        sync()
+        t0 = time.perf_counter()
+        want = wgl.check_segmented(enc, witness=True, device=dev)
+        sync()
+        one_s = time.perf_counter() - t0
+        certify.attach_wgl(m, h, enc, want)
+        restore = _shared_card(dev, shards)
+        try:
+            _zero_counts()
+            telemetry.reset()
+            sync()
+            t0 = time.perf_counter()
+            res = wgl.check_segmented(enc, witness=True, device=dev)
+            sync()
+            seg_s = time.perf_counter() - t0
+            launches = ws.launches
+            c = telemetry.get().counters()
+        finally:
+            restore()
+        certify.attach_wgl(m, h, enc, res)
+        certify.validate(h, res["certificate"])
+        same = (_cert_bytes(res) == _cert_bytes(want)
+                and _norm({k: v for k, v in res.items()
+                           if k != "certificate"})
+                == _norm({k: v for k, v in want.items()
+                          if k != "certificate"}))
+        if not same or res["valid?"] is not (label == "valid"):
+            raise AssertionError(f"mesh check_segmented ({label}) differs "
+                                 "from the one-device check")
+        if on_card and c.get("wgl.spmd.launches", 0) < 1:
+            raise AssertionError("check_segmented did not ride the mesh")
+        seg_launches += launches
+        emit({"phase": "mesh-segmented", "history": label,
+              "events": len(h), "segments": res.get("segments"),
+              "shards": shards, "check_s": seg_s, "one_device_check_s": one_s,
+              "wgl_search_launches": launches,
+              "mesh_launches": c.get("wgl.spmd.launches", 0),
+              "mismatches": 0, "certified": True})
+    per_path["mesh-segmented"] = seg_launches
+    lap("segmented")
+    # (b) the sharded SCC: phase 8's twin through the Elle check over the
+    # shards (the automatic route), then each graded subset of phase
+    # 8's graphs and a test_spmd-shaped graph against scc_kernel
+    twin = elle_hists["list-append-corrupted"]
+    # the reference: the one-device cycle search over the edges in the
+    # key-block order the mesh lays them out in (the witness a search
+    # finds in an SCC follows the edge order, as in the JAX package)
+    a = elle_device.DeviceAppendAnalysis(twin)
+    o = np.argsort(a.edge_key, kind="stable")
+    anomalies = dict(a.anomalies)
+    anomalies.update(elle_device.cycle_anomalies_arrays(
+        a.flat.n, a.edge_src[o], a.edge_dst[o], a.edge_ty[o], a._op,
+        device=dev))
+    want = {"valid?": not anomalies, "anomaly-types": sorted(anomalies),
+            "anomalies": {k: v[:8] for k, v in anomalies.items()}}
+    restore = _shared_card(dev, shards)
+    try:
+        with _ShardCalls() as shard_rec:
+            _zero_counts()
+            telemetry.reset()
+            sync()
+            t0 = time.perf_counter()
+            res = elle_device.check_list_append_device(twin, device=dev)
+            sync()
+            elle_s = time.perf_counter() - t0
+            shard_launches = _shard_launch_counts()
+            c = telemetry.get().counters()
+    finally:
+        restore()
+    if _norm({k: res[k] for k in want}) != _norm(want) \
+            or res["valid?"] is not False:
+        raise AssertionError("the Elle check over the shards differs "
+                             f"from the one-device check: "
+                             f"{res['anomaly-types']}")
+    if on_card and not all(shard_launches.values()):
+        raise AssertionError(f"sharded scc launches {shard_launches}")
+    emit({"phase": "mesh-elle", "txns": res["txn-count"],
+          "edges": res["edge-count"], "shards": shards,
+          "anomaly_types": res["anomaly-types"], "check_s": elle_s,
+          "keyblock_layouts": c.get("scc.keyblock-layouts", 0),
+          "scc_device_solves": c.get("scc.path.device", 0),
+          "launches": shard_launches})
+    solves = []
+    scc_mism = 0
+    graphs = []
+    for name in ("list-append", "list-append-corrupted"):
+        a = elle_device.DeviceAppendAnalysis(elle_hists[name])
+        subsets = [None] + [np.isin(a.edge_ty, sub)
+                            for sub in elle_device._SUBSETS[:-1]]
+        graphs.append((name, a.flat.n, a.edge_src, a.edge_dst, a.edge_key,
+                       subsets if name.endswith("corrupted") else [None]))
+    n, src, dst = _spmd_graph(5)
+    graphs.append(("spmd-seed5", n, src, dst, None, [None]))
+    for name, n, src, dst, key, masks in graphs:
+        for k in sorted({2, shards, 8}):
+            edges = scc_mod.Edges(n, src, dst, ekey=key, mesh=[dev] * k)
+            for i, mask in enumerate(masks if k == shards else [None]):
+                want = _scc_one_device(n, src, dst, mask, dev)
+                t0 = time.perf_counter()
+                out = edges.solve_sharded(mask)
+                solve_s = time.perf_counter() - t0
+                mism = int(np.sum(out != want))
+                scc_mism += mism
+                solves.append({"graph": name, "shards": k, "subset": i,
+                               "nodes": n, "live_edges": int(
+                                   len(src) if mask is None else mask.sum()),
+                               "ok": int(out[n]), "rounds": int(out[n + 1]),
+                               "sweeps": int(out[n + 2]),
+                               "mismatches": mism, "solve_s": solve_s})
+    emit({"phase": "mesh-scc", "solves": solves})
+    if scc_mism:
+        raise AssertionError(f"sharded scc differs from scc_kernel in "
+                             f"{scc_mism} values")
+    lap("scc")
+    kernels = shard_kernel_timing(shard_rec, shard_launches, on_card)
+    if any(x["max_abs_err"] for x in kernels):
+        raise AssertionError("scc_shard kernels differ from their plain "
+                             f"versions: {kernels}")
+    lap("scc kernels")
+    # (c) a 2-rank gloo group sharing the card
+    with tempfile.TemporaryDirectory() as tmp:
+        grp = _mesh_group(dev, Path(tmp), group_histories)
+    emit({"phase": "mesh-group", **grp})
+    if grp["mismatches"]:
+        raise AssertionError(f"the 2-rank group differs from the "
+                             f"in-process mesh: {grp['mismatches']}")
+    lap("group")
+    n_cards = torch.cuda.device_count() if on_card else 0
+    emit({"phase": "mesh-nccl", "run": False, "cards": n_cards,
+          "reason": f"NCCL across cards needs two or more cards; this "
+                    f"machine has {n_cards}"})
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "mesh", "seconds": seconds, "wall_s": wall,
+          "budget_s": MESH_BUDGET_S})
+    ens_bytes = sum(x["bytes"] for x in replays)
+    ens_ops = sum(x["operations"] for x in replays)
+    src_path = "jepsen_tpu_torch/gpu/kernels/csrc/scc_shard.cu"
+    entries = [{
+        "name": "wgl_search (ensemble, mesh form)",
+        "route": "cuda",
+        "source": "jepsen_tpu_torch/gpu/kernels/csrc/wgl_search.cu",
+        "replaces": "jepsen_tpu/tpu/ensemble.py:54",
+        "launches": per_path["mesh-ensemble"] + per_path["mesh-segmented"],
+        "launches_per_path": dict(per_path),
+        "shards": shards,
+        "max_abs_err": max(x["max_abs_err"] for x in replays),
+        "mismatches": ens_mism + reach_mism,
+        "ms": (sum(x["kernel_ms"] for x in replays) if on_card else None),
+        "plain_ms": sum(x["plain_ms"] for x in replays),
+        "bound_ms": sum(x["bound_ms"] for x in replays),
+        "bound_by": ("bytes" if ens_bytes / PEAK_BYTES_PER_S
+                     >= ens_ops / PEAK_OPS_PER_S else "operations"),
+        "library_ms": None,
+        "main_path_launches": replays}]
+    for x in kernels:
+        entries.append({"route": "cuda", "source": src_path,
+                        "replaces": "jepsen_tpu/tpu/scc.py:172",
+                        "bound_by": "bytes", **x,
+                        "ms": x["ms"] if on_card else None})
+    return {"kernels": entries, "seconds": wall}
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 10_000, n_elle: int = ELLE_TXNS,
@@ -7348,7 +8003,8 @@ def run(dev: torch.device, n_headline: int = 500_000,
         registry_sizes: dict | None = None,
         a3c_sizes: dict | None = None,
         cli_sizes: dict | None = None,
-        suite_sizes: dict | None = None) -> dict:
+        suite_sizes: dict | None = None,
+        mesh_sizes: dict | None = None) -> dict:
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     # wall seconds of each group of phases, printed before the kernels
@@ -7720,6 +8376,11 @@ def run(dev: torch.device, n_headline: int = 500_000,
     # 29. the static analysis over the kernels' launches
     lint_path(dev, on_card)
     mark("29 lint")
+    # 30. the multi-device form: meshes of shards sharing the card, the
+    # sharded SCC, a 2-rank gloo group
+    mesh = mesh_path(dev, on_card, hists, min(EXTEND_OPS, n_headline),
+                     elle_direct["histories"], **(mesh_sizes or {}))
+    mark("30 mesh")
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}
@@ -7761,11 +8422,12 @@ def run(dev: torch.device, n_headline: int = 500_000,
                          >= sh_ops / PEAK_OPS_PER_S else "operations"),
             "library_ms": None,
             "main_path_launches": sharded,
-        }, scc_entry, bank_entry]
-    # 23 (e) the ledger, (f) the kernels line still lists all three
+        }, scc_entry, bank_entry] + mesh["kernels"]
+    # 23 (e) the ledger, (f) the kernels line still lists every kernel
     ledger_entries(kernels, runs[-1]["check_s"], on_card)
     names = {k["name"] for k in kernels}
-    if not {"wgl_search", "scc", "bank_reduce"} <= names:
+    if not {"wgl_search", "scc", "bank_reduce", "scc_sweep", "scc_apply",
+            "scc_step"} <= names:
         raise AssertionError(f"the kernels line lists {sorted(names)}")
     return {
         "kernels": kernels,

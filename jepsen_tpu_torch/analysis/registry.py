@@ -11,13 +11,18 @@ and no nvcc, and tier-1 runs it on the CPU.
 
 The entries keep the JAX registry's names where a counterpart exists:
 `wgl`, `wgl-reach`, `wgl-segmented` and `wgl-slices` are wgl_search
-launches through gpu/wgl.py's paths, `wgl-sharded` the one-device
-ensemble launch of gpu/ensemble.py, `scc` the capped scc_kernel. Two
-are the port's own: `scc-converge` (scc_converge_kernel, the launch
-after a cap hit) and `bank_reduce`. The JAX registry's `wgl-single` and
-`scc-single` trace the programs its JEPSEN_TPU_SPMD=0 switch selects;
-the port has no such switch and one launch per path, so they have no
-entry here.
+launches through gpu/wgl.py's paths, `wgl-sharded` a shard's launch of
+gpu/ensemble.py's mesh form, `scc` the capped scc_kernel. The others are
+the port's own: `scc-converge` (scc_converge_kernel, the launch after a
+cap hit), `scc-sharded`, `scc-shard-apply` and `scc-shard-step` (the
+sharded colouring's sweep over a shard's edge block, its apply and its
+round steps, kernels/scc_shard.py) and `bank_reduce`. `wgl-sharded` and
+`scc-sharded` carry the partition that gpu/spmd.py's rule tables give
+their launches' arguments and their batch axis, which R4 reads, as in
+the JAX registry. The JAX registry's `wgl-single` and `scc-single`
+trace the programs its JEPSEN_TPU_SPMD=0 switch selects; in the port
+that switch selects launches the other entries already trace, so they
+have no entry here.
 
 Default buckets are the JAX registry's, fixed and deterministic (the
 committed baseline must not depend on what this process happened to
@@ -72,11 +77,13 @@ def _meta(shape, dtype):
 
 
 def _trace(name: str, bucket: str, plan, site, library: dict,
-           carry_outputs: bool) -> LaunchTrace:
+           carry_outputs: bool, partition: dict | None = None,
+           batch_axes: tuple = ()) -> LaunchTrace:
     """A LaunchTrace of one plan. R6's carry is the scratch, plus a
     block's shared memory and the outputs where the frontier lives in
     them (carry_outputs); `library`, in full mode, holds the library's
-    sizes, which must equal the plan's."""
+    sizes, which must equal the plan's. `partition` and `batch_axes`
+    are R4's: the mesh layout of a sharded launch's arguments."""
     outputs = _specs(plan.outputs)
     scratch = 0 if plan.scratch is None else plan.scratch.numel()
     mine = {"scratch_bytes": scratch, "smem_bytes": plan.smem_bytes}
@@ -91,7 +98,8 @@ def _trace(name: str, bucket: str, plan, site, library: dict,
                        args=_specs(plan.args),
                        outputs=outputs, scratch_bytes=scratch,
                        smem_bytes=plan.smem_bytes, carry_bytes=carry,
-                       library=library, file=f, line=ln)
+                       library=library, partition=partition,
+                       batch_axes=list(batch_axes), file=f, line=ln)
 
 
 @dataclass
@@ -108,12 +116,12 @@ class Entry:
 
 # ---------------------------------------------------------------------------
 # wgl_search (check_batch / check_batch_reach / check_segmented /
-# check_slices / the one-device ensemble)
+# check_slices / a shard of the ensemble's mesh form)
 # ---------------------------------------------------------------------------
 
 def _wgl_trace(b: dict, kernel_name: str, full: bool = False
                ) -> LaunchTrace:
-    from ..gpu import ensemble, wgl
+    from ..gpu import ensemble, spmd, wgl
     from ..gpu.kernels import wgl_search as ws
 
     K, M, S, rows = b["K"], b["M"], b["S"], b["rows"]
@@ -133,8 +141,18 @@ def _wgl_trace(b: dict, kernel_name: str, full: bool = False
             "wgl-segmented": wgl._resolve_wave,
             "wgl-slices": wgl.check_slices,
             "wgl-sharded": ensemble.sharded_launch}[kernel_name]
+    if kernel_name != "wgl-sharded":
+        return _trace(kernel_name, b["label"], plan, site, library,
+                      carry_outputs=True)
+    # every wgl entry point rides this launch when more than one card
+    # may be spanned: its layout is what R4 prices
     return _trace(kernel_name, b["label"], plan, site, library,
-                  carry_outputs=True)
+                  carry_outputs=True,
+                  partition=spmd.describe_partition(spmd.WGL_RULES,
+                                                    ensemble.SHARD_ARGS),
+                  batch_axes=[("row_seg", 0,
+                               "independent search rows: one history / "
+                               "(segment, start-state) pair per row")])
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +172,41 @@ def _scc_trace(b: dict, full: bool = False, kernel_name: str = "scc"
                if full else {})
     return _trace(kernel_name, b["label"], plan, scc.Edges.labels_device,
                   library, carry_outputs=False)
+
+
+def _scc_shard_trace(b: dict, full: bool = False,
+                     kernel_name: str = "scc-sharded") -> LaunchTrace:
+    """A launch of the sharded colouring at a bucket whose e_pad is one
+    shard's edge block: its sweep (with the partition of SCC_RULES over
+    the JAX program's arguments and the edge list's batch axis), its
+    apply or its round step. None has scratch or shared memory, so the
+    library has no sizing entry point to ask."""
+    from ..gpu import scc, spmd
+    from ..gpu.kernels import scc_shard as kshard
+
+    n, E = b["n_pad"], b["e_pad"]
+    node = _meta((n,), "int32")
+    if kernel_name == "scc-shard-apply":
+        plan = kshard.apply_plan(node, _meta((n,), "int32"),
+                                 _meta((2,), "int32"))
+        return _trace(kernel_name, b["label"], plan, kshard.scc_apply, {},
+                      carry_outputs=False)
+    if kernel_name == "scc-shard-step":
+        plan = kshard.step_plan(kshard.RETIRE, _meta((n,), "bool"), node,
+                                _meta((n,), "int32"), _meta((n,), "int32"),
+                                _meta((2,), "int32"))
+        return _trace(kernel_name, b["label"], plan, kshard.scc_step, {},
+                      carry_outputs=False)
+    plan = kshard.sweep_plan(_meta((E,), "int32"), _meta((E,), "int32"),
+                             _meta((E,), "bool"), _meta((n,), "bool"),
+                             node, _meta((n,), "int32"),
+                             _meta((n,), "int32"), backward=True)
+    return _trace(kernel_name, b["label"], plan, scc.Edges.solve_sharded,
+                  {}, carry_outputs=False,
+                  partition=spmd.describe_partition(spmd.SCC_RULES,
+                                                    scc.SCC_ARGS),
+                  batch_axes=[("src", 0, "edge list: scatter-max sweeps "
+                               "are per-edge data-parallel")])
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +260,10 @@ SCC_BUCKETS = [
     # elle dependency graphs at the 100k-txn bench scale
     {"label": "N131072xE262144", "n_pad": 131072, "e_pad": 262144},
 ]
+SCC_SHARD_BUCKETS = [
+    # the same graphs over a 4-shard mesh: one shard's edge block
+    {"label": "N131072xE65536", "n_pad": 131072, "e_pad": 65536},
+]
 BANK_BUCKETS = [
     # chip_smoke phase 10's bank_history(500_000, n_accounts=32):
     # ~250,000 reads of 32 balances
@@ -228,7 +285,7 @@ def entries() -> list[Entry]:
         Entry("wgl-sharded",
               functools.partial(_wgl_trace, kernel_name="wgl-sharded"),
               SHARDED_BUCKETS,
-              "check_batch_sharded one-device ensemble launch"),
+              "a shard's launch of the ensemble's mesh form"),
         Entry("wgl-slices",
               functools.partial(_wgl_trace, kernel_name="wgl-slices"),
               SLICES_BUCKETS,
@@ -238,6 +295,16 @@ def entries() -> list[Entry]:
         Entry("scc-converge",
               functools.partial(_scc_trace, kernel_name="scc-converge"),
               SCC_BUCKETS, "the convergence launch after a cap hit"),
+        Entry("scc-sharded", _scc_shard_trace, SCC_SHARD_BUCKETS,
+              "sharded Orzan colouring, a sweep over a shard's edges"),
+        Entry("scc-shard-apply",
+              functools.partial(_scc_shard_trace,
+                                kernel_name="scc-shard-apply"),
+              SCC_SHARD_BUCKETS, "sharded colouring, a sweep's apply"),
+        Entry("scc-shard-step",
+              functools.partial(_scc_shard_trace,
+                                kernel_name="scc-shard-step"),
+              SCC_SHARD_BUCKETS, "sharded colouring, a round's step"),
         Entry("bank_reduce", _bank_trace, BANK_BUCKETS,
               "bank checker's row sums and negative flags"),
     ]
@@ -287,9 +354,9 @@ R1_HOST_ONLY = {
 def kernel_modules() -> list:
     """The kernel wrappers' modules (gpu/kernels/*.py): R1 reads which of
     their functions launch, and R5 their mirrored constants."""
-    from ..gpu.kernels import bank_reduce, scc, wgl_search
+    from ..gpu.kernels import bank_reduce, scc, scc_shard, wgl_search
 
-    return [wgl_search, scc, bank_reduce]
+    return [wgl_search, scc, scc_shard, bank_reduce]
 
 
 # R5: the values compiled into each kernel that its Python side also
@@ -303,6 +370,8 @@ MIRRORS = [
              ("_PRIO_MASK", "kPrioMask"),
              ("FIRST_ROUND_SWEEPS", "kFirstRoundSweeps"),
              ("_MAX_BLOCKS", "kMaxBlocks"), ("_SLOT", "kSlot")]),
+    ("scc_shard", [("INIT", "kInit"), ("ROOTS", "kRoots"),
+                   ("RETIRE", "kRetire")]),
 ]
 
 
@@ -315,12 +384,12 @@ def runtime_wgl_buckets(raw_buckets) -> list[dict]:
     """Translates gpu/wgl.py _compiled_buckets tuples (via
     profiler.shape_buckets()['wgl']) back into traceable bucket dicts,
     each naming its `entry`: `wgl` for _launch's tuples, `wgl-sharded`
-    for the one-device ensemble launch's. Unparseable tuples are
+    for the ensemble launch's (one shard's shape). Unparseable tuples are
     skipped: runtime buckets only ever ADD traces."""
     out = []
     for t in sorted(raw_buckets, key=repr):
         entry = "wgl"
-        if isinstance(t, tuple) and t and t[0] == "one-device":
+        if isinstance(t, tuple) and t and t[0] in ("one-device", "mesh"):
             entry = "wgl-sharded"
             t = t[1:2] + t[2:4] + t[5:]   # drop the tag and inv_perm's len
         try:
@@ -342,15 +411,17 @@ def runtime_wgl_buckets(raw_buckets) -> list[dict]:
 
 def runtime_scc_buckets(raw_buckets) -> list[dict]:
     """Translates gpu/scc.py's launch buckets (via
-    profiler.shape_buckets()['scc']) into bucket dicts for the `scc` and
-    `scc-converge` entries."""
+    profiler.shape_buckets()['scc']) into bucket dicts for the `scc`,
+    `scc-converge` and `scc-sharded` entries (the sharded solve's bucket
+    names one shard's edge block)."""
     out = []
     for t in sorted(raw_buckets, key=repr):
         try:
             entry, n, E, _dev = t
         except (TypeError, ValueError):
             continue
-        if entry in ("scc", "scc-converge") and isinstance(n, int) \
+        if entry in ("scc", "scc-converge", "scc-sharded") \
+                and isinstance(n, int) \
                 and isinstance(E, int):
             out.append({"entry": entry, "label": f"rt-N{n}xE{E}",
                         "n_pad": n, "e_pad": E})

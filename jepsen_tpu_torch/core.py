@@ -18,10 +18,10 @@ A profiled analysis (test["profile?"], test["xla-trace?"] or
 test["profile_dir"]) runs the checkers under a torch.profiler trace
 (util.profile_trace) written into the store directory's `xprof` or
 `xla-trace` directory, or into profile_dir; each run starts the device
-profiler's per-launch records afresh (gpu/profiler.py). One switch of
-the JAX package's run is not ported and raises NotImplementedError
-naming its ROADMAP item instead of being ignored: multi-host
-initialization (JAX_COORDINATOR_ADDRESS / JEPSEN_TPU_MULTIHOST, A6).
+profiler's per-launch records afresh (gpu/profiler.py). Multi-host
+analysis (JAX_COORDINATOR_ADDRESS / JEPSEN_TPU_MULTIHOST) joins its
+process group at lifecycle entry (gpu/dist.py), and a failed join
+raises where the JAX package would go on single-host.
 """
 
 from __future__ import annotations
@@ -29,7 +29,6 @@ from __future__ import annotations
 import datetime
 import errno
 import logging
-import os
 import socket
 import threading
 from pathlib import Path
@@ -461,19 +460,13 @@ def log_results(test: dict) -> dict:
     return test
 
 
-def _refuse_unported(test: dict) -> None:
-    """Raises for a switch of the JAX package's run that the port does
-    not have, before anything of the run starts."""
-    if (os.environ.get("JAX_COORDINATOR_ADDRESS")
-            or os.environ.get("JEPSEN_TPU_MULTIHOST")):
-        raise NotImplementedError(
-            "multi-host analysis is not ported: one process, one card "
-            "(ROADMAP A6)")
-
-
 def run(test: dict) -> dict:
     """Full lifecycle (core.clj:322-412)."""
-    _refuse_unported(test)
+    # multi-host analysis: the process group forms at lifecycle entry,
+    # before any launch; a failure raises (gpu/dist.py)
+    from .gpu import dist
+
+    dist.ensure_initialized()
     test = prepare_test(test)
 
     store_ctx = None

@@ -33,7 +33,7 @@ from .. import history as h
 from .. import telemetry
 from ..device import resolve_device
 from ..history import History
-from . import profiler
+from . import profiler, spmd
 from . import scc as scc_mod
 from .elle import (EDGE_NAMES, PROC, RT, RW, WR, WW, Txn, _classify,
                    _find_cycle, collect, order_edges_from_arrays)
@@ -219,7 +219,8 @@ class DeviceAppendAnalysis:
         self._resolve_writers()
         self._spines()
         self._read_anomalies()
-        self.edge_src, self.edge_dst, self.edge_ty = self._edges()
+        (self.edge_src, self.edge_dst, self.edge_ty,
+         self.edge_key) = self._edges()
 
     def _flatten(self, hist: History):
         from .. import native
@@ -461,13 +462,20 @@ class DeviceAppendAnalysis:
         srcs: list[np.ndarray] = []
         dsts: list[np.ndarray] = []
         tys: list[np.ndarray] = []
+        kks: list[np.ndarray] = []
 
-        def emit(s, d, ty):
+        def emit(s, d, ty, kk=None):
+            # kk: the key each dependency edge belongs to (-1 for
+            # cross-key session/realtime order): the sharded SCC's
+            # key-block layout (gpu/scc.py)
             s = np.asarray(s, dtype=np.int64)
             if s.size:
                 srcs.append(s)
                 dsts.append(np.asarray(d, dtype=np.int64))
                 tys.append(np.full(s.size, ty, dtype=np.int64))
+                kks.append(np.full(s.size, -1, dtype=np.int64)
+                           if kk is None
+                           else np.asarray(kk, dtype=np.int64))
 
         # ww: consecutive distinct valid writers along each spine
         if len(self.w_txn):
@@ -483,15 +491,17 @@ class DeviceAppendAnalysis:
         if vt.size > 1:
             same = vk[1:] == vk[:-1]
             diff = vt[1:] != vt[:-1]
-            emit(vt[:-1][same & diff], vt[1:][same & diff], WW)
+            emit(vt[:-1][same & diff], vt[1:][same & diff], WW,
+                 vk[1:][same & diff])
         # wr and rw from each non-empty read's last element
         nz, last_pid = self.nz_reads, self.last_pid
         reader = f.rd_txn[nz]
+        rkey = f.rd_key[nz]
         if len(self.w_txn):
             wi = np.clip(last_pid, 0, None)
             has_w = (last_pid >= 0) & (self.w_txn[wi] >= 0)
             wr_ok = has_w & (self.w_txn[wi] != reader) & ~self.w_fail[wi]
-            emit(self.w_txn[wi[wr_ok]], reader[wr_ok], WR)
+            emit(self.w_txn[wi[wr_ok]], reader[wr_ok], WR, rkey[wr_ok])
             # nxt is value-based (host keys its dict by raw value), so
             # the anti-dependency fires even when the read's last
             # element itself has no writer (unobservable value)
@@ -500,7 +510,7 @@ class DeviceAppendAnalysis:
             ni = np.where(has_n, nxt, 0)
             rw_ok = has_n & (self.w_txn[ni] >= 0) & \
                 (self.w_txn[ni] != reader) & ~self.w_fail[ni]
-            emit(reader[rw_ok], self.w_txn[ni[rw_ok]], RW)
+            emit(reader[rw_ok], self.w_txn[ni[rw_ok]], RW, rkey[rw_ok])
         # empty reads: rw to first spine writer + off-spine writers
         ez = np.flatnonzero(f.rd_len == 0)
         if ez.size:
@@ -536,7 +546,8 @@ class DeviceAppendAnalysis:
                 np.concatenate([[0], np.cumsum(reps)])[:-1], reps)
             er_dst = tk_txn[base + step]
             keep = er_src != er_dst
-            emit(er_src[keep], er_dst[keep], RW)
+            emit(er_src[keep], er_dst[keep], RW,
+                 np.repeat(ek, reps)[keep])
         # session order + realtime: the host engine's sweep, shared
         comm = np.flatnonzero(self.flat.t_type == _TYPE_OK)
         if comm.size:
@@ -547,37 +558,54 @@ class DeviceAppendAnalysis:
                 srcs.append(o_src)
                 dsts.append(o_dst)
                 tys.append(o_ty)
+                kks.append(np.full(o_src.size, -1, dtype=np.int64))
         if not srcs:
             e = np.empty(0, dtype=np.int64)
-            return e, e, e
+            return e, e, e, e
         src = np.concatenate(srcs)
         dst = np.concatenate(dsts)
         ty = np.concatenate(tys)
+        kk = np.concatenate(kks)
         code = (src * (self.flat.n + 1) + dst) * 8 + ty
         _, keep = np.unique(code, return_index=True)
         keep.sort()
-        return src[keep], dst[keep], ty[keep]
+        return src[keep], dst[keep], ty[keep], kk[keep]
 
 
 _SUBSETS = ((WW,), (WW, WR), (WW, WR, RW), (WW, WR, RW, PROC),
             (WW, WR, RW, PROC, RT))
 
 
-def cycle_anomalies_arrays(n: int, src, dst, ty, txns,
-                           device=None) -> dict[str, list]:
+def cycle_anomalies_arrays(n: int, src, dst, ty, txns, device=None,
+                           ekey=None) -> dict[str, list]:
     """elle.cycle_anomalies over edge arrays: SCCs per cumulative edge
     subset via the SCC kernel, witnesses extracted host-side. txns is
     either a Txn list or a callable ti -> witness op (the lazy accessor
     of the native flattening path). device: None (the card) or "cpu"
-    (the kernel's plain version)."""
+    (the kernel's plain version). ekey: per-edge key ids for the sharded
+    SCC's key-block edge layout."""
     op_of = txns if callable(txns) else (lambda i: txns[i].op)
     out: dict[str, list] = defaultdict(list)
     if not len(src):
         return out
+    if (ekey is not None and len(ekey) == len(src)
+            and len(src) >= scc_mod.DEVICE_MIN_EDGES
+            and spmd.route(resolve_device(device), len(src)) is not None):
+        # order edges into key blocks ONCE: up to six SCC solves below
+        # share the same edge array (only the subset mask differs), and
+        # Edges skips its own argsort when the array is already
+        # key-sorted. Gated as Edges's sharded layout is: anywhere else
+        # the layout is never used and the sort and copies would be
+        # pure overhead.
+        order = np.argsort(np.asarray(ekey), kind="stable")
+        src = np.asarray(src)[order]
+        dst = np.asarray(dst)[order]
+        ty = np.asarray(ty)[order]
+        ekey = np.asarray(ekey)[order]
     # Early exit: subset edges are subsets of the full graph, so a
     # clean full graph proves every graded subset clean too — valid
     # histories cost ONE device SCC instead of five.
-    graph = scc_mod.Edges(n, src, dst, device)
+    graph = scc_mod.Edges(n, src, dst, device, ekey=ekey)
     full = graph.scc()
     if not scc_mod.nontrivial_from_labels(full):
         return out
@@ -651,7 +679,7 @@ def _cycle_result(a, device, rec: dict) -> dict:
     with telemetry.span("elle:cycles"), prof.phase(rec, "compute_ns"):
         for name, ws in cycle_anomalies_arrays(
                 a.flat.n, a.edge_src, a.edge_dst, a.edge_ty, a._op,
-                device=device).items():
+                device=device, ekey=a.edge_key).items():
             anomalies[name] = ws
     prof.finish(rec)
     return {
@@ -897,11 +925,15 @@ class DeviceRwAnalysis:
         src: list = []
         dst: list = []
         ty: list = []
+        kks: list = []
 
-        def emit(s, d, t):
+        def emit(s, d, t, kk=None):
             src.append(np.asarray(s, dtype=np.int64))
             dst.append(np.asarray(d, dtype=np.int64))
             ty.append(np.full(len(s), t, dtype=np.int64))
+            kks.append(np.full(len(s), -1, dtype=np.int64)
+                       if kk is None
+                       else np.asarray(kk, dtype=np.int64))
 
         # -- reads: unobservable / G1a / G1b + wr edges
         if len(f.rd_txn):
@@ -938,7 +970,7 @@ class DeviceRwAnalysis:
                     "value": int(f.rd_val[i]),
                     "op": self._op(f.rd_txn[i]),
                     "writer": self._op(inter[i])})
-            emit(wt[ext], f.rd_txn[ext], WR)
+            emit(wt[ext], f.rd_txn[ext], WR, f.rd_key[ext])
 
         # -- write-follows-read: ww edges + version succession
         if len(f.fr_txn):
@@ -946,7 +978,7 @@ class DeviceRwAnalysis:
             ok = pw_pid >= 0
             pw = np.where(ok, self.w_txn[np.clip(pw_pid, 0, None)], -1)
             m = ok & (pw >= 0) & (pw != f.fr_txn)
-            emit(pw[m], f.fr_txn[m], WW)
+            emit(pw[m], f.fr_txn[m], WW, f.fr_key[m])
             # succ[(k, prev)] = new, last in txn order wins
             fp = _pack(f.fr_key, f.fr_prev)
             order = np.argsort(fp, kind="stable")
@@ -972,7 +1004,7 @@ class DeviceRwAnalysis:
                           self.w_txn[np.clip(w2_pid, 0, None)], -1)
             m = (w2_ok & (w2 >= 0) & (w2 != f.er_txn)
                  & (f.t_type[np.clip(w2, 0, None)] == _TYPE_OK))
-            emit(f.er_txn[m], w2[m], RW)
+            emit(f.er_txn[m], w2[m], RW, f.er_key[m])
 
         fl = self.flat
         comm = np.flatnonzero(fl.t_type == _TYPE_OK)
@@ -981,11 +1013,14 @@ class DeviceRwAnalysis:
         src.append(o_src)
         dst.append(o_dst)
         ty.append(o_ty)
+        kks.append(np.full(o_src.size, -1, dtype=np.int64))
         self.edge_src = np.concatenate(src) if src else \
             np.empty(0, dtype=np.int64)
         self.edge_dst = np.concatenate(dst) if dst else \
             np.empty(0, dtype=np.int64)
         self.edge_ty = np.concatenate(ty) if ty else \
+            np.empty(0, dtype=np.int64)
+        self.edge_key = np.concatenate(kks) if kks else \
             np.empty(0, dtype=np.int64)
 
 

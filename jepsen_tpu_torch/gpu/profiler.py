@@ -3,7 +3,7 @@ jepsen_tpu/tpu/profiler.py, on CUDA events).
 
 telemetry.py answers "where did the run spend its time?"; this module
 answers "what did the device DO with it?". Every kernel launch site
-(gpu/wgl.py's `_launch`/`_drain`, the one-device ensemble launch in
+(gpu/wgl.py's `_launch`/`_drain`, the ensemble launch over a mesh in
 gpu/ensemble.py, gpu/scc.py's `Edges.labels_device`, the Elle device
 checks in gpu/elle_device.py, plus the host-side encode, pack and
 shard-layout stages that feed them) reports a per-launch record:
@@ -33,8 +33,9 @@ shard-layout stages that feed them) reports a per-launch record:
     the JAX package. `compile_ns` is the time to build or load the
     kernel's library (gpu/kernels/build.py), recorded on the process's
     first recorded launch of that kernel;
-  - for the one-device ensemble layout: the per-device work attribution
-    (entries of search work per device) and its balance figure.
+  - for the ensemble layout over a mesh: the per-device work
+    attribution (entries of search work per device) and its balance
+    figure.
 
 The JAX package's XLA parts have no counterpart and are not ported:
 the lowered-HLO cost analysis (`_fresh_bucket_cost`), the memory
@@ -368,7 +369,7 @@ class Profiler:
         """Every launch-shape bucket this process has seen, per launch
         site: this recorder's own seen-sets (scc) merged with the wgl
         launch family's _compiled_buckets claim set (which the wgl and
-        one-device ensemble launch paths share)."""
+        ensemble launch paths share)."""
         with self._lock:
             out = {site: set(s)
                    for site, s in self._seen_buckets.items()}

@@ -26,9 +26,23 @@ Tarjan-equivalent) outright, as in the reference's dispatch.
 Edge subsets (elle checks cycles over WW, WW+WR, ... cumulative edge
 classes) are boolean edge masks over ONE shared edge array: an Edges
 object checks and uploads src and dst once for all its launches. The
-JAX package's sharded form, its key-block edge layout and its
-shape-bucket padding are not ported: the port launches on one card at
+JAX package's shape-bucket padding is not ported: the port launches at
 exact sizes.
+
+The sharded form (jepsen_tpu/tpu/scc.py:172 `_jitted_scc_sharded`):
+over a mesh of more than one shard (gpu/spmd.py; the automatic one when
+more than one card may be spanned) and at least DEVICE_MIN_EDGES edges,
+an Edges object orders its edges into key blocks by `ekey` (the per-edge
+key id of elle's edge inference; a stable sort, skipped when they are
+already in order), splits them into one contiguous block a shard, and
+solves with the colours replicated: the host drives the JAX program's
+rounds and sweeps under its caps, and each sweep is one
+kernels.scc_shard sweep a shard over its block, then the combine of the
+shards' results (pmax: an elementwise max onto the first shard's device,
+and dist.all_reduce(MAX) across ranks), then one apply. The combined
+sweep equals the unsharded scatter-max, so labels, ok, rounds and sweeps
+equal scc_kernel's on the same graph. After a cap hit the convergence
+launch runs on the first shard's device over the whole edge list.
 """
 
 from __future__ import annotations
@@ -40,9 +54,15 @@ import torch
 
 from .. import telemetry
 from ..device import resolve_device
-from . import profiler
+from . import dist, profiler, spmd
 from .kernels import build as kbuild
 from .kernels import scc as kernel
+from .kernels import scc_shard as kshard
+
+# The JAX program's argument names (tpu/scc.py:155): the partition-rule
+# table in gpu/spmd.py lays them out over the mesh, and the lint
+# registry traces the sharded sweep with that layout.
+SCC_ARGS = ("active", "src", "dst", "edge_on")
 
 # Below this edge count the host path wins on dispatch overhead alone.
 # The JAX package's threshold, kept for parity; it was tuned on a TPU.
@@ -53,10 +73,14 @@ class Edges:
     """One edge array over n nodes: endpoints checked once, and src and
     dst uploaded to the device once, at the first launch, for every
     edge mask solved over it. device: None (the card) or "cpu" (the
-    plain version)."""
+    plain version); or mesh: a Mesh, a device list or one device, whose
+    shards split the edges when there are more than one (module
+    docstring). ekey: per-edge key ids that order the sharded layout."""
 
-    def __init__(self, n: int, src, dst, device=None):
-        self.dev = resolve_device(device)
+    def __init__(self, n: int, src, dst, device=None, ekey=None,
+                 mesh=None):
+        if mesh is not None and device is not None:
+            raise ValueError("pass a device or a mesh, not both")
         self.n = n
         self.src = np.ascontiguousarray(src, dtype=np.int32)
         self.dst = np.ascontiguousarray(dst, dtype=np.int32)
@@ -66,11 +90,34 @@ class Edges:
         if len(self.src) and (min(self.src.min(), self.dst.min()) < 0
                               or max(self.src.max(), self.dst.max()) >= n):
             raise ValueError(f"edge endpoints outside [0, {n})")
+        if mesh is None:
+            self.dev = resolve_device(device)
+            self.mesh = spmd.route(self.dev, len(self.src))
+        else:
+            self.mesh = spmd.as_mesh(mesh)
+            self.dev = self.mesh.home()
+        self.sharded = (self.mesh is not None and self.mesh.size > 1
+                        and len(self.src) >= DEVICE_MIN_EDGES)
+        # this object's edge j is the caller's edge _order[j] once the
+        # key-block layout reorders them
+        self._order = None
+        if self.sharded:
+            telemetry.gauge_max("scc.spmd.devices", self.mesh.size)
+            if ekey is not None and len(ekey) == len(self.src):
+                ekey = np.asarray(ekey)
+                if np.any(ekey[:-1] > ekey[1:]):
+                    self._order = np.argsort(ekey, kind="stable")
+                    self.src = self.src[self._order]
+                    self.dst = self.dst[self._order]
+                telemetry.count("scc.keyblock-layouts")
         self._on_device = None
+        self._blocks = None
 
     def _mask(self, emask) -> np.ndarray:
-        return (np.ones(len(self.src), dtype=bool) if emask is None
-                else np.ascontiguousarray(emask, dtype=bool))
+        if emask is None:
+            return np.ones(len(self.src), dtype=bool)
+        on = np.ascontiguousarray(emask, dtype=bool)
+        return on if self._order is None else on[self._order]
 
     def labels_device(self, emask=None, to_convergence: bool = False
                       ) -> np.ndarray | None:
@@ -83,6 +130,9 @@ class Edges:
         n = self.n
         if n == 0:
             return np.empty(0, dtype=np.int32)
+        if self.sharded and not to_convergence:
+            out = self.solve_sharded(emask)
+            return out[:n] if out[n] else None
         E = len(self.src)
         launch = (kernel.scc_labels_to_convergence if to_convergence
                   else kernel.scc_labels)
@@ -139,6 +189,62 @@ class Edges:
             return None
         return labels[:n]
 
+    def _shard_blocks(self) -> list:
+        """(device, src, dst) of each shard this rank launches: the
+        edges split into mesh.size contiguous blocks of e_blk, the last
+        padded (its padding is never live), each uploaded once."""
+        if self._blocks is None:
+            k = self.mesh.size
+            e_blk = -(-len(self.src) // k)
+            self._e_blk = e_blk
+            self._blocks = []
+            for d in self.mesh.local():
+                lo, hi = d * e_blk, min((d + 1) * e_blk, len(self.src))
+                dev = self.mesh.devices[d]
+                self._blocks.append(tuple(
+                    [dev] + [torch.from_numpy(_padded(a[lo:hi], e_blk)).to(dev)
+                             for a in (self.src, self.dst)]))
+        return self._blocks
+
+    def solve_sharded(self, emask=None) -> np.ndarray:
+        """The sharded solve (module docstring) of the masked edges:
+        int32 [n + 3], labels, ok, rounds and sweeps, as scc_kernel's.
+        Makes an `scc` profiler record with `devices`; its compute_ns is
+        the host's wall time of the rounds, which wait for the card once
+        a sweep."""
+        n, mesh = self.n, self.mesh
+        on = self._mask(emask)
+        prof = profiler.get()
+        blocks = self._shard_blocks()
+        bucket = ("scc-sharded", n, self._e_blk, self.dev.type)
+        rec = prof.begin("scc", bucket=bucket, nodes=n, edges=len(on),
+                         devices=mesh.size)
+        fresh = prof.bucket_fresh("scc", bucket)
+        try:
+            with telemetry.span("scc:device", device=self.dev.type,
+                                devices=mesh.size):
+                t0 = monotonic_ns()
+                ons = [torch.from_numpy(_padded(
+                    on[d * self._e_blk:(d + 1) * self._e_blk],
+                    self._e_blk)).to(dev)
+                    for d, (dev, _s, _d) in zip(mesh.local(), blocks)]
+                rec["h2d_ns"] = monotonic_ns() - t0
+                t0 = monotonic_ns()
+                out = _ShardedSolve(n, mesh, self.dev, blocks, ons).run()
+                rec["compute_ns"] = rec["dispatch_ns"] = monotonic_ns() - t0
+                compile_ns = kbuild.take_load_ns("scc_shard")
+                if compile_ns:
+                    rec["compile_ns"] = compile_ns
+            rec.update(prof.bucket_cost(
+                bucket, lambda: profiler.scc_cost(n, len(on), n + 3), fresh))
+        except BaseException:
+            if fresh:
+                prof.bucket_unclaim("scc", bucket)
+            raise
+        finally:
+            prof.finish(rec)
+        return out
+
     def scc(self, emask=None) -> np.ndarray:
         """SCC labels (component max-id per node) of the masked edges:
         the device kernel, followed by the convergence launch when the
@@ -152,24 +258,110 @@ class Edges:
         telemetry.count("scc.nodes", n)
         telemetry.count("scc.edges", n_live)
         if n_live >= DEVICE_MIN_EDGES:
-            labels = self.labels_device(on)
+            # the caller's mask: labels_device lays it out itself
+            labels = self.labels_device(emask)
             if labels is None:
                 telemetry.count("scc.device-nonconverged")
-                labels = self.labels_device(on, to_convergence=True)
+                labels = self.labels_device(emask, to_convergence=True)
             telemetry.count("scc.path.device")
             return labels
         telemetry.count("scc.path.host")
         return _scc_host(n, self.src[on], self.dst[on])
 
 
-def scc_device(n: int, src, dst, emask=None,
-               device=None) -> np.ndarray | None:
+def _padded(a: np.ndarray, size: int) -> np.ndarray:
+    """`a` padded with zeros (never-live edges: their edge_on is False)
+    to `size` entries."""
+    if len(a) == size:
+        return np.ascontiguousarray(a)
+    out = np.zeros(size, dtype=a.dtype)
+    out[:len(a)] = a
+    return out
+
+
+class _ShardedSolve:
+    """The host-driven Orzan program over a mesh's edge blocks: the JAX
+    program's rounds and sweeps (tpu/scc.py:64-146) with its caps, each
+    sweep a kshard.scc_sweep a shard, the combine, and a kshard.scc_apply.
+    The colours, the membership marks and the active set live on the
+    home device, with a copy on each other device a shard uses."""
+
+    def __init__(self, n, mesh, home, blocks, ons):
+        self.n, self.mesh, self.home = n, mesh, home
+        self.blocks, self.ons = blocks, ons
+        i32 = dict(dtype=torch.int32, device=home)
+        self.active = torch.ones(n, dtype=torch.bool, device=home)
+        self.c = torch.empty(n, **i32)
+        self.m = torch.empty(n, **i32)
+        self.out = torch.full((n,), -1, **i32)
+        self.ctl = torch.zeros(2, **i32)
+        self.props = [torch.empty(n, dtype=torch.int32, device=dev)
+                      for dev, _s, _d in blocks]
+        self.group = dist.world_size() > 1
+
+    def _on(self, t: torch.Tensor, dev: torch.device, cache: dict):
+        if dev == self.home:
+            return t
+        key = (id(t), dev)
+        if key not in cache:
+            cache[key] = t.to(dev)
+        return cache[key]
+
+    def _fixpoint(self, x: torch.Tensor, backward: bool) -> tuple:
+        """Sweeps to a fixpoint of x, or to SWEEP_CAP; (converged,
+        sweeps)."""
+        it, changed = 0, True
+        col = self.c
+        while changed and it < kernel.SWEEP_CAP:
+            cache: dict = {}
+            for (dev, src, dst), on, prop in zip(self.blocks, self.ons,
+                                                 self.props):
+                kshard.scc_sweep(src, dst, on,
+                                 self._on(self.active, dev, cache),
+                                 self._on(x, dev, cache),
+                                 self._on(col, dev, cache), prop, backward)
+            # the combine: pmax over the shards, then across ranks
+            if self.props:
+                prop = self.props[0].to(self.home)
+                for q in self.props[1:]:
+                    torch.maximum(prop, q.to(self.home), out=prop)
+            else:
+                prop = torch.full((self.n,), 0 if backward else -1,
+                                  dtype=torch.int32, device=self.home)
+            if self.group:
+                dist.all_reduce_(prop, "max")
+            kshard.scc_apply(x, prop, self.ctl)
+            changed = bool(self.ctl[0].item())
+            it += 1
+        return not changed, it
+
+    def run(self) -> np.ndarray:
+        ok, rounds, sweeps, left = True, 0, 0, self.n
+        args = (self.active, self.c, self.m, self.out, self.ctl)
+        while ok and left and rounds < kernel.ROUND_CAP:
+            kshard.scc_step(kshard.INIT, *args)
+            ok_f, it_f = self._fixpoint(self.c, backward=False)
+            kshard.scc_step(kshard.ROOTS, *args)
+            ok_b, it_b = self._fixpoint(self.m, backward=True)
+            kshard.scc_step(kshard.RETIRE, *args)
+            left = int(self.ctl[1].item())
+            ok = ok and ok_f and ok_b
+            rounds += 1
+            sweeps += it_f + it_b
+        labels = self.out.cpu().numpy()
+        return np.concatenate([labels, np.array(
+            [int(ok and not left), rounds, sweeps], dtype=np.int32)])
+
+
+def scc_device(n: int, src, dst, emask=None, device=None, ekey=None,
+               mesh=None) -> np.ndarray | None:
     """SCC labels per node (label = the component's max node id), or
     None when the JAX program's iteration caps were hit. Singleton
     components get their own id, so callers test non-triviality by
     label multiplicity. device: None (the card) or "cpu" (the plain
-    version)."""
-    return Edges(n, src, dst, device).labels_device(emask)
+    version); mesh and ekey: see Edges."""
+    return Edges(n, src, dst, device, ekey=ekey,
+                 mesh=mesh).labels_device(emask)
 
 
 def _scc_host(n: int, src, dst) -> np.ndarray:
@@ -188,11 +380,13 @@ def _scc_host(n: int, src, dst) -> np.ndarray:
     return rep[comp]
 
 
-def scc(n: int, src, dst, emask=None, device=None) -> np.ndarray:
+def scc(n: int, src, dst, emask=None, device=None, ekey=None,
+        mesh=None) -> np.ndarray:
     """SCC labels (component max-id per node); see Edges.scc. device:
     None (the card) or "cpu" (the plain version); it is resolved even
-    when the graph is small, so the card is never skipped silently."""
-    return Edges(n, src, dst, device).scc(emask)
+    when the graph is small, so the card is never skipped silently.
+    mesh and ekey: see Edges."""
+    return Edges(n, src, dst, device, ekey=ekey, mesh=mesh).scc(emask)
 
 
 def nontrivial_from_labels(labels: np.ndarray) -> list[np.ndarray]:
@@ -213,8 +407,9 @@ def nontrivial_from_labels(labels: np.ndarray) -> list[np.ndarray]:
     return groups
 
 
-def nontrivial_sccs(n: int, src, dst, emask=None,
-                    device=None) -> list[np.ndarray]:
+def nontrivial_sccs(n: int, src, dst, emask=None, device=None, ekey=None,
+                    mesh=None) -> list[np.ndarray]:
     if n == 0:
         return []
-    return nontrivial_from_labels(scc(n, src, dst, emask, device=device))
+    return nontrivial_from_labels(scc(n, src, dst, emask, device=device,
+                                      ekey=ekey, mesh=mesh))

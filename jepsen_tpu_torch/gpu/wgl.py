@@ -19,9 +19,10 @@ The algorithm is the JAX package's, unchanged:
 - Deduplication is a sort + unique-compaction of the successor keys each
   level (kernels/wgl_search.py, csrc/wgl_search.cu).
 
-Every device launch goes through `_launch` (or, for the one-device
-ensemble layout, gpu/ensemble.py) into the hand-written CUDA kernel (or,
-for tensors on the CPU, its plain PyTorch version). A launch returns
+Every device launch goes through `_launch` (or, over a mesh of
+shards, gpu/ensemble.py, where `_launch` routes when more than one card
+may be spanned) into the hand-written CUDA kernel (or, for tensors on
+the CPU, its plain PyTorch version). A launch returns
 before its search ends and `_drain` waits on that launch's own event, so
 the batch entry points (`analysis_batch_streamed`) overlap one chunk's
 host encoding with the previous chunk's search. Both go through
@@ -53,7 +54,7 @@ from ..device import resolve_device
 from ..history import History
 from ..store import format as sformat
 from . import ckpt as ckpt_mod
-from . import profiler
+from . import profiler, spmd
 from .encode import INF, Encoded, EncodingError, encode
 from .kernels import build as kbuild
 from .kernels import wgl_search as kernel
@@ -406,17 +407,27 @@ def _upload(parts: Sequence[np.ndarray], device: torch.device
 
 class Launch:
     """One search in flight: its outputs (host tensors once `done` has
-    fired), the CUDA events around its kernel, `done`, the event
-    recorded after the copies of its outputs to the host, and `held`,
-    the device bytes the launch holds (inputs, kernel outputs and their
-    gathered copies). On the CPU the outputs are ready and the events
-    are None."""
+    fired), `events`, the (device, start, end) CUDA events around each
+    of its kernels (one for a launch on one device, one a shard for a
+    sharded launch), `done`, the event recorded after the copies of its
+    outputs to the host, and `held`, the device bytes the launch holds
+    (inputs, kernel outputs and their gathered copies). On the CPU the
+    outputs are ready and there are no events."""
 
-    __slots__ = ("outs", "start", "end", "done", "held")
+    __slots__ = ("outs", "events", "done", "held")
 
-    def __init__(self, outs, start=None, end=None, done=None, held=None):
-        self.outs, self.start, self.end, self.done = outs, start, end, done
+    def __init__(self, outs, events=(), done=None, held=None):
+        self.outs, self.events, self.done = outs, list(events), done
         self.held = held
+
+    def device_ms(self) -> float | None:
+        """The kernels' time between their events: summed on each device
+        (its kernels run one after another on its stream), the longest
+        device's; None on the CPU."""
+        per: dict = {}
+        for dev, start, end in self.events:
+            per[dev] = per.get(dev, 0.0) + start.elapsed_time(end)
+        return max(per.values()) if per else None
 
 
 def _nbytes(tensors) -> int:
@@ -424,37 +435,42 @@ def _nbytes(tensors) -> int:
 
 
 def _run(packed, rs, s0, W: int, F: int, max_iters: int, reach: bool,
-         crash_free: bool, gather: torch.Tensor | None = None) -> Launch:
+         crash_free: bool, to_host: bool = True) -> Launch:
     """Launches the kernel over uploaded tensors without waiting for it.
-    `gather` (int32 row indices on the same device) reorders and trims the
-    per-row outputs on the device before they are read back. On the card
-    the launcher records the `start` and `end` events just around the
-    kernel (their interval is the kernel's time alone, whatever the host
-    waits for around the call), the outputs are then copied into pinned
-    host buffers with non_blocking=True, and an event is recorded after
-    the copies, all in the current stream's order: the host returns at
-    once, and _drain waits on that event alone."""
-    on_card = rs.device.type == "cuda"
-    start = end = done = None
-    if on_card:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+    With to_host=False the outputs stay on the device (a shard of a
+    sharded launch, whose outputs are combined first: gpu/ensemble.py).
+    On the card the launcher records the `start` and `end` events just
+    around the kernel (their interval is the kernel's time alone,
+    whatever the host waits for around the call), the outputs are then
+    copied into pinned host buffers with non_blocking=True, and an event
+    is recorded after the copies, all in the current stream's order: the
+    host returns at once, and _drain waits on that event alone."""
+    events = _events(rs.device)
     outs = kernel.wgl_search(packed, rs, s0, W=W, F=F, max_iters=max_iters,
                              reach=reach, crash_free=crash_free,
-                             events=(start, end) if on_card else None)
+                             events=events[0][1:] if events else None)
     held = _nbytes((*packed, rs, s0, *outs))
-    if gather is not None:
-        n_res = 2 if reach else 1
-        idx = gather.to(torch.int64)
-        # uint32 masks travel as int32: the same bits, and an index_select
-        # that every backend has
-        outs = tuple(
-            o.view(torch.int32).index_select(0, idx).view(torch.uint32)
-            if o.dtype == torch.uint32 else o.index_select(0, idx)
-            for o in outs[:n_res]) + tuple(outs[n_res:])
-        held += _nbytes((gather, *outs[:n_res]))
-    if not on_card:
-        return Launch(outs, held=held)
+    if not to_host:
+        return Launch(outs, events, held=held)
+    return _to_host(outs, events, held)
+
+
+def _events(device: torch.device) -> list:
+    """[(device, start, end)] timing events for one kernel on `device`,
+    or [] on the CPU."""
+    if device.type != "cuda":
+        return []
+    return [(device, torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))]
+
+
+def _to_host(outs, events: list, held: int) -> Launch:
+    """The Launch of device outputs `outs`: on the card, copied into
+    pinned host buffers with non_blocking=True and an event recorded
+    after the copies, in the current stream's order, so the host returns
+    at once and _drain waits on that event alone."""
+    if not outs or outs[0].device.type != "cuda":
+        return Launch(outs, events, held=held)
     host = []
     for o in outs:
         h = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
@@ -462,7 +478,7 @@ def _run(packed, rs, s0, W: int, F: int, max_iters: int, reach: bool,
         host.append(h)
     done = torch.cuda.Event()
     done.record()
-    return Launch(tuple(host), start, end, done, held)
+    return Launch(tuple(host), events, done, held)
 
 
 # launch shape buckets this process has already seen: the first launch
@@ -474,8 +490,8 @@ _buckets_lock = _threading.Lock()
 
 def _timed_launch(bucket, dispatch, kernel: str, meta: dict) -> Launch:
     """Runs a kernel-dispatch thunk with first-sight-per-bucket cache
-    accounting. Shared by `_launch` below and the one-device ensemble
-    launch (gpu/ensemble.py); their bucket tuples differ in shape so one
+    accounting. Shared by `_launch` below and the ensemble launch over a
+    mesh (gpu/ensemble.py); their bucket tuples differ in shape so one
     seen-set serves both. The bucket is CLAIMED under a lock before the
     launch: concurrent checkers (compose fans out over a thread pool)
     racing on the same bucket record one miss, not two.
@@ -526,8 +542,21 @@ def _launch(pb: PackedBatch, rows: Sequence[tuple[int, int]], W: int,
             F: int, reach: bool, device: torch.device) -> Launch:
     """Dispatches one batched search over (segment, start-state) rows
     without waiting for it (drain it with _drain). Every wgl entry point
-    funnels through here."""
-    row_seg, st0 = pb.rows(list(rows))
+    (check_batch, check_batch_reach, check_segmented, check_slices, and
+    through the last the fleet's cross-tenant launches) funnels through
+    here. When more than one card may be spanned (gpu/spmd.py: route),
+    the rows and their segment tensors shard over the mesh
+    (ensemble.sharded_launch), as in jepsen_tpu/tpu/wgl.py:824-831; on
+    one card the launch is the one below."""
+    rows = list(rows)
+    mesh = spmd.route(device, len(rows))
+    if mesh is not None:
+        from . import ensemble
+
+        return ensemble.sharded_launch(
+            pb, rows, W, F, reach=reach, mesh=mesh,
+            kernel="wgl-reach" if reach else "wgl")
+    row_seg, st0 = pb.rows(rows)
     t0 = _time.monotonic_ns()
     packed, rs, s0 = pb.tensors(row_seg, st0, device)
     h2d_ns = _time.monotonic_ns() - t0
@@ -584,8 +613,7 @@ def _drain(out: Launch, reach: bool):
         live = lvl_live[:n_it].numpy()
         new = lvl_new[:n_it].numpy()
         dup = lvl_dup[:n_it].numpy()
-        device_ms = (out.start.elapsed_time(out.end)
-                     if out.start is not None else None)
+        device_ms = out.device_ms()
         span["attrs"] = {"rows": int(len(res[0] if reach else res)),
                          "levels": n_it, "wait_ns": wait_ns,
                          "device_ms": device_ms}

@@ -533,11 +533,24 @@ def test_an_unprofiled_analysis_writes_no_trace(tmp_path):
 @pytest.mark.parametrize("var", ["JAX_COORDINATOR_ADDRESS",
                                  "JEPSEN_TPU_MULTIHOST"])
 def test_multihost_raises(monkeypatch, var):
+    """Pinned the refusal of multi-host analysis until it was ported
+    (ROADMAP A6). Now core.run joins the process group at entry
+    (gpu/dist.py), and a join it cannot make raises where the JAX
+    package goes on single-host: each variable alone leaves the
+    rendezvous a variable short, and the error names it."""
     from jepsen_tpu_torch import core
+    from jepsen_tpu_torch.gpu import dist
 
+    for v in ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+              "JAX_PROCESS_ID", "JEPSEN_TPU_MULTIHOST", "MASTER_ADDR",
+              "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(v, raising=False)
     monkeypatch.setenv(var, "localhost:1234")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    want = ("JAX_NUM_PROCESSES" if var == "JAX_COORDINATOR_ADDRESS"
+            else "MASTER_ADDR")
+    with pytest.raises(ValueError, match=want):
         core.run(clusterless())
+    assert dist.process_info()["process_count"] == 1
 
 
 def test_membership_fault_raises_through_the_package():

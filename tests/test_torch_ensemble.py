@@ -28,6 +28,7 @@ from jepsen_tpu_torch import telemetry as ptel
 from jepsen_tpu_torch.checker import models as pmodels
 from jepsen_tpu_torch.gpu import certify as pcertify
 from jepsen_tpu_torch.gpu import ensemble as pens
+from jepsen_tpu_torch.gpu import spmd as pspmd
 from jepsen_tpu_torch.gpu import synth as psynth
 from jepsen_tpu_torch.gpu import wgl as pwgl
 from jepsen_tpu_torch.gpu.encode import encode as pencode
@@ -225,7 +226,7 @@ def test_check_batch_sharded_matches(mesh):
     jencs, pencs = _sharded_encs()
     want = jens.check_batch_sharded(jencs, mesh=jens.default_mesh(mesh),
                                     W=16, F=16)
-    got = pens.check_batch_sharded(pencs, devices="cpu", W=16, F=16)
+    got = pens.check_batch_sharded(pencs, mesh="cpu", W=16, F=16)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, pwgl.check_batch(pencs, W=16, F=16,
                                                         device="cpu"))
@@ -236,7 +237,7 @@ def test_check_batch_sharded_matches(mesh):
     jout, junk = jens.check_batch_sharded(
         jsegs, mesh=jens.default_mesh(mesh), W=16, F=16, reach=True,
         rows=rows)
-    pout, punk = pens.check_batch_sharded(psegs, devices="cpu", W=16, F=16,
+    pout, punk = pens.check_batch_sharded(psegs, mesh="cpu", W=16, F=16,
                                           reach=True, rows=rows)
     np.testing.assert_array_equal(pout, jout)
     np.testing.assert_array_equal(punk, junk)
@@ -251,7 +252,7 @@ def test_sharded_launch_stats_match_at_mesh_1(reach):
                                mesh=jens.default_mesh(1))
     jres = jwgl._drain(jout, reach=reach)
     pout = pens.sharded_launch(ppb, rows, 16, 16, reach=reach,
-                               devices="cpu")
+                               mesh="cpu")
     n_res = 2 if reach else 1
     for a, b in zip(pout.outs[n_res:], jout[n_res:]):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
@@ -270,7 +271,7 @@ def test_analysis_batch_sharded_matches(mesh):
         mesh=jens.default_mesh(mesh), W=16, F=32)
     ptel.reset()
     got = pens.analysis_batch_sharded(
-        pmodels.cas_register(), [p for _j, p in pairs], devices="cpu",
+        pmodels.cas_register(), [p for _j, p in pairs], mesh="cpu",
         W=16, F=32)
     assert [r["valid?"] for r in got] == [i != 2 for i in range(8)]
     assert _norm(got) == _norm(want)
@@ -283,10 +284,15 @@ def test_analysis_batch_sharded_matches(mesh):
 
 
 def test_more_than_one_device_is_not_ported():
+    """Pinned the refusal of a mesh of more than one device until the
+    mesh form was ported (ROADMAP A6); now pins that a mesh of two
+    shards answers as the one-device launch does, and that one device
+    is still accepted wherever a mesh is."""
     _jencs, pencs = _sharded_encs()
-    with pytest.raises(NotImplementedError, match="A6"):
-        pens.check_batch_sharded(pencs, devices=["cpu", "cpu"])
-    assert pens.one_device(["cpu"]) == torch.device("cpu")
+    two = pens.check_batch_sharded(pencs, mesh=["cpu", "cpu"], W=16, F=16)
+    one = pens.check_batch_sharded(pencs, mesh="cpu", W=16, F=16)
+    np.testing.assert_array_equal(two, one)
+    assert pspmd.as_mesh("cpu").devices == (torch.device("cpu"),)
 
 
 def test_extract_witness_matches():

@@ -204,7 +204,7 @@ def test_drain_and_sharded_failures_raise(monkeypatch):
              for i in range(4)]
     monkeypatch.setattr(pwgl, "_run", _boom)
     with pytest.raises(RuntimeError, match="launch failed"):
-        pens.analysis_batch_sharded(m, hists, devices="cpu")
+        pens.analysis_batch_sharded(m, hists, mesh="cpu")
     monkeypatch.undo()
     monkeypatch.setattr(pwgl, "_drain", _boom)
     with pytest.raises(RuntimeError, match="launch failed"):

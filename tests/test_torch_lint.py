@@ -185,11 +185,9 @@ def test_dtype_scan_reads_torch_dtypes_as_numpys():
 
 # The host-feeder findings that differ between a port module and its
 # JAX counterpart: the checkpoint fingerprint moved from
-# _SegmentCheckpoint.__init__ into its fingerprint_of method, and the
-# port's _run casts the on-card gather index to int64 (torch's
-# index_select), which the numpy-only JAX scan would not see either.
+# _SegmentCheckpoint.__init__ into its fingerprint_of method.
 FEEDER_DIFFERENCES = {
-    "wgl": ({"_SegmentCheckpoint.fingerprint_of:int64", "_run:int64"},
+    "wgl": ({"_SegmentCheckpoint.fingerprint_of:int64"},
             {"_SegmentCheckpoint.__init__:int64"}),
 }
 
@@ -679,7 +677,8 @@ def test_every_entry_traces_on_meta_tensors(production_report):
     assert rep.errors == []
     assert {t["kernel"] for t in rep.traces} == {
         "wgl", "wgl-reach", "wgl-segmented", "wgl-sharded", "wgl-slices",
-        "scc", "scc-converge", "bank_reduce"}
+        "scc", "scc-converge", "scc-sharded", "scc-shard-apply",
+        "scc-shard-step", "bank_reduce"}
     assert {t["kernel"] for t in rep.traces} == \
         {e.name for e in registry.entries()}
     assert all(t["bucket_policy"] == "exact" for t in rep.traces)

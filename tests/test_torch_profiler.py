@@ -92,7 +92,7 @@ def workload(root):
     n, src, dst = _graph()
     if root == PORT:
         scc.Edges(n, src, dst, device="cpu").scc()
-        ens.check_batch_sharded(encs, W=16, F=16, devices="cpu")
+        ens.check_batch_sharded(encs, W=16, F=16, mesh="cpu")
     else:
         scc.scc(n, src, dst, device=True)
         ens.check_batch_sharded(encs, mesh=ens.default_mesh(1), W=16, F=16)
