@@ -416,9 +416,16 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      just before and read just after; every sharded solve of phase 8's
      two graphs, the twin's graded subsets and a tests/test_spmd.py-
      shaped graph (2,500 nodes, 30,040 edges) at 2, 4 and 8 shards with
-     labels, ok, rounds and sweeps equal to scc_kernel's; every recorded
-     scc_sweep, scc_apply and scc_step launch replayed against its
-     plain version, timed between its launcher's events, beside the
+     labels, ok, rounds and sweeps equal to scc_kernel's, and each
+     solve's launches, read-backs and seconds; the twin's graph at 4
+     shards under three chunk schedules in turns (the solve's own, one
+     read-back a sweep, chunks of 2, 4, 8, ...); every recorded chunk
+     of sweeps replayed launch by launch (the compacting first sweeps,
+     the later sweeps over the compacted edges, the applies, and the
+     launches past a fixpoint's end) and whole, and every scc_step
+     launch, each against its plain version, timed between its
+     launcher's events (a launch also behind a sleep queued on the
+     card, which leaves the host's launch call out), beside the
      PyTorch call that computes the same values where there is one;
      (c) a 2-rank gloo group, each rank a process of its own sharing
      the card, equal to the in-process 2-shard mesh, each rank counting
@@ -7533,45 +7540,87 @@ def _returns_before_search(encs, dev, shards: int,
 
 
 class _ShardCalls:
-    """Records each call of the scc_shard wrappers (its inputs cloned,
-    since the solve updates them in place, and its outputs), for the
-    replays of phase 30 (b)."""
+    """Records each call of the scc_shard chunk and step wrappers (the
+    state a call starts from, cloned, since the solve updates it in
+    place, and the state it leaves), for the replays of phase 30 (b)."""
 
     def __init__(self):
-        self.calls = {"scc_sweep": [], "scc_apply": [], "scc_step": []}
+        self.calls = {"scc_chunk": [], "scc_step": []}
         self.originals = {k: getattr(kshard, k) for k in self.calls}
 
     def __enter__(self):
         orig = self.originals
 
-        def sweep(src, dst, on, active, x, col, prop, backward, **kw):
-            args = (src, dst, on, active.clone(), x.clone(), col.clone())
-            out = orig["scc_sweep"](src, dst, on, active, x, col, prop,
-                                    backward, **kw)
-            self.calls["scc_sweep"].append((args, backward, prop.clone()))
-            return out
+        def chunk(plan, k, first, **kw):
+            before = _chunk_state(plan)
+            orig["scc_chunk"](plan, k, first, **kw)
+            self.calls["scc_chunk"].append((plan, k, first, before,
+                                            _chunk_state(plan)))
 
-        def apply(x, prop, ctl, **kw):
-            args = (x.clone(), prop.clone())
-            orig["scc_apply"](x, prop, ctl, **kw)
-            self.calls["scc_apply"].append((args, x.clone(),
-                                            ctl[:1].clone()))
+        def step(plan, **kw):
+            before = {n: t.clone() for n, t in
+                      (plan.args | plan.outputs).items()}
+            orig["scc_step"](plan, **kw)
+            self.calls["scc_step"].append((plan, before, {
+                n: t.clone() for n, t in (plan.args | plan.outputs).items()}))
 
-        def step(kind, active, c, m, out, ctl, **kw):
-            args = (active.clone(), c.clone(), m.clone(), out.clone())
-            orig["scc_step"](kind, active, c, m, out, ctl, **kw)
-            self.calls["scc_step"].append((kind, args, (
-                active.clone(), c.clone(), m.clone(), out.clone(),
-                ctl[1:].clone() if kind == kshard.RETIRE else None)))
-
-        kshard.scc_sweep, kshard.scc_apply, kshard.scc_step = \
-            sweep, apply, step
+        kshard.scc_chunk, kshard.scc_step = chunk, step
         return self
 
     def __exit__(self, *exc):
         for k, v in self.originals.items():
             setattr(kshard, k, v)
         return False
+
+
+def _chunk_state(chunk) -> dict:
+    """Clones of what a chunk of sweeps reads and writes: the node
+    arrays, the accumulator and the state its shards share, and each
+    shard's edge mask (the solver's, which the next solve overwrites),
+    live list and count."""
+    sweeps, a = chunk.group.sweeps, chunk.apply.outputs
+    out = {"x": a["x"].clone(), "prop": a["prop"].clone(),
+           "st": a["st"].clone(), "active": sweeps[0].args["active"].clone(),
+           "col": sweeps[0].args["col"].clone()}
+    for i, p in enumerate(sweeps):
+        out[f"on{i}"] = p.args["edge_on"].clone()
+        out[f"live{i}"] = p.outputs["live"].clone()
+        out[f"cnt{i}"] = p.outputs["cnt"].clone()
+    return out
+
+
+def _chunk_plans(chunk, state: dict) -> tuple:
+    """The chunk's sweep group and apply plan over the tensors of
+    `state` (a _chunk_state), its edge blocks shared."""
+    group = kshard.SweepGroup([kshard.sweep_plan(
+        p.args["src"], p.args["dst"], state[f"on{i}"], state["active"],
+        state["x"], state["col"], state["prop"], state[f"live{i}"],
+        state[f"cnt{i}"], state["st"], bool(p.params["backward"]))
+        for i, p in enumerate(chunk.group.sweeps)])
+    return group, kshard.apply_plan(state["x"], state["prop"], state["st"],
+                                    chunk.apply.params["cap"])
+
+
+def _live_keys(plan) -> torch.Tensor:
+    """A sweep plan's live list as sorted s * n + d keys (the kernel
+    appends in no fixed order)."""
+    b, E, n = (plan.params[k] for k in ("backward", "E", "n"))
+    k = min(int(plan.outputs["cnt"][b]), E)
+    pairs = plan.outputs["live"][:k].to(torch.int64)
+    return (pairs[:, 0] * n + pairs[:, 1]).sort().values
+
+
+def _state_err(a: dict, b: dict, group_a, group_b) -> int:
+    """max_abs_err between two chunk states: x, prop, st, each count, and
+    each live list as a set."""
+    names = ["x", "prop", "st"] + [f"cnt{i}"
+                                   for i in range(len(group_a.sweeps))]
+    err = _max_abs_err([a[k] for k in names], [b[k] for k in names])
+    for pa, pb in zip(group_a.sweeps, group_b.sweeps):
+        ka, kb = _live_keys(pa), _live_keys(pb)
+        err = max(err, _max_abs_err([ka], [kb]) if ka.shape == kb.shape
+                  else 1 << 30)
+    return err
 
 
 def _ms_of(fn, on_card: bool, reps: int = 3) -> float:
@@ -7586,17 +7635,32 @@ def _ms_of(fn, on_card: bool, reps: int = 3) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-def _kernel_ms(fn, on_card: bool, reps: int = 3) -> float:
+def _kernel_ms(fn, on_card: bool, reps: int = 3, restore=None,
+               queued: bool = False) -> float:
     """ms of the kernels of one launch alone: fn(events) launches with a
     (start, end) pair, which the wrapper's launcher records just around
     its kernels, so the host's time between launches is left out; the
-    mean over reps. Off the card, _ms_of's host clock."""
+    mean over reps. restore(), where given, runs before every launch,
+    outside the events, so each rep starts from the same state (and the
+    state after is that of one launch). `queued`: the reps are enqueued
+    behind a ~1 ms sleep on the card, so each pair of events meets its
+    kernels already in the queue and times the card alone, not the
+    host's launch call between them. Off the card, _ms_of's host
+    clock."""
+    restore = restore or (lambda: None)
     if not on_card:
-        return _ms_of(lambda: fn(None), on_card, reps)
+        def once(_ev):
+            restore()
+            fn(None)
+        return _ms_of(lambda: once(None), on_card, reps)
+    restore()
     fn(None)
     pairs = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    if queued:
+        torch.cuda._sleep(2_000_000)
     for ev in pairs:
+        restore()
         fn(ev)
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
@@ -7606,114 +7670,204 @@ def _bound_ms(nbytes: int) -> float:
     return 1e3 * nbytes / PEAK_BYTES_PER_S
 
 
+def _new_kinds(names) -> dict:
+    return {k: {"launches": 0, "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": 0.0, "library_ms": 0.0} for k in names}
+
+
+def _replay_chunk(entry, on_card: bool, sweeps: dict, applies: dict,
+                  chunks: dict) -> int:
+    """Phase 30 (b)'s replay of one recorded chunk from the state it
+    started from: each of its launches one by one, the kernel timed
+    between its launcher's events (the mean of 3, each from the same
+    state) and its plain version by the host's clock, both checked to
+    agree after every launch, and where a PyTorch call computes the
+    same values its time; the state after the chunk checked against
+    what the main path's one call left; then the chunk whole, through
+    scc_chunk, timed between the events its launcher records around its
+    kernels (the host's launch calls between them included, as on the
+    main path) and checked the same way. Adds to the sweep kinds
+    (compacting, live, past_done), the apply kinds (applied, past_done)
+    and `chunks`. Returns the max_abs_err."""
+    chunk, k, first, before, after = entry
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ks = {n: t.clone() for n, t in before.items()}
+    ps = {n: t.clone() for n, t in before.items()}
+    k_sweeps, k_apply = _chunk_plans(chunk, ks)
+    p_sweeps, p_apply = _chunk_plans(chunk, ps)
+    n = int(ks["x"].numel())
+    err = 0
+
+    def one(kind, table, fn_k, fn_p, mutable, lib, nbytes):
+        nonlocal err
+        snap = {m: ks[m].clone() for m in mutable}
+
+        def restore():
+            for m in mutable:
+                ks[m].copy_(snap[m])
+        device_ms = _kernel_ms(fn_k, on_card, restore=restore, queued=True)
+        ms = _kernel_ms(fn_k, on_card, restore=restore)
+        sync()
+        t0 = time.perf_counter()
+        fn_p()
+        sync()
+        row = table[kind]
+        row["launches"] += 1
+        row["ms"] += ms
+        row["device_ms"] += device_ms
+        row["plain_ms"] += 1e3 * (time.perf_counter() - t0)
+        row["bound_ms"] += _bound_ms(nbytes)
+        if lib is not None:
+            row["library_ms"] += _ms_of(lib, on_card)
+        err = max(err, _state_err(ks, ps, k_sweeps, p_sweeps))
+
+    for it in range(k):
+        fresh = first and it == 0
+        done = int(ks["st"][kshard.DONE]) != kshard.RUNNING
+        kind = "compacting" if fresh else "past_done" if done else "live"
+        lib, nbytes = None, 4
+        if kind != "past_done":
+            to, vals = [], []
+            nbytes = 8 * n + 8
+            for pk in k_sweeps.sweeps:
+                a, b, E = pk.args, pk.params["backward"], pk.params["E"]
+                s, d = a["src"].long(), a["dst"].long()
+                live = a["edge_on"] & a["active"][s] & a["active"][d]
+                if b:
+                    live &= a["col"][s] == a["col"][d]
+                    s, d = d, s
+                to.append(d[live])
+                vals.append(ks["x"][s[live]])
+                c = int(live.sum())
+                nbytes += (9 * E + 8 * c + 4 if kind == "compacting"
+                           else 8 * c + 4)
+            if kind == "compacting":
+                nbytes += n * (1 + 4 * b)
+            to, vals = torch.cat(to), torch.cat(vals)
+            scratch = torch.empty_like(ks["prop"])
+            lib = (lambda: scratch.scatter_reduce_(0, to, vals, "amax"))
+        one(kind, sweeps,
+            lambda ev: kshard.scc_sweep(k_sweeps, fresh, events=ev),
+            lambda: kshard.sweep_reference(p_sweeps, fresh),
+            ["prop"] + [f"{t}{i}" for i in range(len(k_sweeps.sweeps))
+                        for t in ("live", "cnt")], lib, nbytes)
+        done = not fresh and int(ks["st"][kshard.DONE]) != kshard.RUNNING
+        xl = ks["x"].clone()
+        one("past_done" if done else "applied", applies,
+            lambda ev: kshard.scc_apply(k_apply, fresh, events=ev),
+            lambda: kshard.apply_reference(p_apply, fresh),
+            ["x", "prop", "st"],
+            None if done else (lambda: torch.maximum(xl, ks["prop"],
+                                                     out=xl)),
+            4 if done else 16 * n + 32)
+    want = _chunk_plans(chunk, after)[0]
+    err = max(err, _state_err(ks, after, k_sweeps, want))
+    # and the chunk whole, as the main path launched it
+    cs = {m: t.clone() for m, t in before.items()}
+    c_group, c_apply = _chunk_plans(chunk, cs)
+    whole = kshard.ChunkPlan(c_group, c_apply, chunk.host)
+
+    def restore():
+        for m, t in before.items():
+            cs[m].copy_(t)
+    ms = _kernel_ms(lambda ev: kshard.scc_chunk(whole, k, first, events=ev),
+                    on_card, restore=restore)
+    chunks["calls"] += 1
+    chunks["sweeps_launched"] += k
+    chunks["ms"] += ms
+    return max(err, _state_err(cs, after, c_group, want))
+
+
 def shard_kernel_timing(rec: _ShardCalls, launches: dict,
                         on_card: bool) -> list[dict]:
     """Phase 30 (b): every scc_shard launch of the main path replayed on
-    its recorded inputs: the kernel by the CUDA events its launcher
-    records just around its kernels (the mean of 3), its plain version
-    (the same PyTorch code the CPU runs, here on the card's tensors),
-    against the recorded output, and where one PyTorch call computes
-    the same values its time (scatter_reduce_ of the live edges' values
-    for a sweep, torch.maximum for an apply). Bytes bounds: a sweep reads
-    each edge's src, dst and edge_on (9 bytes) and each node's active
-    (1), x (4) and, backward, col (4), and writes prop (4); an apply
-    reads x and prop and writes x (12 a node); a step reads active and
-    c (kInit), and m (kRoots), then out (kRetire), and writes c, m, or
-    out and active."""
+    its recorded inputs (_replay_chunk for the chunks of sweeps, each
+    step alike), against its plain version (the same PyTorch code the
+    CPU runs, here on the card's tensors) and the recorded output. Bytes
+    bounds, each input read once and each output written once: a
+    compacting sweep (one launch over a device's shards) reads each
+    edge's src, dst and edge_on (9 bytes), each node's active and x (5)
+    and, backward, col (4), and writes prop (4), 8 bytes a live edge and
+    the counts; a later sweep
+    reads 8 bytes a live edge and x, and writes prop; an apply reads and
+    writes x and prop (16 a node); a launch past the fixpoint's end reads
+    4 bytes of state. A step reads active and c (kInit), and m (kRoots),
+    then out (kRetire), and writes c, m, or out and active."""
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sweeps = _new_kinds(("compacting", "live", "past_done"))
+    applies = _new_kinds(("applied", "past_done"))
+    chunks = {"calls": 0, "sweeps_launched": 0, "ms": 0.0}
+    err = 0
+    for entry in rec.calls["scc_chunk"]:
+        err = max(err, _replay_chunk(entry, on_card, sweeps, applies,
+                                     chunks))
+    chunks["us_a_sweep"] = (1e3 * chunks["ms"] / chunks["sweeps_launched"]
+                            if chunks["sweeps_launched"] and on_card
+                            else None)
+    if not on_card:
+        chunks["ms"] = None
     rows = []
-    # sweeps
-    ms = plain = lib = bound = 0.0
-    err = 0
-    for (src, dst, on, active, x, col), backward, out in \
-            rec.calls["scc_sweep"]:
-        n, E = x.numel(), src.numel()
-        prop = torch.empty_like(x)
-        ms += _kernel_ms(lambda ev: rec.originals["scc_sweep"](
-            src, dst, on, active, x, col, prop, backward, events=ev),
-            on_card)
-        want = torch.empty_like(x)
-        sync()
-        t0 = time.perf_counter()
-        kshard.sweep_reference(src, dst, on, active, x, col, want, backward)
-        sync()
-        plain += 1e3 * (time.perf_counter() - t0)
-        err = max(err, _max_abs_err([out, prop], [want, want]))
-        s, d = src.long(), dst.long()
-        live = on & active[s] & active[d]
-        if backward:
-            live &= col[s] == col[d]
-            s, d = d, s
-        to, vals = d[live], x[s[live]]
-        lib += _ms_of(lambda: want.scatter_reduce_(0, to, vals, "amax"),
-                      on_card)
-        bound += _bound_ms(9 * E + n * (9 + 4 * backward))
-    rows.append({"name": "scc_sweep", "launches": launches["scc_sweep"],
-                 "replayed": len(rec.calls["scc_sweep"]),
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "bound_ms": bound, "library_ms": lib,
-                 "library_call": "Tensor.scatter_reduce_(0, dst, "
-                                 "values, 'amax') of the live edges"})
-    # applies
-    ms = plain = lib = bound = 0.0
-    err = 0
-    ctl = None
-    for (x, prop), x_out, changed in rec.calls["scc_apply"]:
-        ctl = torch.zeros(2, dtype=torch.int32, device=x.device)
-        xk = x.clone()
-        rec.originals["scc_apply"](xk, prop, ctl)
-        got = [xk, ctl[:1].clone()]
-        xr = x.clone()
-        ms += _kernel_ms(lambda ev: rec.originals["scc_apply"](
-            xr, prop, ctl, events=ev), on_card)
-        xp, ctl_p = x.clone(), torch.zeros(2, dtype=torch.int32,
-                                           device=x.device)
-        sync()
-        t0 = time.perf_counter()
-        kshard.apply_reference(xp, prop, ctl_p)
-        sync()
-        plain += 1e3 * (time.perf_counter() - t0)
-        err = max(err, _max_abs_err(got + [x_out, changed],
-                                     [xp, ctl_p[:1], xp, ctl_p[:1]]))
-        xl = x.clone()
-        lib += _ms_of(lambda: torch.maximum(xl, prop, out=xl), on_card)
-        bound += _bound_ms(12 * x.numel() + 4)
-    rows.append({"name": "scc_apply", "launches": launches["scc_apply"],
-                 "replayed": len(rec.calls["scc_apply"]),
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "bound_ms": bound, "library_ms": lib,
-                 "library_call": "torch.maximum(x, prop, out=x), "
-                                 "without the changed flag"})
+    for name, kinds, lib_call in (
+            ("scc_sweep", sweeps, "Tensor.scatter_reduce_(0, dst, values, "
+                                  "'amax') of the live edges"),
+            ("scc_apply", applies, "torch.maximum(x, prop, out=x), "
+                                   "without the state")):
+        for row in kinds.values():
+            for key in ("ms", "device_ms"):
+                row[key.replace("ms", "us_each")] = (
+                    1e3 * row[key] / row["launches"]
+                    if row["launches"] and on_card else None)
+                if not on_card:  # host times are no kernel times
+                    row[key] = None
+        rows.append({
+            "name": name, "launches": launches[name],
+            "replayed": sum(r["launches"] for r in kinds.values()),
+            "max_abs_err": err,
+            **{key: sum(r[key] or 0.0 for r in kinds.values())
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                           "library_ms")},
+            "library_call": lib_call, "kinds": kinds})
+    rows[0]["compacting_launches"] = launches["scc_sweep_compacting"]
+    # the chunks, sweeps and applies together, as the main path runs them
+    rows[0]["chunks"] = chunks
     # steps
-    ms = plain = bound = 0.0
+    ms = device = plain = bound = 0.0
     err = 0
-    for kind, (active, c, m, out), after in rec.calls["scc_step"]:
-        n = active.numel()
+    for plan, before, after in rec.calls["scc_step"]:
+        kind, n = plan.params["step"], plan.params["n"]
+        names = ("active", "c", "m", "out", "ctl")
 
         def fresh():
-            return (active.clone(), c.clone(), m.clone(), out.clone(),
-                    torch.zeros(2, dtype=torch.int32, device=c.device))
-        got = fresh()
-        rec.originals["scc_step"](kind, *got)
-        again = fresh()
+            t = {k: before[k].clone() for k in names}
+            return t, kshard.step_plan(kind, *(t[k] for k in names))
+        got, pg = fresh()
+        rec.originals["scc_step"](pg)
+        again, pa = fresh()
         ms += _kernel_ms(lambda ev: rec.originals["scc_step"](
-            kind, *again, events=ev), on_card)
-        want = fresh()
+            pa, events=ev), on_card)
+        device += _kernel_ms(lambda ev: rec.originals["scc_step"](
+            pa, events=ev), on_card, queued=True)
+        want, pw = fresh()
         sync()
         t0 = time.perf_counter()
-        kshard.step_reference(kind, *want)
+        kshard.step_reference(pw)
         sync()
         plain += 1e3 * (time.perf_counter() - t0)
-        pairs = list(zip(got[:4], want[:4])) + list(zip(after[:4], want[:4]))
+        keys = ["active", "c", "m", "out"]
+        pairs = [(got[k], want[k]) for k in keys] + \
+            [(after[k], want[k]) for k in keys]
         if kind == kshard.RETIRE:
-            pairs += [(got[4][1:], want[4][1:]), (after[4], want[4][1:])]
+            pairs += [(got["ctl"][1:], want["ctl"][1:]),
+                      (after["ctl"][1:], want["ctl"][1:])]
         err = max(err, _max_abs_err([a for a, _b in pairs],
                                     [b for _a, b in pairs]))
         bound += _bound_ms(n * {kshard.INIT: 5, kshard.ROOTS: 9,
                                 kshard.RETIRE: 14}[kind] + 4)
     rows.append({"name": "scc_step", "launches": launches["scc_step"],
                  "replayed": len(rec.calls["scc_step"]),
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "max_abs_err": err, "ms": ms,
+                 "device_ms": device if on_card else None,
+                 "plain_ms": plain,
                  "bound_ms": bound, "library_ms": None,
                  "library_call": None})
     return rows
@@ -7721,13 +7875,55 @@ def shard_kernel_timing(rec: _ShardCalls, launches: dict,
 
 def _shard_launch_counts() -> dict:
     return {"scc_sweep": kshard.sweep_launches,
+            "scc_sweep_compacting": kshard.compact_launches,
             "scc_apply": kshard.apply_launches,
-            "scc_step": kshard.step_launches}
+            "scc_step": kshard.step_launches,
+            "state_reads": kshard.state_reads}
 
 
 def _zero_counts() -> None:
     ws.launches = ensemble.launches = 0
-    kshard.sweep_launches = kshard.apply_launches = kshard.step_launches = 0
+    kshard.sweep_launches = kshard.compact_launches = 0
+    kshard.apply_launches = kshard.step_launches = kshard.state_reads = 0
+
+
+def _chunk_schedules(graph, key, dev, shards: int, reps: int = 5) -> dict:
+    """The sharded solve of one graph under three chunk schedules, in
+    turns in one process: the solve's own (gpu/scc.py `_schedule`), one
+    read-back a sweep, and chunks of 2, 4, 8, ...; for each the median
+    host seconds of `reps` solves, and the state reads and sweep
+    launches of one."""
+    n, src, dst = graph
+    edges = scc_mod.Edges(n, src, dst, ekey=key, mesh=[dev] * shards)
+    own = scc_mod._schedule
+    schedules = {"own": own,
+                 "one-a-sweep": lambda head: iter(lambda: 1, None),
+                 "2-4-8": lambda head: own((2,))}
+    times: dict = {name: [] for name in schedules}
+    counts: dict = {}
+    want = None
+    try:
+        for _ in range(reps):
+            for name, sched in schedules.items():
+                scc_mod._schedule = sched
+                c0 = _shard_launch_counts()
+                t0 = time.perf_counter()
+                out = edges.solve_sharded()
+                times[name].append(time.perf_counter() - t0)
+                c1 = _shard_launch_counts()
+                counts[name] = {k: c1[k] - c0[k]
+                                for k in ("state_reads", "scc_sweep")}
+                if want is None:
+                    want = out
+                elif not np.array_equal(out, want):
+                    raise AssertionError(f"chunk schedule {name} changed "
+                                         "the solve")
+    finally:
+        scc_mod._schedule = own
+    return {"shards": shards, "nodes": n, "edges": len(src),
+            "sweeps": int(want[n + 2]),
+            "schedules": {name: {"solve_s": float(np.median(times[name])),
+                                 **counts[name]} for name in schedules}}
 
 
 def mesh_path(dev, on_card: bool, hists, ext_ops: int, elle_hists: dict,
@@ -7923,18 +8119,38 @@ def mesh_path(dev, on_card: bool, hists, ext_ops: int, elle_hists: dict,
             edges = scc_mod.Edges(n, src, dst, ekey=key, mesh=[dev] * k)
             for i, mask in enumerate(masks if k == shards else [None]):
                 want = _scc_one_device(n, src, dst, mask, dev)
+                sync()
+                c0 = _shard_launch_counts()
                 t0 = time.perf_counter()
                 out = edges.solve_sharded(mask)
                 solve_s = time.perf_counter() - t0
+                used = {key: v - c0[key]
+                        for key, v in _shard_launch_counts().items()}
                 mism = int(np.sum(out != want))
                 scc_mism += mism
-                solves.append({"graph": name, "shards": k, "subset": i,
-                               "nodes": n, "live_edges": int(
-                                   len(src) if mask is None else mask.sum()),
-                               "ok": int(out[n]), "rounds": int(out[n + 1]),
-                               "sweeps": int(out[n + 2]),
-                               "mismatches": mism, "solve_s": solve_s})
+                rounds = int(out[n + 1])
+                applies = used["scc_apply"]
+                solves.append({
+                    "graph": name, "shards": k, "subset": i, "nodes": n,
+                    "live_edges": int(len(src) if mask is None
+                                      else mask.sum()),
+                    "ok": int(out[n]), "rounds": rounds,
+                    "sweeps": int(out[n + 2]), "mismatches": mism,
+                    "solve_s": solve_s,
+                    "launches": {key: used[key] for key in (
+                        "scc_sweep", "scc_sweep_compacting", "scc_apply",
+                        "scc_step")},
+                    "sweeps_launched": applies,
+                    "device_ops_per_sweep": (
+                        (used["scc_sweep"] + applies) / applies
+                        if applies else None),
+                    # the state once a chunk, `left` once a round, the
+                    # labels once
+                    "read_backs": used["state_reads"] + rounds + 1,
+                    "state_reads": used["state_reads"]})
     emit({"phase": "mesh-scc", "solves": solves})
+    emit({"phase": "mesh-scc-schedules",
+          **_chunk_schedules(graphs[1][1:4], graphs[1][4], dev, shards)})
     if scc_mism:
         raise AssertionError(f"sharded scc differs from scc_kernel in "
                              f"{scc_mism} values")
@@ -7983,7 +8199,8 @@ def mesh_path(dev, on_card: bool, hists, ext_ops: int, elle_hists: dict,
         entries.append({"route": "cuda", "source": src_path,
                         "replaces": "jepsen_tpu/tpu/scc.py:172",
                         "bound_by": "bytes", **x,
-                        "ms": x["ms"] if on_card else None})
+                        "ms": x["ms"] if on_card else None,
+                        "device_ms": x["device_ms"] if on_card else None})
     return {"kernels": entries, "seconds": wall}
 
 

@@ -177,19 +177,23 @@ def _scc_trace(b: dict, full: bool = False, kernel_name: str = "scc"
 def _scc_shard_trace(b: dict, full: bool = False,
                      kernel_name: str = "scc-sharded") -> LaunchTrace:
     """A launch of the sharded colouring at a bucket whose e_pad is one
-    shard's edge block: its sweep (with the partition of SCC_RULES over
-    the JAX program's arguments and the edge list's batch axis), its
-    apply or its round step. None has scratch or shared memory, so the
-    library has no sizing entry point to ask."""
+    shard's edge block, off the plans a solve builds: its sweep (the
+    compacting backward one, which reads the most: with the partition of
+    SCC_RULES over the JAX program's arguments and the edge list's batch
+    axis), its apply or its round step. None has scratch or shared
+    memory, so the library has no sizing entry point to ask; the
+    compacted list and the accumulator are outputs, not carry."""
     from ..gpu import scc, spmd
+    from ..gpu.kernels import scc as kscc
     from ..gpu.kernels import scc_shard as kshard
 
     n, E = b["n_pad"], b["e_pad"]
     node = _meta((n,), "int32")
+    st = _meta((kshard.STATE,), "int32")
     if kernel_name == "scc-shard-apply":
-        plan = kshard.apply_plan(node, _meta((n,), "int32"),
-                                 _meta((2,), "int32"))
-        return _trace(kernel_name, b["label"], plan, kshard.scc_apply, {},
+        plan = kshard.apply_plan(node, _meta((n,), "int32"), st,
+                                 kscc.SWEEP_CAP)
+        return _trace(kernel_name, b["label"], plan, kshard.scc_chunk, {},
                       carry_outputs=False)
     if kernel_name == "scc-shard-step":
         plan = kshard.step_plan(kshard.RETIRE, _meta((n,), "bool"), node,
@@ -200,7 +204,8 @@ def _scc_shard_trace(b: dict, full: bool = False,
     plan = kshard.sweep_plan(_meta((E,), "int32"), _meta((E,), "int32"),
                              _meta((E,), "bool"), _meta((n,), "bool"),
                              node, _meta((n,), "int32"),
-                             _meta((n,), "int32"), backward=True)
+                             _meta((n,), "int32"), _meta((E, 2), "int32"),
+                             _meta((2,), "int32"), st, backward=True)
     return _trace(kernel_name, b["label"], plan, scc.Edges.solve_sharded,
                   {}, carry_outputs=False,
                   partition=spmd.describe_partition(spmd.SCC_RULES,
@@ -371,7 +376,12 @@ MIRRORS = [
              ("FIRST_ROUND_SWEEPS", "kFirstRoundSweeps"),
              ("_MAX_BLOCKS", "kMaxBlocks"), ("_SLOT", "kSlot")]),
     ("scc_shard", [("INIT", "kInit"), ("ROOTS", "kRoots"),
-                   ("RETIRE", "kRetire")]),
+                   ("RETIRE", "kRetire"), ("CHANGED", "kChanged"),
+                   ("TICKET", "kTicket"), ("SWEEPS", "kSweeps"),
+                   ("DONE", "kDone"), ("STATE", "kState"),
+                   ("RUNNING", "kRunning"), ("CONVERGED", "kConverged"),
+                   ("CAPPED", "kCapped"), ("NEUTRAL", "kNeutral"),
+                   ("MAX_SHARDS", "kMaxShards")]),
 ]
 
 

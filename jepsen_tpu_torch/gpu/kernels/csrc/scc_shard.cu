@@ -6,35 +6,52 @@
 // sweep ends in one max of the colour array across the shards. That
 // combine is a collective, not a kernel body, so the program cannot be
 // one cooperative launch as csrc/scc.cu is: the host drives the rounds
-// and sweeps (gpu/scc.py) and calls, per sweep, one `sweep` launch per
-// shard over the shard's edge block, the combine (an elementwise max
-// onto the first shard's device, or an all_reduce(MAX) across ranks),
-// and one `apply`; per round, three `step` launches.
+// (gpu/scc.py) and runs each fixpoint in chunks of sweeps, a sweep being
+// one `sweep` launch a device over its shards' edge blocks (blockIdx.y
+// the shard) and one `apply`; per round, three `step` launches.
 //
-//   sweep   prop[v] = neutral, then for every edge e of the block with
-//           edge_on[e], active[src] and active[dst]: forward,
-//           atomicMax(prop[dst], x[src]); backward (the membership
-//           pass), the ends swapped and only inside a colour class,
-//           col[src] == col[dst]: atomicMax(prop[src], x[dst])
-//           (tpu/scc.py:79-131). neutral is -1 forward, 0 backward.
-//   apply   x = max(x, prop), and ctl[0] = 1 where any x changed.
+//   sweep   for every live edge (s, d) of the block: atomicMax(prop[d],
+//           x[s]), prop being max-accumulated and never filled here.
+//           Live: edge_on[e], active[src] and active[dst]; backward (the
+//           membership pass) also col[src] == col[dst], the ends swapped
+//           (tpu/scc.py:79-131). The first sweep of a fixpoint
+//           (`compact`) finds the live edges in the block and appends
+//           them as (s, d) pairs to the shard's `live` list, its length
+//           in cnt[backward]; the later sweeps read only that list (the
+//           predicate holds still through a fixpoint, as the JAX
+//           program's live_e and same_color, :107 and :114).
+//   apply   x = max(x, prop), prop = kNeutral (the next sweep's start),
+//           and the fixpoint's device state st[kState] updated by the
+//           grid's last block: kSweeps + 1, and kDone set to kConverged
+//           where no x changed or kCapped where kSweeps reaches `cap`.
 //   step    kInit: x = active ? id : -1 (the forward colours);
 //           kRoots: m = active && c == id (the roots of the backward
 //           pass); kRetire: member = active && m > 0, out = c and
 //           active = false on members, ctl[1] = active nodes left.
 //
-// Bound: bytes. A sweep reads each edge's src, dst and edge_on once (9
-// bytes) and, per node, active (1 byte), x (4) and in the backward pass
-// col (4), and writes prop (4); the endpoints' gathers and the atomics
-// hit those same n-sized arrays, which the 50 MB L2 holds at Elle's
-// sizes. So a sweep of E edges over n nodes moves at least 9E + 9n
-// (forward) or 9E + 13n (backward) bytes; at phase 8's 50,000-txn
-// graph (301,479 edges) that is ~3.2 MB, ~1 us at 3.35 TB/s, below a
-// launch's own cost. The design is the simplest that is right: a
-// grid-stride loop of 256-thread blocks, a plain load of prop[to] before
-// the atomic (prop only grows within a sweep, so a stale value only
-// costs an atomic that changes nothing), and block-wide ORs and counts
-// before one atomic a block for the flags.
+// One neutral value serves both passes: forward colours and backward
+// marks are both >= -1, so max(x, -1) = x, and the max over a node's
+// in-edges with -1 or with the JAX program's 0 (backward) gives the same
+// x. A chunk of K sweeps is enqueued without a wait; once st[kDone] is
+// set, every later sweep and apply of the chunk returns at once, so the
+// host reads (sweeps, done) back once a chunk and the sweeps it counts
+// are the JAX program's, a SWEEP_CAP hit included.
+//
+// Bound: bytes, and below a launch's own cost at Elle's sizes. A
+// compacting sweep reads each edge's src, dst and edge_on once (9 bytes),
+// gathers active (1), col (4, backward) and x (4) and writes prop (4) per
+// node and 8 bytes a live edge; a later sweep reads 8 bytes a live edge,
+// x and prop; an apply reads and writes x and prop (16 bytes a node). At
+// phase 8's 50,000-txn graph over 4 shards (~75,000 edges a shard) that
+// is ~1 MB a sweep launch, ~0.3 us at 3.35 TB/s. What costs is latency:
+// each edge is a chain of dependent loads (edge, then endpoints' flags,
+// then x[s] and prop[d], then the atomic). So the grid is sized from the
+// card's SM count, each thread takes kEdgesPerThread edges and issues
+// all their loads before the atomics, the later sweeps skip the
+// predicate's gathers by reading the compacted list, the compacted
+// appends cost one atomicAdd a warp (a ballot and a popc per edge slot),
+// and the apply clears its own flag (the last block's ticket) instead of
+// a memset launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,10 +60,47 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 4096;
+// the sweeps' and the apply's blocks: 128 threads, each over
+// kEdgesPerThread edges (kNodesPerThread nodes), at most kBlocksPerSM a
+// streaming multiprocessor
+constexpr int kSweepThreads = 128;
+constexpr int kEdgesPerThread = 4;
+constexpr int kNodesPerThread = 4;
+constexpr int kBlocksPerSM = 8;
+constexpr int kMaxDevices = 64;
+constexpr unsigned kFull = 0xffffffffu;
+// the shards one sweep launch covers (blockIdx.y), mirrored by
+// gpu/kernels/scc_shard.py; a device with more takes more launches
+constexpr int kMaxShards = 8;
 // the step launch's modes, mirrored by gpu/kernels/scc_shard.py
 constexpr int kInit = 0;
 constexpr int kRoots = 1;
 constexpr int kRetire = 2;
+// a fixpoint's device state, int32 [kState], mirrored by
+// gpu/kernels/scc_shard.py: the apply's changed flag and block ticket
+// (each back to 0 when the grid's last block is done), the sweeps
+// applied, and whether the fixpoint is done
+constexpr int kChanged = 0;
+constexpr int kTicket = 1;
+constexpr int kSweeps = 2;
+constexpr int kDone = 3;
+constexpr int kState = 4;
+constexpr int kRunning = 0;
+constexpr int kConverged = 1;
+constexpr int kCapped = 2;
+constexpr int kNeutral = -1;
+static_assert(kDone < kState && kSweeps + 1 == kDone,
+              "the chunk copies st[kSweeps] and st[kDone] back together");
+
+// The edge blocks of the shards one sweep launch covers, each of e
+// edges, with their live lists and counts.
+struct Blocks {
+  const int* src[kMaxShards];
+  const int* dst[kMaxShards];
+  const uint8_t* edge_on[kMaxShards];
+  int2* live[kMaxShards];
+  int* cnt[kMaxShards];
+};
 
 int blocks_for(long long n) {
   long long b = (n + kThreads - 1) / kThreads;
@@ -54,48 +108,171 @@ int blocks_for(long long n) {
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-__global__ void fill_kernel(int* __restrict__ a, int n, int v) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x)
-    a[i] = v;
+// The current device's SM count, asked once a device.
+int sm_count(int* out) {
+  static int cached[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!cached[dev]) {
+    int v = 0;
+    err = cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    cached[dev] = v > 0 ? v : 1;
+  }
+  *out = cached[dev];
+  return 0;
 }
 
-__global__ void sweep_kernel(const int* __restrict__ src,
-                             const int* __restrict__ dst,
-                             const uint8_t* __restrict__ edge_on,
-                             const uint8_t* __restrict__ active,
-                             const int* __restrict__ x,
-                             const int* __restrict__ col, int* prop, int e,
-                             int backward) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < e;
-       i += gridDim.x * blockDim.x) {
-    if (!edge_on[i]) continue;
-    int s = src[i], d = dst[i];
-    if (!active[s] || !active[d]) continue;
-    if (backward) {
-      if (col[s] != col[d]) continue;
-      int t = s;
-      s = d;
-      d = t;
+// Blocks for `items` at `per_block` a block, at most kBlocksPerSM an SM.
+int grid_for(long long items, int per_block, int sms) {
+  long long b = (items + per_block - 1) / per_block;
+  long long most = (long long)sms * kBlocksPerSM;
+  if (b < 1) b = 1;
+  return (int)(b < most ? b : most);
+}
+
+__global__ void __launch_bounds__(kSweepThreads)
+sweep_compact_kernel(Blocks b, int e, const uint8_t* __restrict__ active,
+                     const int* __restrict__ x,
+                     const int* __restrict__ col, int* prop,
+                     int backward) {
+  const int* __restrict__ src = b.src[blockIdx.y];
+  const int* __restrict__ dst = b.dst[blockIdx.y];
+  const uint8_t* __restrict__ edge_on = b.edge_on[blockIdx.y];
+  int2* __restrict__ live = b.live[blockIdx.y];
+  int* cnt = b.cnt[blockIdx.y];
+  // the other pass's list starts empty: the passes of a solve alternate
+  if (blockIdx.x == 0 && threadIdx.x == 0) cnt[!backward] = 0;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  const long long per = (long long)kSweepThreads * kEdgesPerThread;
+  for (long long base = blockIdx.x * per; base < e;
+       base += (long long)gridDim.x * per) {
+    int s[kEdgesPerThread], d[kEdgesPerThread];
+    bool ok[kEdgesPerThread];
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j) {
+      long long i = base + j * kSweepThreads + threadIdx.x;
+      ok[j] = i < e;
+      s[j] = ok[j] ? __ldg(src + i) : 0;
+      d[j] = ok[j] ? __ldg(dst + i) : 0;
+      ok[j] = ok[j] && __ldg(edge_on + i);
     }
-    int v = x[s];
-    if (v > prop[d]) atomicMax(prop + d, v);
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j) {
+      bool in = __ldg(active + s[j]) && __ldg(active + d[j]);
+      if (backward) {
+        in = in && __ldg(col + s[j]) == __ldg(col + d[j]);
+        int t = s[j];
+        s[j] = d[j];
+        d[j] = t;
+      }
+      ok[j] = ok[j] && in;
+    }
+    // append the warp's live edges: one atomicAdd for its slots
+    unsigned ball[kEdgesPerThread];
+    int total = 0;
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j) {
+      ball[j] = __ballot_sync(kFull, ok[j]);
+      total += __popc(ball[j]);
+    }
+    int at = 0;
+    if (lane == 0 && total) at = atomicAdd(cnt + backward, total);
+    at = __shfl_sync(kFull, at, 0);
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j) {
+      int k = at + __popc(ball[j] & below);
+      if (ok[j] && k < e) live[k] = make_int2(s[j], d[j]);
+      at += __popc(ball[j]);
+    }
+    // and sweep them: every load before the atomics. prop only grows
+    // within a sweep, so a stale prop[d] only costs an atomic that
+    // changes nothing
+    int v[kEdgesPerThread], p[kEdgesPerThread];
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j) {
+      v[j] = ok[j] ? __ldg(x + s[j]) : kNeutral;
+      p[j] = ok[j] ? prop[d[j]] : kNeutral;
+    }
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j)
+      if (v[j] > p[j]) atomicMax(prop + d[j], v[j]);
   }
 }
 
-__global__ void apply_kernel(int* __restrict__ x,
-                             const int* __restrict__ prop, int n,
-                             int* __restrict__ ctl) {
+__global__ void __launch_bounds__(kSweepThreads)
+sweep_live_kernel(Blocks b, int e, const int* __restrict__ x, int* prop,
+                  int backward, const int* __restrict__ st) {
+  if (__ldg(st + kDone) != kRunning) return;
+  const int2* __restrict__ live = b.live[blockIdx.y];
+  int count = __ldg(b.cnt[blockIdx.y] + backward);
+  if (count > e) count = e;
+  const long long per = (long long)kSweepThreads * kEdgesPerThread;
+  for (long long base = blockIdx.x * per; base < count;
+       base += (long long)gridDim.x * per) {
+    int2 sd[kEdgesPerThread];
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j) {
+      long long i = base + j * kSweepThreads + threadIdx.x;
+      sd[j] = i < count ? __ldg(live + i) : make_int2(0, -1);
+    }
+    int v[kEdgesPerThread], p[kEdgesPerThread];
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j) {
+      bool ok = sd[j].y >= 0;
+      v[j] = ok ? __ldg(x + sd[j].x) : kNeutral;
+      p[j] = ok ? prop[sd[j].y] : kNeutral;
+    }
+#pragma unroll
+    for (int j = 0; j < kEdgesPerThread; ++j)
+      if (v[j] > p[j]) atomicMax(prop + sd[j].y, v[j]);
+  }
+}
+
+__global__ void __launch_bounds__(kSweepThreads)
+apply_kernel(int* __restrict__ x, int* __restrict__ prop, int n, int* st,
+             int first, int cap) {
+  // every block reads kDone before the last block can write it: the
+  // last block is the one that finds every other block's ticket taken
+  if (!first && st[kDone] != kRunning) return;
   int changed = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    int p = prop[i];
-    if (p > x[i]) {
-      x[i] = p;
-      changed = 1;
+  const long long per = (long long)kSweepThreads * kNodesPerThread;
+  for (long long base = blockIdx.x * per; base < n;
+       base += (long long)gridDim.x * per) {
+    int xs[kNodesPerThread], ps[kNodesPerThread];
+#pragma unroll
+    for (int j = 0; j < kNodesPerThread; ++j) {
+      long long i = base + j * kSweepThreads + threadIdx.x;
+      xs[j] = i < n ? x[i] : 0;
+      ps[j] = i < n ? prop[i] : kNeutral;
+    }
+#pragma unroll
+    for (int j = 0; j < kNodesPerThread; ++j) {
+      long long i = base + j * kSweepThreads + threadIdx.x;
+      if (i < n) {
+        if (ps[j] > xs[j]) {
+          x[i] = ps[j];
+          changed = 1;
+        }
+        if (ps[j] != kNeutral) prop[i] = kNeutral;
+      }
     }
   }
-  if (__syncthreads_or(changed) && threadIdx.x == 0) atomicOr(ctl, 1);
+  if (__syncthreads_or(changed) && threadIdx.x == 0)
+    atomicOr(st + kChanged, 1);
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(st + kTicket, 1) == (int)gridDim.x - 1) {
+      int c = atomicExch(st + kChanged, 0);
+      st[kTicket] = 0;
+      int sweeps = (first ? 0 : *(volatile int*)(st + kSweeps)) + 1;
+      st[kSweeps] = sweeps;
+      st[kDone] = !c ? kConverged : sweeps >= cap ? kCapped : kRunning;
+    }
+  }
 }
 
 __global__ void step_kernel(int step, uint8_t* __restrict__ active,
@@ -135,45 +312,128 @@ int finish(void* ev_end, cudaStream_t s) {
   return record(ev_end, s);
 }
 
+// One sweep over `shards` edge blocks of e edges (arrays of their
+// pointers): one launch a kMaxShards of them, blockIdx.y the shard.
+void sweep(int shards, const int* const* src, const int* const* dst,
+           const uint8_t* const* edge_on, int2* const* live,
+           int* const* cnt, int e, const uint8_t* active, const int* x,
+           const int* col, int* prop, const int* st, int backward,
+           int compact, int sms, cudaStream_t s) {
+  for (int g = 0; g < shards; g += kMaxShards) {
+    int m = shards - g < kMaxShards ? shards - g : kMaxShards;
+    Blocks b = {};
+    for (int i = 0; i < m; ++i) {
+      b.src[i] = src[g + i];
+      b.dst[i] = dst[g + i];
+      b.edge_on[i] = edge_on[g + i];
+      b.live[i] = live[g + i];
+      b.cnt[i] = cnt[g + i];
+    }
+    dim3 grid(grid_for(e, kSweepThreads * kEdgesPerThread,
+                       sms / m > 0 ? sms / m : 1),
+              m);
+    if (compact)
+      sweep_compact_kernel<<<grid, kSweepThreads, 0, s>>>(
+          b, e, active, x, col, prop, backward);
+    else
+      sweep_live_kernel<<<grid, kSweepThreads, 0, s>>>(b, e, x, prop,
+                                                       backward, st);
+  }
+}
+
+void apply(int* x, int* prop, int n, int* st, int first, int cap, int sms,
+           cudaStream_t s) {
+  apply_kernel<<<grid_for(n, kSweepThreads * kNodesPerThread, sms),
+                 kSweepThreads, 0, s>>>(x, prop, n, st, first, cap);
+}
+
 }  // namespace
 
 extern "C" {
 
-// One sweep over an edge block on `stream`: src, dst int32 [e] (each in
-// [0, n)), edge_on uint8 [e], active uint8 [n], x and col int32 [n]
-// (col read in the backward pass only), prop int32 [n], set to the
-// neutral value and then max-propagated. ev_start / ev_end, when given,
-// are recorded just before and just after the two kernels. Returns the
-// CUDA error code of the launch (0 = launched).
-int scc_shard_sweep_launch(const int* src, const int* dst,
-                           const uint8_t* edge_on, const uint8_t* active,
-                           const int* x, const int* col, int n, int e,
-                           int backward, int* prop, void* stream,
+// One sweep of `shards` edge blocks on one device, on `stream` (see the
+// header): src, dst, edge_on, live and cnt are arrays of the shards'
+// pointers, each block src, dst int32 [e] (each in [0, n)), edge_on
+// uint8 [e], live int32 [e][2] and cnt int32 [2] (cnt[backward] must be
+// 0 when a compacting sweep starts; the compacting sweep of the other
+// pass sets it so); active uint8 [n], x and col int32 [n] (col read by a
+// compacting backward sweep only), prop int32 [n] max-accumulated, and
+// st int32 [kState] (a later sweep returns at once when the fixpoint is
+// done) are the device's one copy, shared by its shards. ev_start /
+// ev_end, when given, are recorded just before and just after the
+// kernels. Returns the CUDA error code of the launch (0 = launched).
+int scc_shard_sweep_launch(int shards, const int* const* src,
+                           const int* const* dst,
+                           const uint8_t* const* edge_on,
+                           int2* const* live, int* const* cnt, int e,
+                           const uint8_t* active, const int* x,
+                           const int* col, int* prop, const int* st, int n,
+                           int backward, int compact, void* stream,
                            void* ev_start, void* ev_end) {
-  if (n < 1 || e < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int err = record(ev_start, s);
+  if (n < 1 || e < 1 || shards < 1) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int err = sm_count(&sms);
   if (err) return err;
-  fill_kernel<<<blocks_for(n), kThreads, 0, s>>>(prop, n,
-                                                  backward ? 0 : -1);
-  if (e)
-    sweep_kernel<<<blocks_for(e), kThreads, 0, s>>>(
-        src, dst, edge_on, active, x, col, prop, e, backward);
+  cudaStream_t s = (cudaStream_t)stream;
+  err = record(ev_start, s);
+  if (err) return err;
+  sweep(shards, src, dst, edge_on, live, cnt, e, active, x, col, prop, st,
+        backward, compact, sms, s);
   return finish(ev_end, s);
 }
 
-// x = max(x, prop) over int32 [n]; ctl int32 [2]: ctl[0] set to 1 where
-// any x changed (cleared first).
-int scc_shard_apply_launch(int* x, const int* prop, int n, int* ctl,
-                           void* stream, void* ev_start, void* ev_end) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+// x = max(x, prop) and prop = kNeutral over int32 [n], and st int32
+// [kState] updated (see the header); `first` starts the fixpoint's
+// count, ignoring what st holds. An apply of a done fixpoint returns at
+// once.
+int scc_shard_apply_launch(int* x, int* prop, int* st, int n, int first,
+                           int cap, void* stream, void* ev_start,
+                           void* ev_end) {
+  if (n < 1 || cap < 1) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  int err = record(ev_start, s);
+  err = record(ev_start, s);
   if (err) return err;
-  err = (int)cudaMemsetAsync(ctl, 0, sizeof(int), s);
-  if (err) return err;
-  apply_kernel<<<blocks_for(n), kThreads, 0, s>>>(x, prop, n, ctl);
+  apply(x, prop, n, st, first, cap, sms, s);
   return finish(ev_end, s);
+}
+
+// A chunk of k sweeps of one fixpoint over `shards` edge blocks on one
+// device, all enqueued on `stream` with no wait: k times the shards'
+// sweep (compacting the first time where `first`) and then the apply
+// (`first` for the first of them); the arguments up to `compact` as
+// scc_shard_sweep_launch's. Then st's (sweeps, done) are copied to
+// host_state int32 [2] (pinned), for the caller to read once it has
+// waited on the stream. ev_start / ev_end, when given, are recorded just
+// around the kernels.
+int scc_shard_chunk_launch(int shards, const int* const* src,
+                           const int* const* dst,
+                           const uint8_t* const* edge_on,
+                           int2* const* live, int* const* cnt, int e,
+                           const uint8_t* active, int* x, const int* col,
+                           int* prop, int* st, int n, int backward, int k,
+                           int first, int cap, int* host_state,
+                           void* stream, void* ev_start, void* ev_end) {
+  if (n < 1 || e < 1 || shards < 1 || k < 1 || cap < 1)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = record(ev_start, s);
+  if (err) return err;
+  for (int it = 0; it < k; ++it) {
+    int fresh = first && it == 0;
+    sweep(shards, src, dst, edge_on, live, cnt, e, active, x, col, prop, st,
+          backward, fresh, sms, s);
+    apply(x, prop, n, st, fresh, cap, sms, s);
+  }
+  err = finish(ev_end, s);
+  if (err) return err;
+  return (int)cudaMemcpyAsync(host_state, st + kSweeps, 2 * sizeof(int),
+                              cudaMemcpyDeviceToHost, s);
 }
 
 // One of a round's elementwise steps (kInit, kRoots, kRetire) over

@@ -3,32 +3,52 @@ kernels (csrc/scc_shard.cu) and their plain PyTorch versions.
 
 They replace jepsen_tpu/tpu/scc.py:172 `_jitted_scc_sharded`, whose
 sweeps end in a pmax of the colours across the mesh: gpu/scc.py drives
-the rounds and sweeps from the host, and calls per sweep one scc_sweep()
-per shard over its edge block, the combine, and one scc_apply(); per
-round three scc_step()s (see the .cu file for what each computes):
+the rounds from the host and runs each fixpoint in chunks of sweeps (see
+the .cu file for what each kernel computes). A solve builds its plans
+once, checking every tensor there, and launches from them:
 
-  scc_sweep(src, dst, edge_on, active, x, col, prop, backward)
-        prop int32 [n] := neutral (-1 forward, 0 backward), then the
-        scatter-max of x along the block's live edges (backward: from
-        dst to src, inside colour classes of col)
-  scc_apply(x, prop, ctl)       x := max(x, prop); ctl[0] := changed
-  scc_step(kind, active, c, m, out, ctl)
+  sweep_plan(src, dst, edge_on, active, x, col, prop, live, cnt, st,
+             backward)
+        one shard's sweep: prop int32 [n] max-accumulates x along the
+        block's live edges (backward: from dst to src, inside colour
+        classes of col); the first sweep of a fixpoint (compact) lists
+        them in live int32 [E, 2], their number in cnt[backward], and
+        the later ones read only that list
+  apply_plan(x, prop, st, cap)  x := max(x, prop), prop := NEUTRAL, and
+        the fixpoint's state st int32 [STATE] (SWEEPS, DONE) updated
+  step_plan(kind, active, c, m, out, ctl)
         INIT: c := active ? id : -1; ROOTS: m := active & (c == id);
         RETIRE: members retire into out, ctl[1] := active nodes left
+  SweepGroup(sweeps)    the sweep plans of the shards on one device,
+        swept by one launch (blockIdx.y the shard)
+  ChunkPlan(group, apply, host)   the group and the apply
+
+  scc_sweep(group, compact), scc_apply(plan, first), scc_step(plan)
+        one launch each (events time it on the card)
+  scc_chunk(chunk, k, first)
+        k times the shards' sweep and then the apply, in one call into
+        the library on the card; then (sweeps, done) into the pinned
+        `host` buffer, which read_state() reads after one wait
+
+A sweep or apply of a done fixpoint (converged, or SWEEP_CAP sweeps
+applied) returns at once and changes nothing, so a chunk may outrun the
+fixpoint: the sweeps counted are the applies that ran.
 
 Every value is an integer and max is independent of order, so the
-kernels and the plain versions agree exactly. Each wrapper launches its
-kernel for CUDA tensors and runs the plain version for CPU tensors,
-never the plain version on the card; `sweep_launches`,
-`apply_launches` and `step_launches` count kernel launches. Each launch
-is built by its *_plan() function, which the lint (gpu/lint.py) also
-calls on meta tensors.
+kernels and the plain versions agree exactly, up to the order of the
+pairs in `live`. Each wrapper launches its kernel for CUDA tensors and
+runs the plain version for CPU tensors, never the plain version on the
+card; `sweep_launches` (of them `compact_launches`), `apply_launches`
+and `step_launches` count kernel launches, `state_reads` the reads of a
+fixpoint's state. The lint (gpu/lint.py) calls the *_plan() functions
+on meta tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from dataclasses import dataclass
 
 import torch
 
@@ -39,10 +59,27 @@ from . import LaunchPlan, build
 INIT = 0
 ROOTS = 1
 RETIRE = 2
+# a fixpoint's device state, int32 [STATE]; csrc/scc_shard.cu holds the
+# same slots and values (kChanged ... kNeutral)
+CHANGED = 0
+TICKET = 1
+SWEEPS = 2
+DONE = 3
+STATE = 4
+RUNNING = 0
+CONVERGED = 1
+CAPPED = 2
+# what prop holds between sweeps: below every colour and mark
+NEUTRAL = -1
+# the shards one sweep launch covers; csrc/scc_shard.cu holds the same
+# (kMaxShards)
+MAX_SHARDS = 8
 
 sweep_launches = 0
+compact_launches = 0
 apply_launches = 0
 step_launches = 0
+state_reads = 0
 
 _lib_lock = threading.Lock()
 _lib_cache: list = []
@@ -53,11 +90,15 @@ def _lib() -> ctypes.CDLL:
         if not _lib_cache:
             lib = build.load("scc_shard")
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.scc_shard_sweep_launch.argtypes = [p] * 6 + [i, i, i] + \
-                [p] * 4
+            group = [i] + [p] * 5 + [i] + [p] * 5 + [i, i]
+            lib.scc_shard_sweep_launch.argtypes = group + [i] + [p] * 3
             lib.scc_shard_sweep_launch.restype = i
-            lib.scc_shard_apply_launch.argtypes = [p, p, i] + [p] * 4
+            lib.scc_shard_apply_launch.argtypes = [p, p, p, i, i, i] + \
+                [p] * 3
             lib.scc_shard_apply_launch.restype = i
+            lib.scc_shard_chunk_launch.argtypes = group + [i] * 3 + \
+                [p] * 4
+            lib.scc_shard_chunk_launch.restype = i
             lib.scc_shard_step_launch.argtypes = [i] + [p] * 4 + [i] + \
                 [p] * 4
             lib.scc_shard_step_launch.restype = i
@@ -67,133 +108,268 @@ def _lib() -> ctypes.CDLL:
         return _lib_cache[0]
 
 
-def _check(tensors: dict, dtypes: dict, events=None) -> torch.device:
-    """Every tensor on one device (cuda or cpu), contiguous, of its
-    dtype; node arrays [n] and edge arrays [E] alike. Returns the
-    device."""
+_I32, _BOOL = torch.int32, torch.bool
+
+
+def _check(tensors: dict, dtypes: dict) -> torch.device:
+    """Every tensor on one device (cuda or cpu, or meta for the lint),
+    contiguous, of its dtype. Returns the device."""
     dev = next(iter(tensors.values())).device
     for name, t in tensors.items():
         if t.dtype != dtypes[name]:
             raise TypeError(f"{name} must be {dtypes[name]}, got {t.dtype}")
-        if t.dim() != 1:
-            raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, not {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"scc_shard runs on cuda or cpu, not {dev}")
-    if events is not None and dev.type != "cuda":
-        raise ValueError(f"events time a launch on the card, not on {dev}")
     return dev
 
 
-_I32, _BOOL = torch.int32, torch.bool
+def _shapes(want: dict) -> None:
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} is {tuple(t.shape)}, want {shape}")
 
 
-def sweep_plan(src, dst, edge_on, active, x, col, prop,
+def sweep_plan(src, dst, edge_on, active, x, col, prop, live, cnt, st,
                backward: bool) -> LaunchPlan:
-    """The launch scc_sweep() makes: the edge block and the replicated node
-    arrays it reads, `prop` it writes."""
+    """One shard's sweeps (compacting and later alike): the edge block,
+    the node arrays it reads, `prop` it accumulates into, its `live`
+    list and `cnt`, and the fixpoint's state `st` on its device."""
+    _check({"src": src, "dst": dst, "edge_on": edge_on, "active": active,
+            "x": x, "col": col, "prop": prop, "live": live, "cnt": cnt,
+            "st": st},
+           {"src": _I32, "dst": _I32, "edge_on": _BOOL, "active": _BOOL,
+            "x": _I32, "col": _I32, "prop": _I32, "live": _I32,
+            "cnt": _I32, "st": _I32})
     n, E = x.shape[0], src.shape[0]
-    for name, t, size in (("dst", dst, E), ("edge_on", edge_on, E),
-                          ("active", active, n), ("col", col, n),
-                          ("prop", prop, n)):
-        if t.shape[0] != size:
-            raise ValueError(f"{name} has {t.shape[0]} entries, want {size}")
-    if not 0 < n < 2 ** 31 - 1 or E >= 2 ** 31:
+    _shapes({"src": (src, (E,)), "dst": (dst, (E,)),
+             "edge_on": (edge_on, (E,)), "active": (active, (n,)),
+             "x": (x, (n,)), "col": (col, (n,)), "prop": (prop, (n,)),
+             "live": (live, (E, 2)), "cnt": (cnt, (2,)),
+             "st": (st, (STATE,))})
+    if not 0 < n < 2 ** 31 - 1 or not 0 < E < 2 ** 31:
         raise ValueError(f"n={n}, E={E} out of range")
     return LaunchPlan(
         args={"src": src, "dst": dst, "edge_on": edge_on, "active": active,
-              "x": x, "col": col},
-        outputs={"prop": prop},
+              "x": x, "col": col, "st": st},
+        outputs={"prop": prop, "live": live, "cnt": cnt},
         params={"n": n, "E": E, "backward": int(backward)})
 
 
-def scc_sweep(src, dst, edge_on, active, x, col, prop, backward: bool,
-              events=None) -> torch.Tensor:
-    """One sweep of an edge block into `prop` (see the module
-    docstring); returns prop. Endpoints must lie in [0, n): the kernel
-    does not check them. events, a (start, end) pair of
-    torch.cuda.Event(enable_timing=True), are recorded just around the
-    launch's kernels; refused with CPU tensors."""
-    global sweep_launches
-    dev = _check({"src": src, "dst": dst, "edge_on": edge_on,
-                  "active": active, "x": x, "col": col, "prop": prop},
-                 {"src": _I32, "dst": _I32, "edge_on": _BOOL,
-                  "active": _BOOL, "x": _I32, "col": _I32, "prop": _I32},
-                 events)
-    plan = sweep_plan(src, dst, edge_on, active, x, col, prop, backward)
-    if dev.type == "cpu":
-        return sweep_reference(src, dst, edge_on, active, x, col, prop,
-                               backward)
-    _launch(_lib().scc_shard_sweep_launch, dev, events,
-            *(t.data_ptr() for t in plan.args.values()),
-            plan.params["n"], plan.params["E"], plan.params["backward"],
-            prop.data_ptr())
-    with _lib_lock:
-        sweep_launches += 1
-    return prop
-
-
-def apply_plan(x, prop, ctl) -> LaunchPlan:
-    if prop.shape != x.shape or ctl.shape != (2,):
-        raise ValueError(f"x {tuple(x.shape)}, prop {tuple(prop.shape)} "
-                         f"and ctl {tuple(ctl.shape)}: want [n], [n], [2]")
-    return LaunchPlan(args={"x": x, "prop": prop}, outputs={"ctl": ctl},
-                      params={"n": x.shape[0]})
-
-
-def scc_apply(x, prop, ctl, events=None) -> None:
-    """x := max(x, prop) in place; ctl[0] := 1 if any x changed, else 0
-    (ctl int32 [2] on x's device)."""
-    global apply_launches
-    dev = _check({"x": x, "prop": prop, "ctl": ctl},
-                 {"x": _I32, "prop": _I32, "ctl": _I32}, events)
-    plan = apply_plan(x, prop, ctl)
-    if dev.type == "cpu":
-        apply_reference(x, prop, ctl)
-        return
-    _launch(_lib().scc_shard_apply_launch, dev, events, x.data_ptr(),
-            prop.data_ptr(), plan.params["n"], ctl.data_ptr())
-    with _lib_lock:
-        apply_launches += 1
+def apply_plan(x, prop, st, cap: int) -> LaunchPlan:
+    """The apply of a fixpoint of x over `prop`, into the state `st`,
+    done at `cap` sweeps."""
+    _check({"x": x, "prop": prop, "st": st},
+           {"x": _I32, "prop": _I32, "st": _I32})
+    n = x.shape[0]
+    _shapes({"x": (x, (n,)), "prop": (prop, (n,)), "st": (st, (STATE,))})
+    if not 0 < n < 2 ** 31 - 1 or cap < 1:
+        raise ValueError(f"n={n}, cap={cap} out of range")
+    return LaunchPlan(args={"x": x, "prop": prop},
+                      outputs={"x": x, "prop": prop, "st": st},
+                      params={"n": n, "cap": cap})
 
 
 def step_plan(kind: int, active, c, m, out, ctl) -> LaunchPlan:
     if kind not in (INIT, ROOTS, RETIRE):
         raise ValueError(f"step {kind} is none of INIT, ROOTS, RETIRE")
+    _check({"active": active, "c": c, "m": m, "out": out, "ctl": ctl},
+           {"active": _BOOL, "c": _I32, "m": _I32, "out": _I32,
+            "ctl": _I32})
     n = active.shape[0]
-    if not (c.shape == m.shape == out.shape == (n,)) or ctl.shape != (2,):
-        raise ValueError("active, c, m and out must be [n], ctl [2]")
+    _shapes({"active": (active, (n,)), "c": (c, (n,)), "m": (m, (n,)),
+             "out": (out, (n,)), "ctl": (ctl, (2,))})
     return LaunchPlan(args={"active": active, "c": c, "m": m},
                       outputs={"out": out, "ctl": ctl},
                       params={"step": kind, "n": n})
 
 
-def scc_step(kind: int, active, c, m, out, ctl, events=None) -> None:
+@dataclass
+class SweepGroup:
+    """The sweep plans of the shards on one device, swept by one launch
+    (MAX_SHARDS a launch): one pass, blocks of one size, and the node
+    arrays, the accumulator and the state shared. The library's pointer
+    arrays are built once, here."""
+
+    sweeps: list
+    _c_args: tuple = ()
+
+    def __post_init__(self):
+        if not self.sweeps:
+            raise ValueError("a sweep covers at least one shard")
+        s0 = self.sweeps[0]
+        for p in self.sweeps:
+            if any(p.args[t] is not s0.args[t]
+                   for t in ("active", "x", "col", "st")) or \
+                    p.outputs["prop"] is not s0.outputs["prop"] or \
+                    p.params != s0.params:
+                raise ValueError("a sweep's shards share their node "
+                                 "arrays, accumulator and state, one pass "
+                                 "and one block size")
+        if s0.args["x"].device.type != "cuda":
+            return
+        k = len(self.sweeps)
+
+        def ptrs(t):
+            return (ctypes.c_void_p * k)(*(
+                (p.args | p.outputs)[t].data_ptr() for p in self.sweeps))
+        a = s0.args
+        self._c_args = (
+            k, ptrs("src"), ptrs("dst"), ptrs("edge_on"), ptrs("live"),
+            ptrs("cnt"), s0.params["E"], a["active"].data_ptr(),
+            a["x"].data_ptr(), a["col"].data_ptr(),
+            s0.outputs["prop"].data_ptr(), a["st"].data_ptr(),
+            s0.params["n"], s0.params["backward"])
+
+    @property
+    def launches(self) -> int:
+        """The launches one sweep of the group takes."""
+        return -(-len(self.sweeps) // MAX_SHARDS)
+
+
+@dataclass
+class ChunkPlan:
+    """A device's sweep group and the apply over its accumulator and
+    state; `host`, on the card, the pinned int32 [2] that receives
+    (sweeps, done)."""
+
+    group: SweepGroup
+    apply: LaunchPlan
+    host: torch.Tensor | None = None
+
+    def __post_init__(self):
+        s0, a = self.group.sweeps[0], self.apply.outputs
+        if s0.outputs["prop"] is not a["prop"] or \
+                s0.args["st"] is not a["st"] or s0.args["x"] is not a["x"]:
+            raise ValueError("a chunk's sweeps share the apply's x, prop "
+                             "and state")
+        if a["x"].device.type == "cuda" and (
+                self.host is None or not self.host.is_pinned() or
+                self.host.shape != (2,) or self.host.dtype != _I32):
+            raise ValueError("host must be a pinned int32 [2]")
+
+
+def state_buffer(device) -> torch.Tensor | None:
+    """The pinned int32 [2] a fixpoint's (sweeps, done) is read back
+    through, for a state on `device` (None off the card)."""
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.zeros(2, dtype=_I32, pin_memory=True)
+
+
+def _device(plan: LaunchPlan, events) -> torch.device:
+    dev = next(iter(plan.args.values())).device
+    if events is not None and dev.type != "cuda":
+        raise ValueError(f"events time a launch on the card, not on {dev}")
+    return dev
+
+
+def scc_sweep(group: SweepGroup, compact: bool, events=None) -> None:
+    """One sweep of a device's shards (see the module docstring):
+    compacting where `compact`. Endpoints must lie in [0, n): the kernel
+    does not check them. events, a (start, end) pair of
+    torch.cuda.Event(enable_timing=True), are recorded just around the
+    kernels; refused with CPU tensors."""
+    global sweep_launches, compact_launches
+    dev = _device(group.sweeps[0], events)
+    if dev.type == "cpu":
+        sweep_reference(group, compact)
+        return
+    _launch(_lib().scc_shard_sweep_launch, dev, events, *group._c_args,
+            int(compact))
+    with _lib_lock:
+        sweep_launches += group.launches
+        compact_launches += group.launches if compact else 0
+
+
+def scc_apply(plan: LaunchPlan, first: bool, events=None) -> None:
+    """One apply launch of `plan`: the first of its fixpoint where
+    `first`."""
+    global apply_launches
+    dev = _device(plan, events)
+    if dev.type == "cpu":
+        apply_reference(plan, first)
+        return
+    o, p = plan.outputs, plan.params
+    _launch(_lib().scc_shard_apply_launch, dev, events, o["x"].data_ptr(),
+            o["prop"].data_ptr(), o["st"].data_ptr(), p["n"], int(first),
+            p["cap"])
+    with _lib_lock:
+        apply_launches += 1
+
+
+def scc_step(plan: LaunchPlan, events=None) -> None:
     """One of a round's elementwise steps, in place (see the module
     docstring)."""
     global step_launches
-    dev = _check({"active": active, "c": c, "m": m, "out": out, "ctl": ctl},
-                 {"active": _BOOL, "c": _I32, "m": _I32, "out": _I32,
-                  "ctl": _I32}, events)
-    plan = step_plan(kind, active, c, m, out, ctl)
+    dev = _device(plan, events)
     if dev.type == "cpu":
-        step_reference(kind, active, c, m, out, ctl)
+        step_reference(plan)
         return
-    _launch(_lib().scc_shard_step_launch, dev, events, kind,
-            active.data_ptr(), c.data_ptr(), m.data_ptr(), out.data_ptr(),
-            plan.params["n"], ctl.data_ptr())
+    a, o, p = plan.args, plan.outputs, plan.params
+    _launch(_lib().scc_shard_step_launch, dev, events, p["step"],
+            a["active"].data_ptr(), a["c"].data_ptr(), a["m"].data_ptr(),
+            o["out"].data_ptr(), p["n"], o["ctl"].data_ptr())
     with _lib_lock:
         step_launches += 1
+
+
+def scc_chunk(chunk: ChunkPlan, k: int, first: bool, events=None) -> None:
+    """k sweeps of a fixpoint: k times the sweep of the device's shards
+    (compacting the first time where `first`) and then the apply, with
+    no wait; on the card one call into the library, which also copies
+    (sweeps, done) into chunk.host. events are recorded just around the
+    chunk's kernels."""
+    global sweep_launches, compact_launches, apply_launches
+    if k < 1:
+        raise ValueError(f"a chunk of {k} sweeps")
+    group = chunk.group
+    dev = _device(chunk.apply, events)
+    if dev.type == "cpu":
+        for i in range(k):
+            fresh = first and i == 0
+            sweep_reference(group, fresh)
+            apply_reference(chunk.apply, fresh)
+        return
+    _launch(_lib().scc_shard_chunk_launch, dev, events, *group._c_args, k,
+            int(first), chunk.apply.params["cap"], chunk.host.data_ptr())
+    with _lib_lock:
+        sweep_launches += k * group.launches
+        compact_launches += group.launches if first else 0
+        apply_launches += k
+
+
+def fetch_state(st: torch.Tensor, host: torch.Tensor | None) -> None:
+    """Enqueues the copy of st's (sweeps, done) into `host`, as
+    scc_chunk does, for a fixpoint run launch by launch (nothing off the
+    card)."""
+    if host is not None:
+        host.copy_(st[SWEEPS:DONE + 1], non_blocking=True)
+
+
+def read_state(st: torch.Tensor, host: torch.Tensor | None
+               ) -> tuple[int, int]:
+    """(sweeps, done) of a fixpoint's state: on the card from `host`,
+    filled by scc_chunk or fetch_state, after one wait for the stream;
+    on the CPU from st itself."""
+    global state_reads
+    with _lib_lock:
+        state_reads += 1
+    if host is None:
+        sweeps, done = st[SWEEPS:DONE + 1].tolist()
+        return sweeps, done
+    torch.cuda.current_stream(st.device).synchronize()
+    sweeps, done = host.tolist()
+    return sweeps, done
 
 
 def _launch(fn, dev, events, *args) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ev_start, ev_end = build.event_handles(events)
-        rc = fn(*args, stream, ev_start, ev_end)
+        rc = fn(*args, stream, *build.event_handles(events))
     if rc != 0:
         raise RuntimeError(
             f"scc_shard launch failed: CUDA error {rc} "
@@ -204,28 +380,60 @@ def _launch(fn, dev, events, *args) -> None:
 # plain versions (CPU tensors; chip_smoke holds the kernels to them)
 # ---------------------------------------------------------------------------
 
-def sweep_reference(src, dst, edge_on, active, x, col, prop,
-                    backward: bool) -> torch.Tensor:
-    """The plain version of scc_sweep(): one scatter_reduce_(..., "amax")
-    over the block's live edges."""
-    s, d = src.long(), dst.long()
-    live = edge_on & active[s] & active[d]
-    if backward:
-        live &= col[s] == col[d]
-        s, d = d, s
-    prop.fill_(0 if backward else -1)
-    prop.scatter_reduce_(0, d[live], x[s[live]], "amax")
-    return prop
+def sweep_reference(group: SweepGroup, compact: bool) -> None:
+    """The plain version of scc_sweep(), shard by shard: the live edges
+    found by the predicate (compacting: appended to live in edge order,
+    cnt[backward] grown by their number and the other pass's cnt zeroed)
+    or read from live (later; nothing once the fixpoint is done), then
+    one scatter_reduce_(..., "amax") into prop."""
+    for plan in group.sweeps:
+        a, o = plan.args, plan.outputs
+        b, E = plan.params["backward"], plan.params["E"]
+        live, cnt = o["live"], o["cnt"]
+        if compact:
+            s, d = a["src"].long(), a["dst"].long()
+            on = a["edge_on"] & a["active"][s] & a["active"][d]
+            if b:
+                on &= a["col"][s] == a["col"][d]
+                s, d = d, s
+            s, d = s[on], d[on]
+            at = int(cnt[b])
+            fit = max(0, min(len(s), E - at))
+            live[at:at + fit, 0] = s[:fit].to(_I32)
+            live[at:at + fit, 1] = d[:fit].to(_I32)
+            cnt[b] = at + len(s)
+            cnt[1 - b] = 0
+        else:
+            if int(a["st"][DONE]) != RUNNING:
+                return
+            k = min(int(cnt[b]), E)
+            s, d = live[:k, 0].long(), live[:k, 1].long()
+        o["prop"].scatter_reduce_(0, d, a["x"][s], "amax")
 
 
-def apply_reference(x, prop, ctl) -> None:
+def apply_reference(plan: LaunchPlan, first: bool) -> None:
     """The plain version of scc_apply()."""
-    ctl[0] = int(bool((prop > x).any()))
+    o = plan.outputs
+    x, prop, st = o["x"], o["prop"], o["st"]
+    if not first and int(st[DONE]) != RUNNING:
+        return
+    changed = bool((prop > x).any())
     torch.maximum(x, prop, out=x)
+    prop.fill_(NEUTRAL)
+    sweeps = (0 if first else int(st[SWEEPS])) + 1
+    st[CHANGED] = 0
+    st[TICKET] = 0
+    st[SWEEPS] = sweeps
+    st[DONE] = (CONVERGED if not changed else
+                CAPPED if sweeps >= plan.params["cap"] else RUNNING)
 
 
-def step_reference(kind: int, active, c, m, out, ctl) -> None:
+def step_reference(plan: LaunchPlan) -> None:
     """The plain version of scc_step()."""
+    a, o = plan.args, plan.outputs
+    active, c, m = a["active"], a["c"], a["m"]
+    out, ctl = o["out"], o["ctl"]
+    kind = plan.params["step"]
     ids = torch.arange(active.shape[0], dtype=torch.int32,
                        device=active.device)
     if kind == INIT:

@@ -36,13 +36,17 @@ an Edges object orders its edges into key blocks by `ekey` (the per-edge
 key id of elle's edge inference; a stable sort, skipped when they are
 already in order), splits them into one contiguous block a shard, and
 solves with the colours replicated: the host drives the JAX program's
-rounds and sweeps under its caps, and each sweep is one
-kernels.scc_shard sweep a shard over its block, then the combine of the
-shards' results (pmax: an elementwise max onto the first shard's device,
-and dist.all_reduce(MAX) across ranks), then one apply. The combined
-sweep equals the unsharded scatter-max, so labels, ok, rounds and sweeps
-equal scc_kernel's on the same graph. After a cap hit the convergence
-launch runs on the first shard's device over the whole edge list.
+rounds under its caps, and runs each fixpoint in chunks of sweeps,
+reading the fixpoint's device state back once a chunk. A sweep is one
+kernels.scc_shard sweep a shard over its block (the first of a
+fixpoint compacts the block's live edges, the later ones read only
+those), the combine of the shards' results (pmax: on one card the
+shards' atomics into one shared accumulator; from other devices an
+elementwise max onto the first shard's device, and dist.all_reduce(MAX)
+across ranks), then one apply. The combined sweep equals the unsharded
+scatter-max, so labels, ok, rounds and sweeps equal scc_kernel's on the
+same graph. After a cap hit the convergence launch runs on the first
+shard's device over the whole edge list.
 """
 
 from __future__ import annotations
@@ -112,6 +116,7 @@ class Edges:
                 telemetry.count("scc.keyblock-layouts")
         self._on_device = None
         self._blocks = None
+        self._solver = None
 
     def _mask(self, emask) -> np.ndarray:
         if emask is None:
@@ -211,11 +216,14 @@ class Edges:
         int32 [n + 3], labels, ok, rounds and sweeps, as scc_kernel's.
         Makes an `scc` profiler record with `devices`; its compute_ns is
         the host's wall time of the rounds, which wait for the card once
-        a sweep."""
+        a chunk of sweeps and once a round. The solver's buffers and
+        plans are built at the first solve and serve every mask after."""
         n, mesh = self.n, self.mesh
         on = self._mask(emask)
         prof = profiler.get()
-        blocks = self._shard_blocks()
+        if self._solver is None:
+            self._solver = _ShardedSolve(n, mesh, self.dev,
+                                         self._shard_blocks())
         bucket = ("scc-sharded", n, self._e_blk, self.dev.type)
         rec = prof.begin("scc", bucket=bucket, nodes=n, edges=len(on),
                          devices=mesh.size)
@@ -224,13 +232,10 @@ class Edges:
             with telemetry.span("scc:device", device=self.dev.type,
                                 devices=mesh.size):
                 t0 = monotonic_ns()
-                ons = [torch.from_numpy(_padded(
-                    on[d * self._e_blk:(d + 1) * self._e_blk],
-                    self._e_blk)).to(dev)
-                    for d, (dev, _s, _d) in zip(mesh.local(), blocks)]
+                self._solver.upload(_padded(on, mesh.size * self._e_blk))
                 rec["h2d_ns"] = monotonic_ns() - t0
                 t0 = monotonic_ns()
-                out = _ShardedSolve(n, mesh, self.dev, blocks, ons).run()
+                out = self._solver.run()
                 rec["compute_ns"] = rec["dispatch_ns"] = monotonic_ns() - t0
                 compile_ns = kbuild.take_load_ns("scc_shard")
                 if compile_ns:
@@ -279,71 +284,178 @@ def _padded(a: np.ndarray, size: int) -> np.ndarray:
     return out
 
 
+class _Nodes:
+    """The node arrays a device's shards read (active, the colours c and
+    the marks m), the sweep accumulator they share and the fixpoint's
+    state, on one device: the home's are the solve's own, another
+    device's are copies the host refreshes. With them, the edge masks,
+    live lists and counts of the device's `shards` blocks of e edges,
+    and the mesh's indices of those shards."""
+
+    def __init__(self, n: int, dev: torch.device, shards: list, e: int):
+        i32 = dict(dtype=torch.int32, device=dev)
+        ints = torch.empty(3 * n + kshard.STATE, **i32)
+        self.prop, self.c, self.m = ints[:n], ints[n:2 * n], ints[2 * n:3 * n]
+        self.st = ints[3 * n:]
+        self.active = torch.empty(n, dtype=torch.bool, device=dev)
+        self.shards = shards
+        self.on = torch.empty((len(shards), e), dtype=torch.bool, device=dev)
+        self.live = torch.empty((len(shards), e, 2), **i32)
+        self.cnt = torch.empty((len(shards), 2), **i32)
+
+    def reset(self) -> None:
+        """The state a solve starts from."""
+        self.prop.fill_(kshard.NEUTRAL)
+        self.st.zero_()
+        self.cnt.zero_()
+        self.active.fill_(True)
+
+
+def _schedule(head: tuple):
+    """Chunk sizes: `head`, then doubling."""
+    yield from head
+    k = head[-1]
+    while True:
+        k *= 2
+        yield k
+
+
+def _combine(prop: torch.Tensor, others: list, group: bool) -> None:
+    """The combine of a sweep across devices: each other device's
+    accumulator maxed onto `prop` (the home's) and reset to NEUTRAL
+    there, then the max across ranks. The home's shards need none: they
+    accumulate into `prop` itself."""
+    for q in others:
+        torch.maximum(prop, q.to(prop.device), out=prop)
+        q.fill_(kshard.NEUTRAL)
+    if group:
+        dist.all_reduce_(prop, "max")
+
+
 class _ShardedSolve:
     """The host-driven Orzan program over a mesh's edge blocks: the JAX
-    program's rounds and sweeps (tpu/scc.py:64-146) with its caps, each
-    sweep a kshard.scc_sweep a shard, the combine, and a kshard.scc_apply.
-    The colours, the membership marks and the active set live on the
-    home device, with a copy on each other device a shard uses."""
+    program's rounds and sweeps (tpu/scc.py:64-146) with its caps. The
+    buffers and plans are built, and every tensor checked, once for an
+    Edges object; a solve uploads its mask and resets the state.
 
-    def __init__(self, n, mesh, home, blocks, ons):
-        self.n, self.mesh, self.home = n, mesh, home
-        self.blocks, self.ons = blocks, ons
+    Each fixpoint runs in chunks of sweeps, read back once a chunk; a
+    sweep or apply past the fixpoint's end changes nothing, so the
+    sweeps counted are the JAX program's. The shards on one device are
+    swept by one launch and share the device's accumulator, so their
+    atomics are their combine. With every shard on the home device and
+    no process group (one card), a chunk is one kshard.scc_chunk.
+    Otherwise each sweep is a kshard.scc_sweep a device, _combine, and a
+    kshard.scc_apply, and the node arrays and the state are copied to
+    each other device. After each sweep the accumulators hold NEUTRAL
+    again: the apply resets the home's, _combine the others'.
+
+    The chunk schedule, from phase 8's Elle twin over 4 shards (16
+    fixpoints, 57 sweeps; a forward fixpoint took 1 sweep or 4 to 7, the
+    backward one that follows it at most as many): the forward fixpoint
+    in chunks of 1, 6, then doubling, the backward one first in a chunk
+    of the forward's sweeps (at most 6), then doubling. There it reads
+    the state back 21 times and launches 10 sweeps past a fixpoint's
+    end, where chunks of 2, 4, 8, ... read back 27 times and launch 23,
+    and one read a sweep reads 57 times. A launch past the end costs the
+    card a few microseconds and the host the time to enqueue it, a
+    read-back a wait for the card and a return to Python: the schedule
+    keeps both few."""
+
+    def __init__(self, n, mesh, home, blocks):
+        self.n, self.home = n, home
+        devs = [dev for dev, _s, _d in blocks]
+        e = len(blocks[0][1]) if blocks else 0
+        self.nodes = {dev: _Nodes(n, dev, [d for d, dd in zip(
+            mesh.local(), devs) if dd == dev], e)
+            for dev in dict.fromkeys([home, *devs])}
+        me = self.nodes[home]
+        self.active, self.c, self.m = me.active, me.c, me.m
+        self.prop, self.st = me.prop, me.st
         i32 = dict(dtype=torch.int32, device=home)
-        self.active = torch.ones(n, dtype=torch.bool, device=home)
-        self.c = torch.empty(n, **i32)
-        self.m = torch.empty(n, **i32)
-        self.out = torch.full((n,), -1, **i32)
+        self.out = torch.empty(n, **i32)
         self.ctl = torch.zeros(2, **i32)
-        self.props = [torch.empty(n, dtype=torch.int32, device=dev)
-                      for dev, _s, _d in blocks]
         self.group = dist.world_size() > 1
+        cap = kernel.SWEEP_CAP
+        # per pass (forward, backward): each device's shards' sweep plans
+        plans: tuple = ({}, {})
+        for dev, src, dst in blocks:
+            nd = self.nodes[dev]
+            j = len(plans[0].setdefault(dev, []))
+            for b in (0, 1):
+                plans[b].setdefault(dev, []).append(kshard.sweep_plan(
+                    src, dst, nd.on[j], nd.active, nd.m if b else nd.c,
+                    nd.c, nd.prop, nd.live[j], nd.cnt[j], nd.st,
+                    backward=bool(b)))
+        self.groups = tuple([kshard.SweepGroup(g) for g in pb.values()]
+                            for pb in plans)
+        self.applies = (kshard.apply_plan(self.c, self.prop, self.st, cap),
+                        kshard.apply_plan(self.m, self.prop, self.st, cap))
+        self.steps = {kind: kshard.step_plan(kind, self.active, self.c,
+                                             self.m, self.out, self.ctl)
+                      for kind in (kshard.INIT, kshard.ROOTS,
+                                   kshard.RETIRE)}
+        self.host = kshard.state_buffer(home)
+        self.others = [nd for dev, nd in self.nodes.items() if dev != home]
+        self.chunks = None
+        if not self.group and not self.others and blocks:
+            self.chunks = tuple(kshard.ChunkPlan(self.groups[b][0],
+                                                  self.applies[b], self.host)
+                                for b in (0, 1))
 
-    def _on(self, t: torch.Tensor, dev: torch.device, cache: dict):
-        if dev == self.home:
-            return t
-        key = (id(t), dev)
-        if key not in cache:
-            cache[key] = t.to(dev)
-        return cache[key]
+    def upload(self, on: np.ndarray) -> None:
+        """The edge mask of a solve, [mesh.size * e] bool: one upload a
+        device of its shards' blocks."""
+        for nd in self.nodes.values():
+            if nd.shards:
+                rows = on.reshape(-1, nd.on.shape[1])
+                nd.on.copy_(torch.from_numpy(rows[nd.shards]))
 
-    def _fixpoint(self, x: torch.Tensor, backward: bool) -> tuple:
-        """Sweeps to a fixpoint of x, or to SWEEP_CAP; (converged,
-        sweeps)."""
-        it, changed = 0, True
-        col = self.c
-        while changed and it < kernel.SWEEP_CAP:
-            cache: dict = {}
-            for (dev, src, dst), on, prop in zip(self.blocks, self.ons,
-                                                 self.props):
-                kshard.scc_sweep(src, dst, on,
-                                 self._on(self.active, dev, cache),
-                                 self._on(x, dev, cache),
-                                 self._on(col, dev, cache), prop, backward)
-            # the combine: pmax over the shards, then across ranks
-            if self.props:
-                prop = self.props[0].to(self.home)
-                for q in self.props[1:]:
-                    torch.maximum(prop, q.to(self.home), out=prop)
+    def _sweep(self, b: int, compact: bool) -> None:
+        """One sweep launch by launch: the copies to the other devices,
+        each shard's sweep, the combine, the apply."""
+        x = self.m if b else self.c
+        for nd in self.others:
+            if compact:
+                nd.active.copy_(self.active)
+                nd.c.copy_(self.c)
+            (nd.m if b else nd.c).copy_(x)
+        for group in self.groups[b]:
+            kshard.scc_sweep(group, compact)
+        _combine(self.prop, [nd.prop for nd in self.others], self.group)
+        kshard.scc_apply(self.applies[b], compact)
+        for nd in self.others:
+            nd.st.copy_(self.st)
+
+    def _fixpoint(self, backward: bool, head: tuple) -> tuple:
+        """Sweeps to a fixpoint of x (c forward, m backward), or to
+        SWEEP_CAP, in chunks of _schedule(head); (converged, sweeps)."""
+        b = int(backward)
+        first = True
+        for k in _schedule(head):
+            if self.chunks:
+                kshard.scc_chunk(self.chunks[b], k, first)
             else:
-                prop = torch.full((self.n,), 0 if backward else -1,
-                                  dtype=torch.int32, device=self.home)
-            if self.group:
-                dist.all_reduce_(prop, "max")
-            kshard.scc_apply(x, prop, self.ctl)
-            changed = bool(self.ctl[0].item())
-            it += 1
-        return not changed, it
+                for i in range(k):
+                    self._sweep(b, first and i == 0)
+                kshard.fetch_state(self.st, self.host)
+            first = False
+            sweeps, done = kshard.read_state(self.st, self.host)
+            if done != kshard.RUNNING:
+                return done == kshard.CONVERGED, sweeps
 
     def run(self) -> np.ndarray:
+        """The solve of the mask last uploaded: int32 [n + 3], labels,
+        ok, rounds and sweeps."""
+        for nd in self.nodes.values():
+            nd.reset()
+        self.out.fill_(-1)
         ok, rounds, sweeps, left = True, 0, 0, self.n
-        args = (self.active, self.c, self.m, self.out, self.ctl)
         while ok and left and rounds < kernel.ROUND_CAP:
-            kshard.scc_step(kshard.INIT, *args)
-            ok_f, it_f = self._fixpoint(self.c, backward=False)
-            kshard.scc_step(kshard.ROOTS, *args)
-            ok_b, it_b = self._fixpoint(self.m, backward=True)
-            kshard.scc_step(kshard.RETIRE, *args)
+            kshard.scc_step(self.steps[kshard.INIT])
+            ok_f, it_f = self._fixpoint(False, (1, 6))
+            kshard.scc_step(self.steps[kshard.ROOTS])
+            ok_b, it_b = self._fixpoint(True, (min(it_f, 6),))
+            kshard.scc_step(self.steps[kshard.RETIRE])
             left = int(self.ctl[1].item())
             ok = ok and ok_f and ok_b
             rounds += 1

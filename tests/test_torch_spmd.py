@@ -568,9 +568,14 @@ def test_elle_presorts_under_the_mesh(monkeypatch, cards8, devices8):
 # the kernels' plain versions
 # ---------------------------------------------------------------------------
 
-def _sweep_numpy(src, dst, on, active, x, col, backward):
+def _sweep_numpy(src, dst, on, active, x, col, backward, start=None):
+    """prop after one sweep: `start` (NEUTRAL everywhere by default)
+    max-accumulating x along the live edges; and the live (s, d) pairs
+    in edge order."""
     n = len(x)
-    prop = np.full(n, 0 if backward else -1, np.int64)
+    prop = np.full(n, kshard.NEUTRAL, np.int64) if start is None \
+        else np.array(start, np.int64)
+    pairs = []
     for s, d, o in zip(src, dst, on):
         if not (o and active[s] and active[d]):
             continue
@@ -578,12 +583,40 @@ def _sweep_numpy(src, dst, on, active, x, col, backward):
             if col[s] != col[d]:
                 continue
             s, d = d, s
+        pairs.append((s, d))
         prop[d] = max(prop[d], x[s])
-    return prop
+    return prop, pairs
+
+
+def _t(a, d=torch.int32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+
+def _shard_plan(src, dst, on, active, x, col, backward, prop=None,
+                st=None):
+    """A sweep plan over CPU copies of the arrays, and its tensors."""
+    n, E = len(x), len(src)
+    prop = torch.full((n,), kshard.NEUTRAL, dtype=torch.int32) \
+        if prop is None else _t(prop)
+    live = torch.full((E, 2), -7, dtype=torch.int32)
+    cnt = torch.zeros(2, dtype=torch.int32)
+    st = torch.zeros(kshard.STATE, dtype=torch.int32) if st is None else st
+    return kshard.sweep_plan(_t(src), _t(dst), _t(on, torch.bool),
+                             _t(active, torch.bool), _t(x), _t(col), prop,
+                             live, cnt, st, backward)
+
+
+def _live_pairs(plan):
+    b = plan.params["backward"]
+    k = int(plan.outputs["cnt"][b])
+    return sorted(map(tuple, plan.outputs["live"][:k].tolist()))
 
 
 @pytest.mark.parametrize("backward", [False, True])
 def test_scc_sweep_plain_version(backward):
+    """The compacting sweep lists the live edges and accumulates into
+    prop; a later sweep reads the list back to the same prop; a sweep
+    of a done fixpoint changes nothing."""
     rng = np.random.default_rng(9)
     n, E = 60, 400
     src, dst = rng.integers(0, n, E), rng.integers(0, n, E)
@@ -591,47 +624,248 @@ def test_scc_sweep_plain_version(backward):
     active = rng.random(n) < 0.9
     x = rng.integers(-1, n, n)
     col = rng.integers(0, 4, n)
-    t = lambda a, d=torch.int32: torch.from_numpy(  # noqa: E731
-        np.ascontiguousarray(a)).to(d)
-    prop = torch.empty(n, dtype=torch.int32)
-    kshard.scc_sweep(t(src), t(dst), t(on, torch.bool), t(active, torch.bool),
-                     t(x), t(col), prop, backward)
+    start = rng.integers(-1, n, n)
+    want, pairs = _sweep_numpy(src, dst, on, active, x, col, backward,
+                               start)
+    plan = _shard_plan(src, dst, on, active, x, col, backward, start)
+    cnt = plan.outputs["cnt"]
+    cnt[1 - int(backward)] = 5
+    kshard.scc_sweep(kshard.SweepGroup([plan]), compact=True)
+    assert plan.outputs["prop"].tolist() == want.tolist()
+    assert _live_pairs(plan) == sorted(pairs) and pairs
+    assert cnt[1 - int(backward)] == 0
+    prop = plan.outputs["prop"]
+    prop.fill_(kshard.NEUTRAL)
+    kshard.scc_sweep(kshard.SweepGroup([plan]), compact=False)
     assert prop.tolist() == _sweep_numpy(src, dst, on, active, x, col,
-                                         backward).tolist()
+                                         backward)[0].tolist()
+    prop.fill_(kshard.NEUTRAL)
+    plan.args["st"][kshard.DONE] = kshard.CONVERGED
+    kshard.scc_sweep(kshard.SweepGroup([plan]), compact=False)
+    assert (prop == kshard.NEUTRAL).all()
+
+
+@pytest.mark.parametrize("case", ["random", "duplicates", "none-on",
+                                  "none-active", "no-class"])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_compacting_sweep_against_numpy(case, seed):
+    """Seeded graphs through the compacting and later sweeps of both
+    passes, with repeated edges, and with live sets left empty by the
+    edge mask, by the active set or (backward) by the colour classes."""
+    rng = np.random.default_rng(seed)
+    n, E = 50, 300
+    src, dst = rng.integers(0, n, E), rng.integers(0, n, E)
+    if case == "duplicates":
+        src, dst = np.tile(src[:30], 10), np.tile(dst[:30], 10)
+    on = rng.random(E) < 0.7
+    active = rng.random(n) < 0.8
+    col = rng.integers(0, 3, n)
+    if case == "none-on":
+        on[:] = False
+    elif case == "none-active":
+        active[:] = False
+    elif case == "no-class":  # every node its own class, no self-loop
+        col = np.arange(n)
+        dst = np.where(dst == src, (src + 1) % n, dst)
+    for backward in (False, True):
+        x = rng.integers(0, 2, n) if backward else rng.integers(-1, n, n)
+        want, pairs = _sweep_numpy(src, dst, on, active, x, col, backward)
+        plan = _shard_plan(src, dst, on, active, x, col, backward)
+        kshard.scc_sweep(kshard.SweepGroup([plan]), compact=True)
+        prop = plan.outputs["prop"]
+        assert prop.tolist() == want.tolist()
+        assert _live_pairs(plan) == sorted(pairs)
+        empty = case in ("none-on", "none-active") or (
+            case == "no-class" and backward)
+        assert (not pairs) == empty
+        for _ in range(2):  # a later sweep accumulates, idempotently
+            kshard.scc_sweep(kshard.SweepGroup([plan]), compact=False)
+            assert prop.tolist() == want.tolist()
+
+
+def _apply_plan(x, prop, cap=kscc.SWEEP_CAP):
+    st = torch.zeros(kshard.STATE, dtype=torch.int32)
+    return kshard.apply_plan(torch.tensor(x, dtype=torch.int32),
+                             torch.tensor(prop, dtype=torch.int32), st, cap)
 
 
 def test_scc_apply_and_steps_plain_versions():
-    x = torch.tensor([0, 5, -1, 3], dtype=torch.int32)
-    ctl = torch.zeros(2, dtype=torch.int32)
-    kshard.scc_apply(x, torch.tensor([1, 2, -1, 3], dtype=torch.int32), ctl)
-    assert x.tolist() == [1, 5, -1, 3] and ctl[0] == 1
-    kshard.scc_apply(x, x.clone(), ctl)
-    assert ctl[0] == 0
+    plan = _apply_plan([0, 5, -1, 3], [1, 2, -1, 3])
+    x, prop, st = (plan.outputs[k] for k in ("x", "prop", "st"))
+    kshard.scc_apply(plan, first=True)
+    assert x.tolist() == [1, 5, -1, 3]
+    assert (prop == kshard.NEUTRAL).all()
+    assert st[kshard.SWEEPS] == 1 and st[kshard.DONE] == kshard.RUNNING
+    kshard.scc_apply(plan, first=False)
+    assert st[kshard.SWEEPS] == 2 and st[kshard.DONE] == kshard.CONVERGED
     active = torch.tensor([True, True, False, True])
     c = torch.empty(4, dtype=torch.int32)
     m = torch.empty(4, dtype=torch.int32)
     out = torch.full((4,), -1, dtype=torch.int32)
-    kshard.scc_step(kshard.INIT, active, c, m, out, ctl)
+    ctl = torch.zeros(2, dtype=torch.int32)
+    steps = {kind: kshard.step_plan(kind, active, c, m, out, ctl)
+             for kind in (kshard.INIT, kshard.ROOTS, kshard.RETIRE)}
+    kshard.scc_step(steps[kshard.INIT])
     assert c.tolist() == [0, 1, -1, 3]
     c.copy_(torch.tensor([1, 1, -1, 3], dtype=torch.int32))
-    kshard.scc_step(kshard.ROOTS, active, c, m, out, ctl)
+    kshard.scc_step(steps[kshard.ROOTS])
     assert m.tolist() == [0, 1, 0, 1]
     m[0] = 1
     m[3] = 0
-    kshard.scc_step(kshard.RETIRE, active, c, m, out, ctl)
+    kshard.scc_step(steps[kshard.RETIRE])
     assert out.tolist() == [1, 1, -1, -1]
     assert active.tolist() == [False, False, False, True] and ctl[1] == 1
     with pytest.raises(ValueError, match="none of"):
-        kshard.scc_step(7, active, c, m, out, ctl)
+        kshard.step_plan(7, active, c, m, out, ctl)
     with pytest.raises(TypeError, match="int32"):
-        kshard.scc_apply(x.long(), x, ctl)
+        kshard.apply_plan(x.long(), x, st, 8)
+    with pytest.raises(ValueError, match="want"):
+        kshard.apply_plan(x, x[:3], st, 8)
+
+
+def test_apply_counts_sweeps_and_finishes_the_fixpoint():
+    """The apply's device state: sweeps counted from `first`, done on no
+    change (converged) or at the cap with a change (capped), and every
+    later apply of a done fixpoint a no-op until the next `first`."""
+    plan = _apply_plan([0, 0, 0], [-1, -1, -1], cap=3)
+    x, prop, st = (plan.outputs[k] for k in ("x", "prop", "st"))
+    for i in range(3):
+        prop[0] = i + 1
+        kshard.scc_apply(plan, first=i == 0)
+        assert st[kshard.SWEEPS] == i + 1 and x[0] == i + 1
+        assert st[kshard.CHANGED] == st[kshard.TICKET] == 0
+    assert st[kshard.DONE] == kshard.CAPPED
+    prop[1] = 9
+    kshard.scc_apply(plan, first=False)
+    assert x.tolist() == [3, 0, 0] and prop[1] == 9
+    assert st[kshard.SWEEPS] == 3 and st[kshard.DONE] == kshard.CAPPED
+    kshard.scc_apply(plan, first=True)  # the next fixpoint starts over
+    assert x.tolist() == [3, 9, 0]
+    assert st[kshard.SWEEPS] == 1 and st[kshard.DONE] == kshard.RUNNING
+    kshard.scc_apply(plan, first=False)
+    assert st[kshard.SWEEPS] == 2 and st[kshard.DONE] == kshard.CONVERGED
+    assert kshard.read_state(st, None) == (2, kshard.CONVERGED)
 
 
 def test_wrappers_refuse_events_on_the_cpu():
-    x = torch.zeros(3, dtype=torch.int32)
-    ctl = torch.zeros(2, dtype=torch.int32)
+    plan = _apply_plan([0, 0, 0], [0, 0, 0])
     with pytest.raises(ValueError, match="events"):
-        kshard.scc_apply(x, x, ctl, events=(None, None))
+        kshard.scc_apply(plan, True, events=(None, None))
+
+
+def test_a_chunk_is_its_sweeps_one_by_one():
+    """scc_chunk's plain version: k sweeps of two shards sharing one
+    accumulator, then the apply, equal to the launches one by one, and
+    a chunk longer than the fixpoint changes nothing past its end."""
+    n, src, dst = _graph(5, n=300, e=2_000)
+    x0 = np.where(np.random.default_rng(4).random(n) < 0.9,
+                  np.arange(n), -1)
+    active = x0 >= 0
+    on = np.ones(len(src), bool)
+
+    def solve(k):
+        x = _t(x0)
+        prop = torch.full((n,), kshard.NEUTRAL, dtype=torch.int32)
+        st = torch.zeros(kshard.STATE, dtype=torch.int32)
+        half = len(src) // 2
+        act = _t(active, torch.bool)
+        sweeps = [kshard.sweep_plan(
+            _t(src[lo:hi]), _t(dst[lo:hi]), _t(on[lo:hi], torch.bool),
+            act, x, x, prop,
+            torch.empty((hi - lo, 2), dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32), st, False)
+            for lo, hi in ((0, half), (half, len(src)))]
+        chunk = kshard.ChunkPlan(kshard.SweepGroup(sweeps),
+                                  kshard.apply_plan(x, prop, st,
+                                                    kscc.SWEEP_CAP))
+        first = True
+        while True:
+            kshard.scc_chunk(chunk, k, first)
+            first = False
+            sweeps_done, done = kshard.read_state(st, None)
+            if done:
+                return x.tolist(), sweeps_done, done, prop.tolist()
+
+    want = solve(1)
+    assert want[1] > 2 and want[2] == kshard.CONVERGED
+    assert all(v == kshard.NEUTRAL for v in want[3])
+    for k in (2, 3, want[1], 64):
+        assert solve(k) == want, k
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 64, 4 * kscc.SWEEP_CAP])
+def test_chunk_schedules_keep_sweeps_exact(monkeypatch, chunk):
+    """Fixed chunk sizes, from one sweep to more than SWEEP_CAP: labels,
+    ok, rounds and sweeps stay the one-device launch's, on a random
+    graph and on the decreasing chain that hits SWEEP_CAP."""
+    monkeypatch.setattr(pscc, "_schedule",
+                        lambda head: iter(lambda: chunk, None))
+    n, src, dst = _graph(6)
+    graph = pscc.Edges(n, src, dst, mesh=["cpu"] * 4)
+    assert graph.solve_sharded().tolist() == _plain(n, src, dst).tolist()
+    n = 3 * kscc.SWEEP_CAP
+    src = np.arange(1, n).repeat(40)
+    dst = np.arange(n - 1).repeat(40)
+    out = pscc.Edges(n, src, dst, mesh=["cpu"] * 2).solve_sharded()
+    assert out.tolist()[n:] == _plain(n, src, dst).tolist()[n:]
+    assert out[n] == 0 and out[n + 2] > kscc.SWEEP_CAP
+
+
+def test_a_solver_serves_every_mask(monkeypatch):
+    """An Edges object builds its sharded solver once: masks solved in
+    turn, one of them cut off mid-solve, each answer the one-device
+    launch's."""
+    n, src, dst = _graph(6)
+    rng = np.random.default_rng(8)
+    masks = [rng.random(len(src)) < p for p in (0.5, 0.9)]
+    graph = pscc.Edges(n, src, dst, mesh=["cpu"] * 4)
+    for m in (masks[0], masks[1], masks[0]):
+        assert graph.solve_sharded(m).tolist() == \
+            _plain(n, src, dst, m).tolist()
+    solver = graph._solver
+    reads = iter(range(3))
+
+    def cut(st, host):
+        if next(reads) == 1:
+            raise KeyboardInterrupt
+        return orig(st, host)
+    orig = kshard.read_state
+    monkeypatch.setattr(kshard, "read_state", cut)
+    with pytest.raises(KeyboardInterrupt):
+        graph.solve_sharded(masks[1])
+    monkeypatch.setattr(kshard, "read_state", orig)
+    assert graph._solver is solver
+    assert graph.solve_sharded(masks[1]).tolist() == \
+        _plain(n, src, dst, masks[1]).tolist()
+
+
+def test_the_combine_across_devices():
+    """_combine over two CPU buffers standing for two other cards: maxed
+    onto the home's accumulator, each reset to NEUTRAL; and a solve
+    whose shards lie on "cpu" and "cpu:0" (two devices to the solve)
+    runs launch by launch through it, equal to the one-device launch."""
+    prop = torch.tensor([-1, 4, -1, 0], dtype=torch.int32)
+    q1 = torch.tensor([2, -1, -1, 7], dtype=torch.int32)
+    q2 = torch.tensor([-1, 5, -1, 1], dtype=torch.int32)
+    pscc._combine(prop, [q1, q2], group=False)
+    assert prop.tolist() == [2, 5, -1, 7]
+    assert (q1 == kshard.NEUTRAL).all() and (q2 == kshard.NEUTRAL).all()
+    n, src, dst = _graph(7)
+    emask = np.random.default_rng(2).random(len(src)) < 0.7
+    graph = pscc.Edges(n, src, dst, mesh=["cpu", "cpu:0", "cpu:0", "cpu"])
+    solve = pscc._ShardedSolve
+    seen = []
+    monkey = pytest.MonkeyPatch()
+    orig = solve._sweep
+    monkey.setattr(solve, "_sweep", lambda self, b, compact: (
+        seen.append((len(self.others), self.chunks)),
+        orig(self, b, compact)))
+    try:
+        assert graph.solve_sharded(emask).tolist() == \
+            _plain(n, src, dst, emask).tolist()
+    finally:
+        monkey.undo()
+    assert seen and all(k == 1 and c is None for k, c in seen)
 
 
 # ---------------------------------------------------------------------------
