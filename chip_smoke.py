@@ -419,14 +419,20 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      labels, ok, rounds and sweeps equal to scc_kernel's, and each
      solve's launches, read-backs and seconds; the twin's graph at 4
      shards under three chunk schedules in turns (the solve's own, one
-     read-back a sweep, chunks of 2, 4, 8, ...); every recorded chunk
-     of sweeps replayed launch by launch (the compacting first sweeps,
-     the later sweeps over the compacted edges, the applies, and the
-     launches past a fixpoint's end) and whole, and every scc_step
-     launch, each against its plain version, timed between its
-     launcher's events (a launch also behind a sleep queued on the
-     card, which leaves the host's launch call out), beside the
-     PyTorch call that computes the same values where there is one;
+     read-back a sweep, chunks of 2, 4, 8, ...); each solve's launches
+     and its waits for the card, counted by kind where the host makes
+     them, which must be the state's read once a chunk and the labels'
+     download, no read of its own a round (a round's first colours,
+     roots and retire run inside the fixpoints' launches); every recorded chunk of sweeps replayed
+     launch by launch (the compacting first sweeps, which derive the
+     values they send, the later sweeps over the compacted edges, the
+     first applies of both passes, the later applies, the launches past
+     a fixpoint's end, and a backward chunk's retire as a launch of its
+     own) and whole (the retire at its end), each against its plain
+     version, timed between its launcher's events (a launch also behind
+     a sleep queued on the card, which leaves the host's launch call
+     out), beside the PyTorch call that computes the same values where
+     there is one;
      (c) a 2-rank gloo group, each rank a process of its own sharing
      the card, equal to the in-process 2-shard mesh, each rank counting
      the shared card once (spmd.spmd_devices() 1); prints that NCCL
@@ -434,7 +440,8 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      `{"kernels": [...]}` line, whose wgl_search launches include those
      of phases 16-28, whose scc and bank_reduce launches include those
      of phases 19-28, and which lists the mesh form's wgl_search and
-     the three scc_shard kernels with phase 30's launches.
+     the three scc_shard kernels (sweep, apply, retire) with phase 30's
+     launches.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -7540,12 +7547,13 @@ def _returns_before_search(encs, dev, shards: int,
 
 
 class _ShardCalls:
-    """Records each call of the scc_shard chunk and step wrappers (the
-    state a call starts from, cloned, since the solve updates it in
-    place, and the state it leaves), for the replays of phase 30 (b)."""
+    """Records each call of the scc_shard chunk wrapper (the state a call
+    starts from, cloned, since the solve updates it in place, and the
+    state it leaves), for the replays of phase 30 (b). A round has no
+    launch of its own: its steps run inside the chunks."""
 
     def __init__(self):
-        self.calls = {"scc_chunk": [], "scc_step": []}
+        self.calls = {"scc_chunk": []}
         self.originals = {k: getattr(kshard, k) for k in self.calls}
 
     def __enter__(self):
@@ -7557,14 +7565,7 @@ class _ShardCalls:
             self.calls["scc_chunk"].append((plan, k, first, before,
                                             _chunk_state(plan)))
 
-        def step(plan, **kw):
-            before = {n: t.clone() for n, t in
-                      (plan.args | plan.outputs).items()}
-            orig["scc_step"](plan, **kw)
-            self.calls["scc_step"].append((plan, before, {
-                n: t.clone() for n, t in (plan.args | plan.outputs).items()}))
-
-        kshard.scc_chunk, kshard.scc_step = chunk, step
+        kshard.scc_chunk = chunk
         return self
 
     def __exit__(self, *exc):
@@ -7575,13 +7576,17 @@ class _ShardCalls:
 
 def _chunk_state(chunk) -> dict:
     """Clones of what a chunk of sweeps reads and writes: the node
-    arrays, the accumulator and the state its shards share, and each
-    shard's edge mask (the solver's, which the next solve overwrites),
-    live list and count."""
+    arrays (the colours one clone with x in the forward pass, whose x
+    they are), the accumulator and the state its shards share, the
+    labels where the chunk retires, and each shard's edge mask (the
+    solver's, which the next solve overwrites), live list and count."""
     sweeps, a = chunk.group.sweeps, chunk.apply.outputs
     out = {"x": a["x"].clone(), "prop": a["prop"].clone(),
-           "st": a["st"].clone(), "active": sweeps[0].args["active"].clone(),
-           "col": sweeps[0].args["col"].clone()}
+           "st": a["st"].clone(), "active": sweeps[0].args["active"].clone()}
+    col = sweeps[0].args["col"]
+    out["col"] = out["x"] if col is a["x"] else col.clone()
+    if chunk.retire is not None:
+        out["out"] = chunk.retire.outputs["out"].clone()
     for i, p in enumerate(sweeps):
         out[f"on{i}"] = p.args["edge_on"].clone()
         out[f"live{i}"] = p.outputs["live"].clone()
@@ -7590,15 +7595,22 @@ def _chunk_state(chunk) -> dict:
 
 
 def _chunk_plans(chunk, state: dict) -> tuple:
-    """The chunk's sweep group and apply plan over the tensors of
-    `state` (a _chunk_state), its edge blocks shared."""
+    """The chunk's sweep group, apply plan and retire plan (None for a
+    forward chunk) over the tensors of `state` (a _chunk_state), its
+    edge blocks shared."""
+    backward = bool(chunk.apply.params["backward"])
     group = kshard.SweepGroup([kshard.sweep_plan(
         p.args["src"], p.args["dst"], state[f"on{i}"], state["active"],
         state["x"], state["col"], state["prop"], state[f"live{i}"],
-        state[f"cnt{i}"], state["st"], bool(p.params["backward"]))
+        state[f"cnt{i}"], state["st"], backward)
         for i, p in enumerate(chunk.group.sweeps)])
-    return group, kshard.apply_plan(state["x"], state["prop"], state["st"],
-                                    chunk.apply.params["cap"])
+    apply = kshard.apply_plan(state["x"], state["prop"], state["st"],
+                              state["active"], state["col"],
+                              chunk.apply.params["cap"], backward)
+    retire = (kshard.retire_plan(state["active"], state["col"], state["x"],
+                                 state["out"], state["st"])
+              if chunk.retire is not None else None)
+    return group, apply, retire
 
 
 def _live_keys(plan) -> torch.Tensor:
@@ -7611,10 +7623,11 @@ def _live_keys(plan) -> torch.Tensor:
 
 
 def _state_err(a: dict, b: dict, group_a, group_b) -> int:
-    """max_abs_err between two chunk states: x, prop, st, each count, and
-    each live list as a set."""
-    names = ["x", "prop", "st"] + [f"cnt{i}"
-                                   for i in range(len(group_a.sweeps))]
+    """max_abs_err between two chunk states: x, prop, st, the active set
+    and the labels, each count, and each live list as a set."""
+    names = ["x", "prop", "st", "active"] + [
+        f"cnt{i}" for i in range(len(group_a.sweeps))] + (
+        ["out"] if "out" in a else [])
     err = _max_abs_err([a[k] for k in names], [b[k] for k in names])
     for pa, pb in zip(group_a.sweeps, group_b.sweeps):
         ka, kb = _live_keys(pa), _live_keys(pb)
@@ -7676,25 +7689,30 @@ def _new_kinds(names) -> dict:
 
 
 def _replay_chunk(entry, on_card: bool, sweeps: dict, applies: dict,
-                  chunks: dict) -> int:
+                  retires: dict, chunks: dict) -> int:
     """Phase 30 (b)'s replay of one recorded chunk from the state it
-    started from: each of its launches one by one, the kernel timed
+    started from: each of its launches one by one (a backward chunk's
+    retire as a launch of its own after its sweeps), the kernel timed
     between its launcher's events (the mean of 3, each from the same
     state) and its plain version by the host's clock, both checked to
     agree after every launch, and where a PyTorch call computes the
     same values its time; the state after the chunk checked against
     what the main path's one call left; then the chunk whole, through
-    scc_chunk, timed between the events its launcher records around its
-    kernels (the host's launch calls between them included, as on the
-    main path) and checked the same way. Adds to the sweep kinds
-    (compacting, live, past_done), the apply kinds (applied, past_done)
-    and `chunks`. Returns the max_abs_err."""
+    scc_chunk (the retire at its end), timed between the events its
+    launcher records around its kernels (the host's launch calls
+    between them included, as on the main path) and checked the same
+    way. Adds to the sweep kinds (compacting_forward,
+    compacting_backward, live, past_done), the apply kinds
+    (forward_first, backward_first, applied, past_done), the retire
+    kinds (retired, running) and `chunks`. Returns the max_abs_err."""
     chunk, k, first, before, after = entry
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    ks = {n: t.clone() for n, t in before.items()}
-    ps = {n: t.clone() for n, t in before.items()}
-    k_sweeps, k_apply = _chunk_plans(chunk, ks)
-    p_sweeps, p_apply = _chunk_plans(chunk, ps)
+    ks = _clone_state(before)
+    ps = _clone_state(before)
+    k_sweeps, k_apply, k_retire = _chunk_plans(chunk, ks)
+    p_sweeps, p_apply, p_retire = _chunk_plans(chunk, ps)
+    backward = k_apply.params["backward"]
+    pass_name = "backward" if backward else "forward"
     n = int(ks["x"].numel())
     err = 0
 
@@ -7724,25 +7742,27 @@ def _replay_chunk(entry, on_card: bool, sweeps: dict, applies: dict,
     for it in range(k):
         fresh = first and it == 0
         done = int(ks["st"][kshard.DONE]) != kshard.RUNNING
-        kind = "compacting" if fresh else "past_done" if done else "live"
+        kind = (f"compacting_{pass_name}" if fresh else "past_done" if done
+                else "live")
         lib, nbytes = None, 4
         if kind != "past_done":
             to, vals = [], []
-            nbytes = 8 * n + 8
+            # the accumulator written, the state; a later sweep reads x
+            nbytes = 4 * n + 8 + (0 if fresh else 4 * n)
             for pk in k_sweeps.sweeps:
-                a, b, E = pk.args, pk.params["backward"], pk.params["E"]
+                a, E = pk.args, pk.params["E"]
                 s, d = a["src"].long(), a["dst"].long()
                 live = a["edge_on"] & a["active"][s] & a["active"][d]
-                if b:
+                if backward:
                     live &= a["col"][s] == a["col"][d]
                     s, d = d, s
                 to.append(d[live])
-                vals.append(ks["x"][s[live]])
+                vals.append(kshard.compact_values(pk, s[live]) if fresh
+                            else ks["x"][s[live]])
                 c = int(live.sum())
-                nbytes += (9 * E + 8 * c + 4 if kind == "compacting"
-                           else 8 * c + 4)
-            if kind == "compacting":
-                nbytes += n * (1 + 4 * b)
+                nbytes += 9 * E + 8 * c + 4 if fresh else 8 * c + 4
+            if fresh:  # active, and backward the colours, gathered
+                nbytes += n * (1 + 4 * backward)
             to, vals = torch.cat(to), torch.cat(vals)
             scratch = torch.empty_like(ks["prop"])
             lib = (lambda: scratch.scatter_reduce_(0, to, vals, "amax"))
@@ -7753,19 +7773,32 @@ def _replay_chunk(entry, on_card: bool, sweeps: dict, applies: dict,
                         for t in ("live", "cnt")], lib, nbytes)
         done = not fresh and int(ks["st"][kshard.DONE]) != kshard.RUNNING
         xl = ks["x"].clone()
-        one("past_done" if done else "applied", applies,
+        # x (or active, and backward c) read, x and prop written, prop
+        # read, the state
+        nbytes = (16 * n + 32 if not fresh else
+                  13 * n + 32 if not backward else 17 * n + 32)
+        one("past_done" if done else f"{pass_name}_first" if fresh
+            else "applied", applies,
             lambda ev: kshard.scc_apply(k_apply, fresh, events=ev),
             lambda: kshard.apply_reference(p_apply, fresh),
             ["x", "prop", "st"],
-            None if done else (lambda: torch.maximum(xl, ks["prop"],
-                                                     out=xl)),
-            4 if done else 16 * n + 32)
+            None if done or fresh else (
+                lambda: torch.maximum(xl, ks["prop"], out=xl)),
+            4 if done else nbytes)
+    if k_retire is not None:
+        # the retire as a launch of its own: active, m and c read, out
+        # and active written, the state
+        done = int(ks["st"][kshard.DONE]) != kshard.RUNNING
+        one("retired" if done else "running", retires,
+            lambda ev: kshard.scc_retire(k_retire, events=ev),
+            lambda: kshard.retire_reference(p_retire),
+            ["active", "out", "st"], None, 14 * n + 24 if done else 4)
     want = _chunk_plans(chunk, after)[0]
     err = max(err, _state_err(ks, after, k_sweeps, want))
     # and the chunk whole, as the main path launched it
-    cs = {m: t.clone() for m, t in before.items()}
-    c_group, c_apply = _chunk_plans(chunk, cs)
-    whole = kshard.ChunkPlan(c_group, c_apply, chunk.host)
+    cs = _clone_state(before)
+    c_group, c_apply, c_retire = _chunk_plans(chunk, cs)
+    whole = kshard.ChunkPlan(c_group, c_apply, chunk.host, c_retire)
 
     def restore():
         for m, t in before.items():
@@ -7778,29 +7811,41 @@ def _replay_chunk(entry, on_card: bool, sweeps: dict, applies: dict,
     return max(err, _state_err(cs, after, c_group, want))
 
 
+def _clone_state(state: dict) -> dict:
+    """A copy of a _chunk_state whose colours stay one tensor with x
+    where they were (the forward pass)."""
+    out = {n: t.clone() for n, t in state.items() if n != "col"}
+    out["col"] = out["x"] if state["col"] is state["x"] \
+        else state["col"].clone()
+    return out
+
+
 def shard_kernel_timing(rec: _ShardCalls, launches: dict,
                         on_card: bool) -> list[dict]:
     """Phase 30 (b): every scc_shard launch of the main path replayed on
-    its recorded inputs (_replay_chunk for the chunks of sweeps, each
-    step alike), against its plain version (the same PyTorch code the
-    CPU runs, here on the card's tensors) and the recorded output. Bytes
-    bounds, each input read once and each output written once: a
-    compacting sweep (one launch over a device's shards) reads each
-    edge's src, dst and edge_on (9 bytes), each node's active and x (5)
-    and, backward, col (4), and writes prop (4), 8 bytes a live edge and
-    the counts; a later sweep
-    reads 8 bytes a live edge and x, and writes prop; an apply reads and
-    writes x and prop (16 a node); a launch past the fixpoint's end reads
-    4 bytes of state. A step reads active and c (kInit), and m (kRoots),
-    then out (kRetire), and writes c, m, or out and active."""
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
-    sweeps = _new_kinds(("compacting", "live", "past_done"))
-    applies = _new_kinds(("applied", "past_done"))
+    its recorded inputs (_replay_chunk), against its plain version (the
+    same PyTorch code the CPU runs, here on the card's tensors) and the
+    recorded output. Bytes bounds, each input read once and each output
+    written once: a compacting sweep (one launch over a device's shards)
+    reads each edge's src, dst and edge_on (9 bytes) and each node's
+    active (1) and, backward, col (4) (it reads no x: the values it sends
+    follow from those), and writes prop (4), 8 bytes a live edge and the
+    counts; a later sweep reads 8 bytes a live edge and x, and writes
+    prop; an apply reads and writes x and prop (16 a node), a first
+    apply reads active (1) and, backward, c (4) in place of x; a retire
+    reads active, m and c and writes out and active (14 a node); a launch
+    past the fixpoint's end, or a retire while it runs, reads 4 bytes of
+    state."""
+    sweeps = _new_kinds(("compacting_forward", "compacting_backward",
+                         "live", "past_done"))
+    applies = _new_kinds(("forward_first", "backward_first", "applied",
+                          "past_done"))
+    retires = _new_kinds(("retired", "running"))
     chunks = {"calls": 0, "sweeps_launched": 0, "ms": 0.0}
     err = 0
     for entry in rec.calls["scc_chunk"]:
         err = max(err, _replay_chunk(entry, on_card, sweeps, applies,
-                                     chunks))
+                                     retires, chunks))
     chunks["us_a_sweep"] = (1e3 * chunks["ms"] / chunks["sweeps_launched"]
                             if chunks["sweeps_launched"] and on_card
                             else None)
@@ -7811,7 +7856,8 @@ def shard_kernel_timing(rec: _ShardCalls, launches: dict,
             ("scc_sweep", sweeps, "Tensor.scatter_reduce_(0, dst, values, "
                                   "'amax') of the live edges"),
             ("scc_apply", applies, "torch.maximum(x, prop, out=x), "
-                                   "without the state")):
+                                   "without the state (later applies)"),
+            ("scc_retire", retires, None)):
         for row in kinds.values():
             for key in ("ms", "device_ms"):
                 row[key.replace("ms", "us_each")] = (
@@ -7824,52 +7870,15 @@ def shard_kernel_timing(rec: _ShardCalls, launches: dict,
             "replayed": sum(r["launches"] for r in kinds.values()),
             "max_abs_err": err,
             **{key: sum(r[key] or 0.0 for r in kinds.values())
-               for key in ("ms", "device_ms", "plain_ms", "bound_ms",
-                           "library_ms")},
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms")},
+            "library_ms": (sum(r["library_ms"] or 0.0
+                               for r in kinds.values())
+                           if lib_call else None),
             "library_call": lib_call, "kinds": kinds})
     rows[0]["compacting_launches"] = launches["scc_sweep_compacting"]
-    # the chunks, sweeps and applies together, as the main path runs them
+    # the chunks, sweeps, applies and retires together, as the main path
+    # runs them
     rows[0]["chunks"] = chunks
-    # steps
-    ms = device = plain = bound = 0.0
-    err = 0
-    for plan, before, after in rec.calls["scc_step"]:
-        kind, n = plan.params["step"], plan.params["n"]
-        names = ("active", "c", "m", "out", "ctl")
-
-        def fresh():
-            t = {k: before[k].clone() for k in names}
-            return t, kshard.step_plan(kind, *(t[k] for k in names))
-        got, pg = fresh()
-        rec.originals["scc_step"](pg)
-        again, pa = fresh()
-        ms += _kernel_ms(lambda ev: rec.originals["scc_step"](
-            pa, events=ev), on_card)
-        device += _kernel_ms(lambda ev: rec.originals["scc_step"](
-            pa, events=ev), on_card, queued=True)
-        want, pw = fresh()
-        sync()
-        t0 = time.perf_counter()
-        kshard.step_reference(pw)
-        sync()
-        plain += 1e3 * (time.perf_counter() - t0)
-        keys = ["active", "c", "m", "out"]
-        pairs = [(got[k], want[k]) for k in keys] + \
-            [(after[k], want[k]) for k in keys]
-        if kind == kshard.RETIRE:
-            pairs += [(got["ctl"][1:], want["ctl"][1:]),
-                      (after["ctl"][1:], want["ctl"][1:])]
-        err = max(err, _max_abs_err([a for a, _b in pairs],
-                                    [b for _a, b in pairs]))
-        bound += _bound_ms(n * {kshard.INIT: 5, kshard.ROOTS: 9,
-                                kshard.RETIRE: 14}[kind] + 4)
-    rows.append({"name": "scc_step", "launches": launches["scc_step"],
-                 "replayed": len(rec.calls["scc_step"]),
-                 "max_abs_err": err, "ms": ms,
-                 "device_ms": device if on_card else None,
-                 "plain_ms": plain,
-                 "bound_ms": bound, "library_ms": None,
-                 "library_call": None})
     return rows
 
 
@@ -7877,14 +7886,83 @@ def _shard_launch_counts() -> dict:
     return {"scc_sweep": kshard.sweep_launches,
             "scc_sweep_compacting": kshard.compact_launches,
             "scc_apply": kshard.apply_launches,
-            "scc_step": kshard.step_launches,
+            "scc_retire": kshard.retire_launches,
             "state_reads": kshard.state_reads}
 
 
 def _zero_counts() -> None:
     ws.launches = ensemble.launches = 0
     kshard.sweep_launches = kshard.compact_launches = 0
-    kshard.apply_launches = kshard.step_launches = kshard.state_reads = 0
+    kshard.apply_launches = kshard.retire_launches = kshard.state_reads = 0
+
+
+class _HostWaits:
+    """Counts by kind, while it is entered, the calls by which the host
+    waits for the card: a CUDA tensor read back (item, tolist, numpy,
+    cpu, int, bool, float, index, a `to` or a blocking `copy_` into host
+    memory) and a stream's, an event's or the device's synchronize. A
+    sharded solve on the card waits only in kshard.read_state (its
+    stream's synchronize, once a chunk) and at the labels' download
+    (one Tensor.cpu); on the CPU it waits for nothing."""
+
+    def __enter__(self):
+        self.waits: dict = {}
+        self._saved = []
+
+        def count(kind):
+            self.waits[kind] = self.waits.get(kind, 0) + 1
+
+        def on_cuda(name, f):
+            def read(t, *a, **k):
+                if t.is_cuda:
+                    count(f"Tensor.{name}")
+                return f(t, *a, **k)
+            return read
+
+        def to(f):
+            def read(t, *a, **k):
+                out = f(t, *a, **k)
+                if t.is_cuda and not out.is_cuda:
+                    count("Tensor.to")
+                return out
+            return read
+
+        def copy_(f):
+            def read(t, src, non_blocking=False, **k):
+                if src.is_cuda and not t.is_cuda and not non_blocking:
+                    count("Tensor.copy_")
+                return f(t, src, non_blocking, **k)
+            return read
+
+        def sync(name, f):
+            def wait(*a, **k):
+                count(name)
+                return f(*a, **k)
+            return wait
+
+        wraps = [(torch.Tensor, name, on_cuda(name, getattr(torch.Tensor,
+                                                            name)))
+                 for name in ("item", "tolist", "numpy", "cpu", "__int__",
+                              "__bool__", "__float__", "__index__")]
+        wraps += [(torch.Tensor, "to", to(torch.Tensor.to)),
+                  (torch.Tensor, "copy_", copy_(torch.Tensor.copy_)),
+                  (torch.cuda, "synchronize",
+                   sync("cuda.synchronize", torch.cuda.synchronize))]
+        wraps += [(cls, "synchronize", sync(f"{cls.__name__}.synchronize",
+                                            cls.synchronize))
+                  for cls in (torch.cuda.Stream, torch.cuda.Event)]
+        for owner, name, wrap in wraps:
+            self._saved.append((owner, name, owner.__dict__.get(name)))
+            setattr(owner, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            if orig is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, orig)
+        return False
 
 
 def _chunk_schedules(graph, key, dev, shards: int, reps: int = 5) -> dict:
@@ -8121,9 +8199,10 @@ def mesh_path(dev, on_card: bool, hists, ext_ops: int, elle_hists: dict,
                 want = _scc_one_device(n, src, dst, mask, dev)
                 sync()
                 c0 = _shard_launch_counts()
-                t0 = time.perf_counter()
-                out = edges.solve_sharded(mask)
-                solve_s = time.perf_counter() - t0
+                with _HostWaits() as host:
+                    t0 = time.perf_counter()
+                    out = edges.solve_sharded(mask)
+                    solve_s = time.perf_counter() - t0
                 used = {key: v - c0[key]
                         for key, v in _shard_launch_counts().items()}
                 mism = int(np.sum(out != want))
@@ -8139,15 +8218,24 @@ def mesh_path(dev, on_card: bool, hists, ext_ops: int, elle_hists: dict,
                     "solve_s": solve_s,
                     "launches": {key: used[key] for key in (
                         "scc_sweep", "scc_sweep_compacting", "scc_apply",
-                        "scc_step")},
+                        "scc_retire")},
                     "sweeps_launched": applies,
                     "device_ops_per_sweep": (
                         (used["scc_sweep"] + applies) / applies
                         if applies else None),
-                    # the state once a chunk, `left` once a round, the
-                    # labels once
-                    "read_backs": used["state_reads"] + rounds + 1,
+                    # every wait for the card, by kind; the state reads
+                    # are kshard.read_state's calls
+                    "waits": host.waits,
+                    "read_backs": sum(host.waits.values()),
                     "state_reads": used["state_reads"]})
+                # the state once a chunk and the labels once, no other
+                # wait (a round's own read of the nodes left, say)
+                allowed = ({"Stream.synchronize": used["state_reads"],
+                            "Tensor.cpu": 1} if on_card else {})
+                if host.waits != allowed:
+                    raise AssertionError(
+                        f"a sharded solve waited for the card "
+                        f"{host.waits}, not only at its {allowed}")
     emit({"phase": "mesh-scc", "solves": solves})
     emit({"phase": "mesh-scc-schedules",
           **_chunk_schedules(graphs[1][1:4], graphs[1][4], dev, shards)})
@@ -8644,7 +8732,7 @@ def run(dev: torch.device, n_headline: int = 500_000,
     ledger_entries(kernels, runs[-1]["check_s"], on_card)
     names = {k["name"] for k in kernels}
     if not {"wgl_search", "scc", "bank_reduce", "scc_sweep", "scc_apply",
-            "scc_step"} <= names:
+            "scc_retire"} <= names:
         raise AssertionError(f"the kernels line lists {sorted(names)}")
     return {
         "kernels": kernels,

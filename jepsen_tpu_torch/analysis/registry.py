@@ -14,9 +14,10 @@ The entries keep the JAX registry's names where a counterpart exists:
 launches through gpu/wgl.py's paths, `wgl-sharded` a shard's launch of
 gpu/ensemble.py's mesh form, `scc` the capped scc_kernel. The others are
 the port's own: `scc-converge` (scc_converge_kernel, the launch after a
-cap hit), `scc-sharded`, `scc-shard-apply` and `scc-shard-step` (the
-sharded colouring's sweep over a shard's edge block, its apply and its
-round steps, kernels/scc_shard.py) and `bank_reduce`. `wgl-sharded` and
+cap hit), `scc-sharded`, `scc-shard-apply` and `scc-shard-retire` (the
+sharded colouring's sweep over a shard's edge block, its apply and the
+retire that ends a backward chunk, kernels/scc_shard.py) and
+`bank_reduce`. `wgl-sharded` and
 `scc-sharded` carry the partition that gpu/spmd.py's rule tables give
 their launches' arguments and their batch axis, which R4 reads, as in
 the JAX registry. The JAX registry's `wgl-single` and `scc-single`
@@ -180,7 +181,8 @@ def _scc_shard_trace(b: dict, full: bool = False,
     shard's edge block, off the plans a solve builds: its sweep (the
     compacting backward one, which reads the most: with the partition of
     SCC_RULES over the JAX program's arguments and the edge list's batch
-    axis), its apply or its round step. None has scratch or shared
+    axis), its apply (the first of the backward pass, which reads the
+    most) or its retire. None has scratch or shared
     memory, so the library has no sizing entry point to ask; the
     compacted list and the accumulator are outputs, not carry."""
     from ..gpu import scc, spmd
@@ -192,14 +194,15 @@ def _scc_shard_trace(b: dict, full: bool = False,
     st = _meta((kshard.STATE,), "int32")
     if kernel_name == "scc-shard-apply":
         plan = kshard.apply_plan(node, _meta((n,), "int32"), st,
-                                 kscc.SWEEP_CAP)
+                                 _meta((n,), "bool"), _meta((n,), "int32"),
+                                 kscc.SWEEP_CAP, backward=True)
         return _trace(kernel_name, b["label"], plan, kshard.scc_chunk, {},
                       carry_outputs=False)
-    if kernel_name == "scc-shard-step":
-        plan = kshard.step_plan(kshard.RETIRE, _meta((n,), "bool"), node,
-                                _meta((n,), "int32"), _meta((n,), "int32"),
-                                _meta((2,), "int32"))
-        return _trace(kernel_name, b["label"], plan, kshard.scc_step, {},
+    if kernel_name == "scc-shard-retire":
+        plan = kshard.retire_plan(_meta((n,), "bool"), node,
+                                  _meta((n,), "int32"),
+                                  _meta((n,), "int32"), st)
+        return _trace(kernel_name, b["label"], plan, kshard.scc_chunk, {},
                       carry_outputs=False)
     plan = kshard.sweep_plan(_meta((E,), "int32"), _meta((E,), "int32"),
                              _meta((E,), "bool"), _meta((n,), "bool"),
@@ -306,10 +309,11 @@ def entries() -> list[Entry]:
               functools.partial(_scc_shard_trace,
                                 kernel_name="scc-shard-apply"),
               SCC_SHARD_BUCKETS, "sharded colouring, a sweep's apply"),
-        Entry("scc-shard-step",
+        Entry("scc-shard-retire",
               functools.partial(_scc_shard_trace,
-                                kernel_name="scc-shard-step"),
-              SCC_SHARD_BUCKETS, "sharded colouring, a round's step"),
+                                kernel_name="scc-shard-retire"),
+              SCC_SHARD_BUCKETS,
+              "sharded colouring, a backward chunk's retire"),
         Entry("bank_reduce", _bank_trace, BANK_BUCKETS,
               "bank checker's row sums and negative flags"),
     ]
@@ -375,10 +379,12 @@ MIRRORS = [
              ("_PRIO_MASK", "kPrioMask"),
              ("FIRST_ROUND_SWEEPS", "kFirstRoundSweeps"),
              ("_MAX_BLOCKS", "kMaxBlocks"), ("_SLOT", "kSlot")]),
-    ("scc_shard", [("INIT", "kInit"), ("ROOTS", "kRoots"),
-                   ("RETIRE", "kRetire"), ("CHANGED", "kChanged"),
-                   ("TICKET", "kTicket"), ("SWEEPS", "kSweeps"),
-                   ("DONE", "kDone"), ("STATE", "kState"),
+    ("scc_shard", [("LATER", "kLater"), ("FORWARD_FIRST", "kForwardFirst"),
+                   ("BACKWARD_FIRST", "kBackwardFirst"),
+                   ("CHANGED", "kChanged"), ("TICKET", "kTicket"),
+                   ("SWEEPS", "kSweeps"), ("DONE", "kDone"),
+                   ("LEFT", "kLeft"), ("TALLY", "kTally"),
+                   ("STATE", "kState"),
                    ("RUNNING", "kRunning"), ("CONVERGED", "kConverged"),
                    ("CAPPED", "kCapped"), ("NEUTRAL", "kNeutral"),
                    ("MAX_SHARDS", "kMaxShards")]),

@@ -8,7 +8,10 @@
 // one cooperative launch as csrc/scc.cu is: the host drives the rounds
 // (gpu/scc.py) and runs each fixpoint in chunks of sweeps, a sweep being
 // one `sweep` launch a device over its shards' edge blocks (blockIdx.y
-// the shard) and one `apply`; per round, three `step` launches.
+// the shard) and one `apply`. A round has no launch of its own: its
+// first colours, its roots and its retire (tpu/scc.py:110, :115, :119)
+// are computed by the fixpoints' first sweeps and applies and by the
+// `retire` that ends each backward chunk.
 //
 //   sweep   for every live edge (s, d) of the block: atomicMax(prop[d],
 //           x[s]), prop being max-accumulated and never filled here.
@@ -19,29 +22,40 @@
 //           them as (s, d) pairs to the shard's `live` list, its length
 //           in cnt[backward]; the later sweeps read only that list (the
 //           predicate holds still through a fixpoint, as the JAX
-//           program's live_e and same_color, :107 and :114).
-//   apply   x = max(x, prop), prop = kNeutral (the next sweep's start),
+//           program's live_e and same_color, :107 and :114). The
+//           compacting sweep reads no x: the fixpoint's starting values
+//           follow from what it has gathered, x[s] = s forward (active[s]
+//           holds on a live edge, so c0[s] is s) and x[s] = (col[s] == s)
+//           backward (m0).
+//   apply   x = max(x0, prop), prop = kNeutral (the next sweep's start),
 //           and the fixpoint's device state st[kState] updated by the
 //           grid's last block: kSweeps + 1, and kDone set to kConverged
 //           where no x changed or kCapped where kSweeps reaches `cap`.
-//   step    kInit: x = active ? id : -1 (the forward colours);
-//           kRoots: m = active && c == id (the roots of the backward
-//           pass); kRetire: member = active && m > 0, out = c and
-//           active = false on members, ctl[1] = active nodes left.
+//           x0 is x, or in the fixpoint's first apply its starting
+//           values computed in registers: kForwardFirst active ? id : -1
+//           (c0), kBackwardFirst active && c == id (m0).
+//   retire  once the backward fixpoint is done (st[kDone] set; it
+//           returns at once while kRunning): member = active && m > 0,
+//           out = c and active = false on members, and the active nodes
+//           left counted into st[kLeft] by the grid's last block.
 //
 // One neutral value serves both passes: forward colours and backward
 // marks are both >= -1, so max(x, -1) = x, and the max over a node's
 // in-edges with -1 or with the JAX program's 0 (backward) gives the same
 // x. A chunk of K sweeps is enqueued without a wait; once st[kDone] is
 // set, every later sweep and apply of the chunk returns at once, so the
-// host reads (sweeps, done) back once a chunk and the sweeps it counts
-// are the JAX program's, a SWEEP_CAP hit included.
+// host reads (sweeps, done, left) back once a chunk and the sweeps it
+// counts are the JAX program's, a SWEEP_CAP hit included. The backward
+// chunk that ends its fixpoint retires the round's members and counts
+// what is left, so that one read decides whether another round runs.
 //
 // Bound: bytes, and below a launch's own cost at Elle's sizes. A
 // compacting sweep reads each edge's src, dst and edge_on once (9 bytes),
-// gathers active (1), col (4, backward) and x (4) and writes prop (4) per
-// node and 8 bytes a live edge; a later sweep reads 8 bytes a live edge,
-// x and prop; an apply reads and writes x and prop (16 bytes a node). At
+// gathers active (1) and, backward, col (4) and writes prop (4) per node
+// and 8 bytes a live edge; a later sweep reads 8 bytes a live edge, x and
+// prop; an apply reads and writes x and prop (16 bytes a node), a first
+// apply reads active (1) and, backward, c (4) instead of x; a retire
+// reads active, m and c and writes out and active (14 bytes a node). At
 // phase 8's 50,000-txn graph over 4 shards (~75,000 edges a shard) that
 // is ~1 MB a sweep launch, ~0.3 us at 3.35 TB/s. What costs is latency:
 // each edge is a chain of dependent loads (edge, then endpoints' flags,
@@ -50,19 +64,17 @@
 // all their loads before the atomics, the later sweeps skip the
 // predicate's gathers by reading the compacted list, the compacted
 // appends cost one atomicAdd a warp (a ballot and a popc per edge slot),
-// and the apply clears its own flag (the last block's ticket) instead of
-// a memset launch.
+// and the apply and the retire clear their own slots (the last block's
+// ticket) instead of a memset launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 4096;
-// the sweeps' and the apply's blocks: 128 threads, each over
-// kEdgesPerThread edges (kNodesPerThread nodes), at most kBlocksPerSM a
-// streaming multiprocessor
+// the sweeps', the apply's and the retire's blocks: 128 threads, each
+// over kEdgesPerThread edges (kNodesPerThread nodes), at most
+// kBlocksPerSM a streaming multiprocessor
 constexpr int kSweepThreads = 128;
 constexpr int kEdgesPerThread = 4;
 constexpr int kNodesPerThread = 4;
@@ -72,25 +84,31 @@ constexpr unsigned kFull = 0xffffffffu;
 // the shards one sweep launch covers (blockIdx.y), mirrored by
 // gpu/kernels/scc_shard.py; a device with more takes more launches
 constexpr int kMaxShards = 8;
-// the step launch's modes, mirrored by gpu/kernels/scc_shard.py
-constexpr int kInit = 0;
-constexpr int kRoots = 1;
-constexpr int kRetire = 2;
+// the apply's start modes, mirrored by gpu/kernels/scc_shard.py: a later
+// apply maxes prop into x; a fixpoint's first computes its x0 itself
+constexpr int kLater = 0;
+constexpr int kForwardFirst = 1;
+constexpr int kBackwardFirst = 2;
 // a fixpoint's device state, int32 [kState], mirrored by
-// gpu/kernels/scc_shard.py: the apply's changed flag and block ticket
-// (each back to 0 when the grid's last block is done), the sweeps
-// applied, and whether the fixpoint is done
+// gpu/kernels/scc_shard.py: the apply's changed flag and the block
+// ticket (each back to 0 when the grid's last block is done), the sweeps
+// applied, whether the fixpoint is done, the active nodes the last
+// retire left, and the retire's running count (back to 0 with the
+// ticket)
 constexpr int kChanged = 0;
 constexpr int kTicket = 1;
 constexpr int kSweeps = 2;
 constexpr int kDone = 3;
-constexpr int kState = 4;
+constexpr int kLeft = 4;
+constexpr int kTally = 5;
+constexpr int kState = 6;
 constexpr int kRunning = 0;
 constexpr int kConverged = 1;
 constexpr int kCapped = 2;
 constexpr int kNeutral = -1;
-static_assert(kDone < kState && kSweeps + 1 == kDone,
-              "the chunk copies st[kSweeps] and st[kDone] back together");
+static_assert(kLeft < kState && kSweeps + 1 == kDone && kDone + 1 == kLeft,
+              "the chunk copies st[kSweeps], st[kDone] and st[kLeft] back "
+              "together");
 
 // The edge blocks of the shards one sweep launch covers, each of e
 // edges, with their live lists and counts.
@@ -101,12 +119,6 @@ struct Blocks {
   int2* live[kMaxShards];
   int* cnt[kMaxShards];
 };
-
-int blocks_for(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return (int)(b < kMaxBlocks ? b : kMaxBlocks);
-}
 
 // The current device's SM count, asked once a device.
 int sm_count(int* out) {
@@ -135,9 +147,7 @@ int grid_for(long long items, int per_block, int sms) {
 
 __global__ void __launch_bounds__(kSweepThreads)
 sweep_compact_kernel(Blocks b, int e, const uint8_t* __restrict__ active,
-                     const int* __restrict__ x,
-                     const int* __restrict__ col, int* prop,
-                     int backward) {
+                     const int* __restrict__ col, int* prop, int backward) {
   const int* __restrict__ src = b.src[blockIdx.y];
   const int* __restrict__ dst = b.dst[blockIdx.y];
   const uint8_t* __restrict__ edge_on = b.edge_on[blockIdx.y];
@@ -160,14 +170,21 @@ sweep_compact_kernel(Blocks b, int e, const uint8_t* __restrict__ active,
       d[j] = ok[j] ? __ldg(dst + i) : 0;
       ok[j] = ok[j] && __ldg(edge_on + i);
     }
+    // the predicate, and the fixpoint's starting value of the edge's
+    // source: its id forward, its being a root (col == id) backward
+    int v[kEdgesPerThread];
 #pragma unroll
     for (int j = 0; j < kEdgesPerThread; ++j) {
       bool in = __ldg(active + s[j]) && __ldg(active + d[j]);
       if (backward) {
-        in = in && __ldg(col + s[j]) == __ldg(col + d[j]);
+        int cd = __ldg(col + d[j]);
+        in = in && __ldg(col + s[j]) == cd;
+        v[j] = cd == d[j];
         int t = s[j];
         s[j] = d[j];
         d[j] = t;
+      } else {
+        v[j] = s[j];
       }
       ok[j] = ok[j] && in;
     }
@@ -191,10 +208,10 @@ sweep_compact_kernel(Blocks b, int e, const uint8_t* __restrict__ active,
     // and sweep them: every load before the atomics. prop only grows
     // within a sweep, so a stale prop[d] only costs an atomic that
     // changes nothing
-    int v[kEdgesPerThread], p[kEdgesPerThread];
+    int p[kEdgesPerThread];
 #pragma unroll
     for (int j = 0; j < kEdgesPerThread; ++j) {
-      v[j] = ok[j] ? __ldg(x + s[j]) : kNeutral;
+      if (!ok[j]) v[j] = kNeutral;
       p[j] = ok[j] ? prop[d[j]] : kNeutral;
     }
 #pragma unroll
@@ -232,12 +249,13 @@ sweep_live_kernel(Blocks b, int e, const int* __restrict__ x, int* prop,
   }
 }
 
+// c may be x itself (the forward pass), so neither is __restrict__.
 __global__ void __launch_bounds__(kSweepThreads)
-apply_kernel(int* __restrict__ x, int* __restrict__ prop, int n, int* st,
-             int first, int cap) {
+apply_kernel(int* x, int* __restrict__ prop, int n, int* st, int mode,
+             int cap, const uint8_t* __restrict__ active, const int* c) {
   // every block reads kDone before the last block can write it: the
   // last block is the one that finds every other block's ticket taken
-  if (!first && st[kDone] != kRunning) return;
+  if (mode == kLater && st[kDone] != kRunning) return;
   int changed = 0;
   const long long per = (long long)kSweepThreads * kNodesPerThread;
   for (long long base = blockIdx.x * per; base < n;
@@ -246,8 +264,14 @@ apply_kernel(int* __restrict__ x, int* __restrict__ prop, int n, int* st,
 #pragma unroll
     for (int j = 0; j < kNodesPerThread; ++j) {
       long long i = base + j * kSweepThreads + threadIdx.x;
-      xs[j] = i < n ? x[i] : 0;
-      ps[j] = i < n ? prop[i] : kNeutral;
+      bool in = i < n;
+      if (mode == kLater)
+        xs[j] = in ? x[i] : 0;
+      else if (mode == kForwardFirst)
+        xs[j] = in && __ldg(active + i) ? (int)i : -1;
+      else
+        xs[j] = in && __ldg(active + i) && c[i] == (int)i;
+      ps[j] = in ? prop[i] : kNeutral;
     }
 #pragma unroll
     for (int j = 0; j < kNodesPerThread; ++j) {
@@ -256,6 +280,8 @@ apply_kernel(int* __restrict__ x, int* __restrict__ prop, int n, int* st,
         if (ps[j] > xs[j]) {
           x[i] = ps[j];
           changed = 1;
+        } else if (mode != kLater) {
+          x[i] = xs[j];
         }
         if (ps[j] != kNeutral) prop[i] = kNeutral;
       }
@@ -266,28 +292,38 @@ apply_kernel(int* __restrict__ x, int* __restrict__ prop, int n, int* st,
   if (threadIdx.x == 0) {
     __threadfence();
     if (atomicAdd(st + kTicket, 1) == (int)gridDim.x - 1) {
-      int c = atomicExch(st + kChanged, 0);
+      int ch = atomicExch(st + kChanged, 0);
       st[kTicket] = 0;
-      int sweeps = (first ? 0 : *(volatile int*)(st + kSweeps)) + 1;
+      int sweeps = (mode != kLater ? 0 : *(volatile int*)(st + kSweeps)) + 1;
       st[kSweeps] = sweeps;
-      st[kDone] = !c ? kConverged : sweeps >= cap ? kCapped : kRunning;
+      st[kDone] = !ch ? kConverged : sweeps >= cap ? kCapped : kRunning;
     }
   }
 }
 
-__global__ void step_kernel(int step, uint8_t* __restrict__ active,
-                            int* __restrict__ c, int* __restrict__ m,
-                            int* __restrict__ out, int n,
-                            int* __restrict__ ctl) {
+__global__ void __launch_bounds__(kSweepThreads)
+retire_kernel(uint8_t* __restrict__ active, const int* __restrict__ c,
+              const int* __restrict__ m, int* __restrict__ out, int n,
+              int* st) {
+  // uniform over the grid: nothing here writes kDone
+  if (st[kDone] == kRunning) return;
   int left = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    if (step == kInit) {
-      c[i] = active[i] ? i : -1;
-    } else if (step == kRoots) {
-      m[i] = (active[i] && c[i] == i) ? 1 : 0;
-    } else if (active[i]) {
-      if (m[i] > 0) {
+  const long long per = (long long)kSweepThreads * kNodesPerThread;
+  for (long long base = blockIdx.x * per; base < n;
+       base += (long long)gridDim.x * per) {
+    bool on[kNodesPerThread];
+    int ms[kNodesPerThread];
+#pragma unroll
+    for (int j = 0; j < kNodesPerThread; ++j) {
+      long long i = base + j * kSweepThreads + threadIdx.x;
+      on[j] = i < n && active[i];
+      ms[j] = on[j] ? m[i] : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kNodesPerThread; ++j) {
+      long long i = base + j * kSweepThreads + threadIdx.x;
+      if (!on[j]) continue;
+      if (ms[j] > 0) {
         out[i] = c[i];
         active[i] = 0;
       } else {
@@ -295,10 +331,15 @@ __global__ void step_kernel(int step, uint8_t* __restrict__ active,
       }
     }
   }
-  if (step == kRetire) {  // uniform over the block: every lane shuffles
-    for (int off = 16; off > 0; off >>= 1)
-      left += __shfl_down_sync(0xffffffffu, left, off);
-    if ((threadIdx.x & 31) == 0 && left) atomicAdd(ctl + 1, left);
+  left = __reduce_add_sync(kFull, left);
+  if ((threadIdx.x & 31) == 0 && left) atomicAdd(st + kTally, left);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(st + kTicket, 1) == (int)gridDim.x - 1) {
+      st[kLeft] = atomicExch(st + kTally, 0);
+      st[kTicket] = 0;
+    }
   }
 }
 
@@ -334,17 +375,27 @@ void sweep(int shards, const int* const* src, const int* const* dst,
               m);
     if (compact)
       sweep_compact_kernel<<<grid, kSweepThreads, 0, s>>>(
-          b, e, active, x, col, prop, backward);
+          b, e, active, col, prop, backward);
     else
       sweep_live_kernel<<<grid, kSweepThreads, 0, s>>>(b, e, x, prop,
                                                        backward, st);
   }
 }
 
-void apply(int* x, int* prop, int n, int* st, int first, int cap, int sms,
-           cudaStream_t s) {
-  apply_kernel<<<grid_for(n, kSweepThreads * kNodesPerThread, sms),
-                 kSweepThreads, 0, s>>>(x, prop, n, st, first, cap);
+int node_grid(int n, int sms) {
+  return grid_for(n, kSweepThreads * kNodesPerThread, sms);
+}
+
+void apply(int* x, int* prop, int n, int* st, int mode, int cap,
+           const uint8_t* active, const int* c, int sms, cudaStream_t s) {
+  apply_kernel<<<node_grid(n, sms), kSweepThreads, 0, s>>>(
+      x, prop, n, st, mode, cap, active, c);
+}
+
+void retire(uint8_t* active, const int* c, const int* m, int* out, int n,
+            int* st, int sms, cudaStream_t s) {
+  retire_kernel<<<node_grid(n, sms), kSweepThreads, 0, s>>>(active, c, m,
+                                                            out, n, st);
 }
 
 }  // namespace
@@ -356,12 +407,13 @@ extern "C" {
 // pointers, each block src, dst int32 [e] (each in [0, n)), edge_on
 // uint8 [e], live int32 [e][2] and cnt int32 [2] (cnt[backward] must be
 // 0 when a compacting sweep starts; the compacting sweep of the other
-// pass sets it so); active uint8 [n], x and col int32 [n] (col read by a
-// compacting backward sweep only), prop int32 [n] max-accumulated, and
-// st int32 [kState] (a later sweep returns at once when the fixpoint is
-// done) are the device's one copy, shared by its shards. ev_start /
-// ev_end, when given, are recorded just before and just after the
-// kernels. Returns the CUDA error code of the launch (0 = launched).
+// pass sets it so); active uint8 [n], x and col int32 [n] (x read by a
+// later sweep only, col by a compacting sweep only), prop int32 [n]
+// max-accumulated, and st int32 [kState] (a later sweep returns at once
+// when the fixpoint is done) are the device's one copy, shared by its
+// shards. ev_start / ev_end, when given, are recorded just before and
+// just after the kernels. Returns the CUDA error code of the launch
+// (0 = launched).
 int scc_shard_sweep_launch(int shards, const int* const* src,
                            const int* const* dst,
                            const uint8_t* const* edge_on,
@@ -382,41 +434,62 @@ int scc_shard_sweep_launch(int shards, const int* const* src,
   return finish(ev_end, s);
 }
 
-// x = max(x, prop) and prop = kNeutral over int32 [n], and st int32
-// [kState] updated (see the header); `first` starts the fixpoint's
-// count, ignoring what st holds. An apply of a done fixpoint returns at
-// once.
-int scc_shard_apply_launch(int* x, int* prop, int* st, int n, int first,
-                           int cap, void* stream, void* ev_start,
-                           void* ev_end) {
-  if (n < 1 || cap < 1) return (int)cudaErrorInvalidValue;
+// x = max(x0, prop) and prop = kNeutral over int32 [n], and st int32
+// [kState] updated (see the header). mode kLater: x0 = x, and an apply
+// of a done fixpoint returns at once; kForwardFirst / kBackwardFirst:
+// the fixpoint's first apply, x0 from active uint8 [n] (and c int32 [n],
+// backward), the count started whatever st holds.
+int scc_shard_apply_launch(int* x, int* prop, int* st, int n, int mode,
+                           int cap, const uint8_t* active, const int* c,
+                           void* stream, void* ev_start, void* ev_end) {
+  if (n < 1 || cap < 1 || mode < kLater || mode > kBackwardFirst)
+    return (int)cudaErrorInvalidValue;
   int sms = 0;
   int err = sm_count(&sms);
   if (err) return err;
   cudaStream_t s = (cudaStream_t)stream;
   err = record(ev_start, s);
   if (err) return err;
-  apply(x, prop, n, st, first, cap, sms, s);
+  apply(x, prop, n, st, mode, cap, active, c, sms, s);
+  return finish(ev_end, s);
+}
+
+// The round's retire over active uint8 [n], c, m and out int32 [n] once
+// st int32 [kState]'s fixpoint is done (at once while it runs): members
+// retire into out, st[kLeft] = the active nodes left.
+int scc_shard_retire_launch(uint8_t* active, const int* c, const int* m,
+                            int* out, int* st, int n, void* stream,
+                            void* ev_start, void* ev_end) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err) return err;
+  cudaStream_t s = (cudaStream_t)stream;
+  err = record(ev_start, s);
+  if (err) return err;
+  retire(active, c, m, out, n, st, sms, s);
   return finish(ev_end, s);
 }
 
 // A chunk of k sweeps of one fixpoint over `shards` edge blocks on one
 // device, all enqueued on `stream` with no wait: k times the shards'
 // sweep (compacting the first time where `first`) and then the apply
-// (`first` for the first of them); the arguments up to `compact` as
-// scc_shard_sweep_launch's. Then st's (sweeps, done) are copied to
-// host_state int32 [2] (pinned), for the caller to read once it has
-// waited on the stream. ev_start / ev_end, when given, are recorded just
-// around the kernels.
+// (its pass's first mode the first time where `first`); backward, then
+// the retire into out int32 [n] (the colours being col, the marks x).
+// The arguments up to `compact` as scc_shard_sweep_launch's. Then st's
+// (sweeps, done, left) are copied to host_state int32 [3] (pinned), for
+// the caller to read once it has waited on the stream. ev_start /
+// ev_end, when given, are recorded just around the kernels.
 int scc_shard_chunk_launch(int shards, const int* const* src,
                            const int* const* dst,
                            const uint8_t* const* edge_on,
                            int2* const* live, int* const* cnt, int e,
-                           const uint8_t* active, int* x, const int* col,
+                           uint8_t* active, int* x, const int* col,
                            int* prop, int* st, int n, int backward, int k,
-                           int first, int cap, int* host_state,
+                           int first, int cap, int* out, int* host_state,
                            void* stream, void* ev_start, void* ev_end) {
-  if (n < 1 || e < 1 || shards < 1 || k < 1 || cap < 1)
+  if (n < 1 || e < 1 || shards < 1 || k < 1 || cap < 1 ||
+      (backward && !out))
     return (int)cudaErrorInvalidValue;
   int sms = 0;
   int err = sm_count(&sms);
@@ -424,36 +497,19 @@ int scc_shard_chunk_launch(int shards, const int* const* src,
   cudaStream_t s = (cudaStream_t)stream;
   err = record(ev_start, s);
   if (err) return err;
+  const int first_mode = backward ? kBackwardFirst : kForwardFirst;
   for (int it = 0; it < k; ++it) {
     int fresh = first && it == 0;
     sweep(shards, src, dst, edge_on, live, cnt, e, active, x, col, prop, st,
           backward, fresh, sms, s);
-    apply(x, prop, n, st, fresh, cap, sms, s);
+    apply(x, prop, n, st, fresh ? first_mode : kLater, cap, active, col,
+          sms, s);
   }
+  if (backward) retire(active, col, x, out, n, st, sms, s);
   err = finish(ev_end, s);
   if (err) return err;
-  return (int)cudaMemcpyAsync(host_state, st + kSweeps, 2 * sizeof(int),
+  return (int)cudaMemcpyAsync(host_state, st + kSweeps, 3 * sizeof(int),
                               cudaMemcpyDeviceToHost, s);
-}
-
-// One of a round's elementwise steps (kInit, kRoots, kRetire) over
-// active uint8 [n], c, m, out int32 [n]; ctl int32 [2]: kRetire clears
-// ctl[1] and counts the active nodes left into it.
-int scc_shard_step_launch(int step, uint8_t* active, int* c, int* m,
-                          int* out, int n, int* ctl, void* stream,
-                          void* ev_start, void* ev_end) {
-  if (n < 1 || step < kInit || step > kRetire)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  int err = record(ev_start, s);
-  if (err) return err;
-  if (step == kRetire) {
-    err = (int)cudaMemsetAsync(ctl + 1, 0, sizeof(int), s);
-    if (err) return err;
-  }
-  step_kernel<<<blocks_for(n), kThreads, 0, s>>>(step, active, c, m, out, n,
-                                                 ctl);
-  return finish(ev_end, s);
 }
 
 const char* scc_shard_error_string(int code) {

@@ -62,7 +62,7 @@ RULES = ("R1", "R2", "R3", "R4", "R5", "R6", "C1", "C2", "C3")
 # R1: the kernel wrappers (gpu/kernels/*.py); a call of one launches.
 KERNEL_WRAPPERS = frozenset({"wgl_search", "scc_labels",
                              "scc_labels_to_convergence", "scc_sweep",
-                             "scc_apply", "scc_step", "scc_chunk",
+                             "scc_apply", "scc_retire", "scc_chunk",
                              "bank_reduce"})
 
 # R1: method calls that wait for the card (a device tensor's download,

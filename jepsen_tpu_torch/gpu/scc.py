@@ -43,10 +43,15 @@ fixpoint compacts the block's live edges, the later ones read only
 those), the combine of the shards' results (pmax: on one card the
 shards' atomics into one shared accumulator; from other devices an
 elementwise max onto the first shard's device, and dist.all_reduce(MAX)
-across ranks), then one apply. The combined sweep equals the unsharded
-scatter-max, so labels, ok, rounds and sweeps equal scc_kernel's on the
-same graph. After a cap hit the convergence launch runs on the first
-shard's device over the whole edge list.
+across ranks), then one apply. A round launches nothing of its own:
+the first sweep and apply of each fixpoint start it from the active
+set (the colours c0, the roots m0), and each backward chunk ends in the
+retire, which once the fixpoint is done labels the round's members and
+counts the nodes left into the state that chunk reads back. The
+combined sweep equals the unsharded scatter-max, so labels, ok, rounds
+and sweeps equal scc_kernel's on the same graph. After a cap hit the
+convergence launch runs on the first shard's device over the whole
+edge list.
 """
 
 from __future__ import annotations
@@ -216,7 +221,7 @@ class Edges:
         int32 [n + 3], labels, ok, rounds and sweeps, as scc_kernel's.
         Makes an `scc` profiler record with `devices`; its compute_ns is
         the host's wall time of the rounds, which wait for the card once
-        a chunk of sweeps and once a round. The solver's buffers and
+        a chunk of sweeps. The solver's buffers and
         plans are built at the first solve and serve every mask after."""
         n, mesh = self.n, self.mesh
         on = self._mask(emask)
@@ -288,9 +293,10 @@ class _Nodes:
     """The node arrays a device's shards read (active, the colours c and
     the marks m), the sweep accumulator they share and the fixpoint's
     state, on one device: the home's are the solve's own, another
-    device's are copies the host refreshes. With them, the edge masks,
-    live lists and counts of the device's `shards` blocks of e edges,
-    and the mesh's indices of those shards."""
+    device's are copies the host refreshes (active and c at a compacting
+    sweep, x at a later one). With them, the edge masks, live lists and
+    counts of the device's `shards` blocks of e edges, and the mesh's
+    indices of those shards."""
 
     def __init__(self, n: int, dev: torch.device, shards: list, e: int):
         i32 = dict(dtype=torch.int32, device=dev)
@@ -340,14 +346,20 @@ class _ShardedSolve:
 
     Each fixpoint runs in chunks of sweeps, read back once a chunk; a
     sweep or apply past the fixpoint's end changes nothing, so the
-    sweeps counted are the JAX program's. The shards on one device are
-    swept by one launch and share the device's accumulator, so their
-    atomics are their combine. With every shard on the home device and
-    no process group (one card), a chunk is one kshard.scc_chunk.
-    Otherwise each sweep is a kshard.scc_sweep a device, _combine, and a
-    kshard.scc_apply, and the node arrays and the state are copied to
-    each other device. After each sweep the accumulators hold NEUTRAL
-    again: the apply resets the home's, _combine the others'.
+    sweeps counted are the JAX program's. The rounds launch nothing of
+    their own: the first sweep and apply of a fixpoint compute its
+    starting values, and each backward chunk ends in the retire (a
+    no-op until the fixpoint is done), so the chunk's one read gives
+    the nodes left and the host waits for nothing else until the
+    labels' download. The shards on one device are swept by one launch
+    and share the device's accumulator, so their atomics are their
+    combine. With every shard on the home device and no process group
+    (one card), a chunk is one kshard.scc_chunk. Otherwise each sweep is
+    a kshard.scc_sweep a device, _combine, and a kshard.scc_apply, the
+    node arrays and the state copied to each other device; the chunk's
+    retire is one kshard.scc_retire on the home device. After each sweep
+    the accumulators hold NEUTRAL again: the apply resets the home's,
+    _combine the others'.
 
     The chunk schedule, from phase 8's Elle twin over 4 shards (16
     fixpoints, 57 sweeps; a forward fixpoint took 1 sweep or 4 to 7, the
@@ -371,9 +383,7 @@ class _ShardedSolve:
         me = self.nodes[home]
         self.active, self.c, self.m = me.active, me.c, me.m
         self.prop, self.st = me.prop, me.st
-        i32 = dict(dtype=torch.int32, device=home)
-        self.out = torch.empty(n, **i32)
-        self.ctl = torch.zeros(2, **i32)
+        self.out = torch.empty(n, dtype=torch.int32, device=home)
         self.group = dist.world_size() > 1
         cap = kernel.SWEEP_CAP
         # per pass (forward, backward): each device's shards' sweep plans
@@ -388,19 +398,20 @@ class _ShardedSolve:
                     backward=bool(b)))
         self.groups = tuple([kshard.SweepGroup(g) for g in pb.values()]
                             for pb in plans)
-        self.applies = (kshard.apply_plan(self.c, self.prop, self.st, cap),
-                        kshard.apply_plan(self.m, self.prop, self.st, cap))
-        self.steps = {kind: kshard.step_plan(kind, self.active, self.c,
-                                             self.m, self.out, self.ctl)
-                      for kind in (kshard.INIT, kshard.ROOTS,
-                                   kshard.RETIRE)}
+        self.applies = tuple(
+            kshard.apply_plan(x, self.prop, self.st, self.active, self.c,
+                              cap, backward=bool(b))
+            for b, x in enumerate((self.c, self.m)))
+        self.retire = kshard.retire_plan(self.active, self.c, self.m,
+                                         self.out, self.st)
         self.host = kshard.state_buffer(home)
         self.others = [nd for dev, nd in self.nodes.items() if dev != home]
         self.chunks = None
         if not self.group and not self.others and blocks:
-            self.chunks = tuple(kshard.ChunkPlan(self.groups[b][0],
-                                                  self.applies[b], self.host)
-                                for b in (0, 1))
+            self.chunks = tuple(
+                kshard.ChunkPlan(self.groups[b][0], self.applies[b],
+                                 self.host, self.retire if b else None)
+                for b in (0, 1))
 
     def upload(self, on: np.ndarray) -> None:
         """The edge mask of a solve, [mesh.size * e] bool: one upload a
@@ -411,14 +422,17 @@ class _ShardedSolve:
                 nd.on.copy_(torch.from_numpy(rows[nd.shards]))
 
     def _sweep(self, b: int, compact: bool) -> None:
-        """One sweep launch by launch: the copies to the other devices,
-        each shard's sweep, the combine, the apply."""
+        """One sweep launch by launch: the copies to the other devices
+        (a compacting sweep reads active and, backward, the colours; a
+        later one x), each shard's sweep, the combine, the apply."""
         x = self.m if b else self.c
         for nd in self.others:
             if compact:
                 nd.active.copy_(self.active)
-                nd.c.copy_(self.c)
-            (nd.m if b else nd.c).copy_(x)
+                if b:
+                    nd.c.copy_(self.c)
+            else:
+                (nd.m if b else nd.c).copy_(x)
         for group in self.groups[b]:
             kshard.scc_sweep(group, compact)
         _combine(self.prop, [nd.prop for nd in self.others], self.group)
@@ -426,22 +440,31 @@ class _ShardedSolve:
         for nd in self.others:
             nd.st.copy_(self.st)
 
+    def _launches(self, b: int, k: int, first: bool) -> None:
+        """A chunk launch by launch: k sweeps, the retire on the home
+        device (backward), and the copy of the state to read back."""
+        for i in range(k):
+            self._sweep(b, first and i == 0)
+        if b:
+            kshard.scc_retire(self.retire)
+        kshard.fetch_state(self.st, self.host)
+
     def _fixpoint(self, backward: bool, head: tuple) -> tuple:
         """Sweeps to a fixpoint of x (c forward, m backward), or to
-        SWEEP_CAP, in chunks of _schedule(head); (converged, sweeps)."""
+        SWEEP_CAP, in chunks of _schedule(head), the round retired at
+        the backward one's end; (converged, sweeps, the active nodes
+        left, read with them: meaningful after the backward pass)."""
         b = int(backward)
         first = True
         for k in _schedule(head):
             if self.chunks:
                 kshard.scc_chunk(self.chunks[b], k, first)
             else:
-                for i in range(k):
-                    self._sweep(b, first and i == 0)
-                kshard.fetch_state(self.st, self.host)
+                self._launches(b, k, first)
             first = False
-            sweeps, done = kshard.read_state(self.st, self.host)
+            sweeps, done, left = kshard.read_state(self.st, self.host)
             if done != kshard.RUNNING:
-                return done == kshard.CONVERGED, sweeps
+                return done == kshard.CONVERGED, sweeps, left
 
     def run(self) -> np.ndarray:
         """The solve of the mask last uploaded: int32 [n + 3], labels,
@@ -451,12 +474,8 @@ class _ShardedSolve:
         self.out.fill_(-1)
         ok, rounds, sweeps, left = True, 0, 0, self.n
         while ok and left and rounds < kernel.ROUND_CAP:
-            kshard.scc_step(self.steps[kshard.INIT])
-            ok_f, it_f = self._fixpoint(False, (1, 6))
-            kshard.scc_step(self.steps[kshard.ROOTS])
-            ok_b, it_b = self._fixpoint(True, (min(it_f, 6),))
-            kshard.scc_step(self.steps[kshard.RETIRE])
-            left = int(self.ctl[1].item())
+            ok_f, it_f, _ = self._fixpoint(False, (1, 6))
+            ok_b, it_b, left = self._fixpoint(True, (min(it_f, 6),))
             ok = ok and ok_f and ok_b
             rounds += 1
             sweeps += it_f + it_b

@@ -296,7 +296,7 @@ def test_chip_smoke_mesh_phase_on_the_cpu():
                                group_histories=4)
     names = [k["name"] for k in got["kernels"]]
     assert names == ["wgl_search (ensemble, mesh form)", "scc_sweep",
-                     "scc_apply", "scc_step"]
+                     "scc_apply", "scc_retire"]
     for k in got["kernels"]:
         assert k["max_abs_err"] == 0 and k["ms"] is None
         assert {"route", "source", "replaces", "launches", "plain_ms",

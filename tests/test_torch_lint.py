@@ -678,7 +678,7 @@ def test_every_entry_traces_on_meta_tensors(production_report):
     assert {t["kernel"] for t in rep.traces} == {
         "wgl", "wgl-reach", "wgl-segmented", "wgl-sharded", "wgl-slices",
         "scc", "scc-converge", "scc-sharded", "scc-shard-apply",
-        "scc-shard-step", "bank_reduce"}
+        "scc-shard-retire", "bank_reduce"}
     assert {t["kernel"] for t in rep.traces} == \
         {e.name for e in registry.entries()}
     assert all(t["bucket_policy"] == "exact" for t in rep.traces)

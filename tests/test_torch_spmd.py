@@ -568,10 +568,13 @@ def test_elle_presorts_under_the_mesh(monkeypatch, cards8, devices8):
 # the kernels' plain versions
 # ---------------------------------------------------------------------------
 
-def _sweep_numpy(src, dst, on, active, x, col, backward, start=None):
+def _sweep_numpy(src, dst, on, active, x, col, backward, start=None,
+                 compact=False):
     """prop after one sweep: `start` (NEUTRAL everywhere by default)
-    max-accumulating x along the live edges; and the live (s, d) pairs
-    in edge order."""
+    max-accumulating x along the live edges, or where `compact` the
+    fixpoint's starting value of each live edge's source (forward its
+    id, backward col[s] == s); and the live (s, d) pairs in edge
+    order."""
     n = len(x)
     prop = np.full(n, kshard.NEUTRAL, np.int64) if start is None \
         else np.array(start, np.int64)
@@ -584,7 +587,8 @@ def _sweep_numpy(src, dst, on, active, x, col, backward, start=None):
                 continue
             s, d = d, s
         pairs.append((s, d))
-        prop[d] = max(prop[d], x[s])
+        v = (int(col[s] == s) if backward else s) if compact else x[s]
+        prop[d] = max(prop[d], v)
     return prop, pairs
 
 
@@ -614,9 +618,10 @@ def _live_pairs(plan):
 
 @pytest.mark.parametrize("backward", [False, True])
 def test_scc_sweep_plain_version(backward):
-    """The compacting sweep lists the live edges and accumulates into
-    prop; a later sweep reads the list back to the same prop; a sweep
-    of a done fixpoint changes nothing."""
+    """The compacting sweep lists the live edges and accumulates their
+    sources' starting values into prop; a later sweep reads the list
+    back and accumulates x; a sweep of a done fixpoint changes
+    nothing."""
     rng = np.random.default_rng(9)
     n, E = 60, 400
     src, dst = rng.integers(0, n, E), rng.integers(0, n, E)
@@ -624,9 +629,10 @@ def test_scc_sweep_plain_version(backward):
     active = rng.random(n) < 0.9
     x = rng.integers(-1, n, n)
     col = rng.integers(0, 4, n)
+    col[:8] = np.arange(8)  # some roots (col == id) for the backward pass
     start = rng.integers(-1, n, n)
     want, pairs = _sweep_numpy(src, dst, on, active, x, col, backward,
-                               start)
+                               start, compact=True)
     plan = _shard_plan(src, dst, on, active, x, col, backward, start)
     cnt = plan.outputs["cnt"]
     cnt[1 - int(backward)] = 5
@@ -669,7 +675,8 @@ def test_compacting_sweep_against_numpy(case, seed):
         dst = np.where(dst == src, (src + 1) % n, dst)
     for backward in (False, True):
         x = rng.integers(0, 2, n) if backward else rng.integers(-1, n, n)
-        want, pairs = _sweep_numpy(src, dst, on, active, x, col, backward)
+        want, pairs = _sweep_numpy(src, dst, on, active, x, col, backward,
+                                   compact=True)
         plan = _shard_plan(src, dst, on, active, x, col, backward)
         kshard.scc_sweep(kshard.SweepGroup([plan]), compact=True)
         prop = plan.outputs["prop"]
@@ -678,73 +685,192 @@ def test_compacting_sweep_against_numpy(case, seed):
         empty = case in ("none-on", "none-active") or (
             case == "no-class" and backward)
         assert (not pairs) == empty
-        for _ in range(2):  # a later sweep accumulates, idempotently
+        later = np.maximum(want, _sweep_numpy(src, dst, on, active, x, col,
+                                              backward)[0])
+        for _ in range(2):  # a later sweep accumulates x, idempotently
             kshard.scc_sweep(kshard.SweepGroup([plan]), compact=False)
-            assert prop.tolist() == want.tolist()
+            assert prop.tolist() == later.tolist()
 
 
-def _apply_plan(x, prop, cap=kscc.SWEEP_CAP):
+def _apply_plan(x, prop, cap=kscc.SWEEP_CAP, active=None, c=None,
+                backward=False):
+    """An apply plan over CPU tensors: forward (c is x) unless
+    `backward`, every node active unless `active` says otherwise."""
     st = torch.zeros(kshard.STATE, dtype=torch.int32)
-    return kshard.apply_plan(torch.tensor(x, dtype=torch.int32),
-                             torch.tensor(prop, dtype=torch.int32), st, cap)
+    x = torch.tensor(x, dtype=torch.int32)
+    active = torch.ones(len(x), dtype=torch.bool) if active is None \
+        else torch.tensor(active)
+    c = torch.tensor(c, dtype=torch.int32) if backward else x
+    return kshard.apply_plan(x, torch.tensor(prop, dtype=torch.int32), st,
+                             active, c, cap, backward)
 
 
 def test_scc_apply_and_steps_plain_versions():
+    """A later apply maxes prop into x and counts the sweep; the retire
+    of a done fixpoint labels the members and counts the nodes left;
+    the plans refuse wrong dtypes and shapes."""
     plan = _apply_plan([0, 5, -1, 3], [1, 2, -1, 3])
     x, prop, st = (plan.outputs[k] for k in ("x", "prop", "st"))
-    kshard.scc_apply(plan, first=True)
+    st[kshard.SWEEPS] = 4
+    kshard.scc_apply(plan, first=False)
     assert x.tolist() == [1, 5, -1, 3]
     assert (prop == kshard.NEUTRAL).all()
-    assert st[kshard.SWEEPS] == 1 and st[kshard.DONE] == kshard.RUNNING
+    assert st[kshard.SWEEPS] == 5 and st[kshard.DONE] == kshard.RUNNING
     kshard.scc_apply(plan, first=False)
-    assert st[kshard.SWEEPS] == 2 and st[kshard.DONE] == kshard.CONVERGED
+    assert st[kshard.SWEEPS] == 6 and st[kshard.DONE] == kshard.CONVERGED
     active = torch.tensor([True, True, False, True])
-    c = torch.empty(4, dtype=torch.int32)
-    m = torch.empty(4, dtype=torch.int32)
+    c = torch.tensor([1, 1, -1, 3], dtype=torch.int32)
+    m = torch.tensor([1, 1, 0, 0], dtype=torch.int32)
     out = torch.full((4,), -1, dtype=torch.int32)
-    ctl = torch.zeros(2, dtype=torch.int32)
-    steps = {kind: kshard.step_plan(kind, active, c, m, out, ctl)
-             for kind in (kshard.INIT, kshard.ROOTS, kshard.RETIRE)}
-    kshard.scc_step(steps[kshard.INIT])
-    assert c.tolist() == [0, 1, -1, 3]
-    c.copy_(torch.tensor([1, 1, -1, 3], dtype=torch.int32))
-    kshard.scc_step(steps[kshard.ROOTS])
-    assert m.tolist() == [0, 1, 0, 1]
-    m[0] = 1
-    m[3] = 0
-    kshard.scc_step(steps[kshard.RETIRE])
+    kshard.scc_retire(kshard.retire_plan(active, c, m, out, st))
     assert out.tolist() == [1, 1, -1, -1]
-    assert active.tolist() == [False, False, False, True] and ctl[1] == 1
-    with pytest.raises(ValueError, match="none of"):
-        kshard.step_plan(7, active, c, m, out, ctl)
+    assert active.tolist() == [False, False, False, True]
+    assert kshard.read_state(st, None) == (6, kshard.CONVERGED, 1)
     with pytest.raises(TypeError, match="int32"):
-        kshard.apply_plan(x.long(), x, st, 8)
+        kshard.apply_plan(x.long(), x, st, active, x, 8, False)
     with pytest.raises(ValueError, match="want"):
-        kshard.apply_plan(x, x[:3], st, 8)
+        kshard.apply_plan(x, x[:3], st, active, x, 8, False)
+    with pytest.raises(TypeError, match="bool"):
+        kshard.retire_plan(m, c, m, out, st)
+    with pytest.raises(ValueError, match="want"):
+        kshard.retire_plan(active, c, m, out, st[:4])
+
+
+def _retire_case(done):
+    """A backward chunk's tensors mid-round: colours, marks, the active
+    set, labels of an earlier round, and the state `done`."""
+    rng = np.random.default_rng(12)
+    n = 40
+    active = torch.from_numpy(rng.random(n) < 0.7)
+    c = torch.from_numpy(rng.integers(0, n, n).astype(np.int32))
+    m = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32))
+    out = torch.from_numpy(np.where(active.numpy(), -1,
+                                    rng.integers(0, n, n)).astype(np.int32))
+    st = torch.zeros(kshard.STATE, dtype=torch.int32)
+    st[kshard.SWEEPS], st[kshard.DONE], st[kshard.LEFT] = 3, done, 99
+    return active, c, m, out, st
+
+
+@pytest.mark.parametrize("case", [
+    "forward-first", "backward-first", "compact-forward",
+    "compact-backward", "retire-at-chunk-end", "retire-while-running",
+    "left"])
+def test_fused_round_steps_plain_versions(case):
+    """The round's steps where they now run: the first applies start
+    from c0 = active ? id : -1 and m0 = active & (c == id), computed by
+    hand here; the compacting sweeps send those values along the live
+    edges without reading x; the retire labels a round's members at the
+    end of the chunk that ends the backward fixpoint, changes nothing
+    while it runs, and leaves active.sum() in LEFT."""
+    rng = np.random.default_rng(3)
+    n = 50
+    active = rng.random(n) < 0.8
+    ids = np.arange(n)
+    if case in ("forward-first", "backward-first"):
+        backward = case == "backward-first"
+        col = np.where(rng.random(n) < 0.3, ids, rng.integers(0, n, n))
+        x0 = np.where(active & (col == ids), 1, 0) if backward else \
+            np.where(active, ids, -1)
+        prop = np.where(rng.random(n) < 0.5, kshard.NEUTRAL,
+                        rng.integers(-1, n, n))
+        stale = rng.integers(-1, n, n)  # the last round's values
+        plan = _apply_plan(stale, prop, active=active, c=col,
+                           backward=backward)
+        plan.outputs["st"][kshard.SWEEPS] = 9
+        plan.outputs["st"][kshard.DONE] = kshard.CONVERGED
+        kshard.scc_apply(plan, first=True)
+        x, st = plan.outputs["x"], plan.outputs["st"]
+        assert x.tolist() == np.maximum(x0, prop).tolist()
+        assert (plan.outputs["prop"] == kshard.NEUTRAL).all()
+        assert st[kshard.SWEEPS] == 1
+        assert st[kshard.DONE] == (kshard.RUNNING if (prop > x0).any()
+                                   else kshard.CONVERGED)
+        return
+    if case.startswith("compact"):
+        backward = case == "compact-backward"
+        E = 300
+        src, dst = rng.integers(0, n, E), rng.integers(0, n, E)
+        on = rng.random(E) < 0.8
+        col = np.where(rng.random(n) < 0.5, ids, rng.integers(0, 3, n))
+        # x holds garbage: the compacting sweep must not read it
+        x = rng.integers(-50, -2, n)
+        want, pairs = _sweep_numpy(src, dst, on, active, x, col, backward,
+                                   compact=True)
+        plan = _shard_plan(src, dst, on, active, x, col, backward)
+        kshard.scc_sweep(kshard.SweepGroup([plan]), compact=True)
+        assert plan.outputs["prop"].tolist() == want.tolist()
+        assert _live_pairs(plan) == sorted(pairs) and pairs
+        assert (want > kshard.NEUTRAL).any()
+        return
+    done = kshard.RUNNING if case == "retire-while-running" else \
+        kshard.CONVERGED
+    active, c, m, out, st = _retire_case(done)
+    before = [t.clone() for t in (active, out, st)]
+    plan = kshard.retire_plan(active, c, m, out, st)
+    if case == "retire-at-chunk-end":
+        # a backward chunk whose fixpoint ends: k sweeps, then the retire
+        E = 10
+        x = torch.zeros(len(active), dtype=torch.int32)
+        sweep = kshard.sweep_plan(
+            torch.zeros(E, dtype=torch.int32),
+            torch.zeros(E, dtype=torch.int32),
+            torch.zeros(E, dtype=torch.bool), active, m, c,
+            torch.full_like(x, kshard.NEUTRAL),
+            torch.empty((E, 2), dtype=torch.int32),
+            torch.zeros(2, dtype=torch.int32), st, True)
+        apply = kshard.apply_plan(m, sweep.outputs["prop"], st, active, c,
+                                  kscc.SWEEP_CAP, True)
+        st[kshard.DONE] = kshard.RUNNING
+        m_want = (active & (c == torch.arange(len(c)))).to(torch.int32)
+        member = active & (m_want > 0)
+        kshard.scc_chunk(kshard.ChunkPlan(kshard.SweepGroup([sweep]), apply,
+                                          retire=plan), 3, True)
+        assert m.tolist() == m_want.tolist()
+        assert kshard.read_state(st, None) == (
+            1, kshard.CONVERGED, int((before[0] & ~member).sum()))
+    else:
+        member = before[0] & (m > 0)
+        kshard.scc_retire(plan)
+    if case == "retire-while-running":
+        assert [t.tolist() for t in (active, out, st)] == \
+            [t.tolist() for t in before]
+        return
+    assert out.tolist() == torch.where(member, c, before[1]).tolist()
+    assert active.tolist() == (before[0] & ~member).tolist()
+    assert st[kshard.LEFT] == int(active.sum())
+    assert st[kshard.TALLY] == st[kshard.TICKET] == 0
+    if case == "left":
+        # a second retire of the same done fixpoint finds no member left
+        kshard.scc_retire(plan)
+        assert st[kshard.LEFT] == int(active.sum())
+        assert active.tolist() == (before[0] & ~member).tolist()
 
 
 def test_apply_counts_sweeps_and_finishes_the_fixpoint():
     """The apply's device state: sweeps counted from `first`, done on no
     change (converged) or at the cap with a change (capped), and every
-    later apply of a done fixpoint a no-op until the next `first`."""
-    plan = _apply_plan([0, 0, 0], [-1, -1, -1], cap=3)
+    later apply of a done fixpoint a no-op until the next `first`, which
+    starts over from the active set (here node 0 alone)."""
+    plan = _apply_plan([5, 5, 5], [-1, -1, -1], cap=3,
+                       active=[True, False, False])
     x, prop, st = (plan.outputs[k] for k in ("x", "prop", "st"))
     for i in range(3):
         prop[0] = i + 1
         kshard.scc_apply(plan, first=i == 0)
         assert st[kshard.SWEEPS] == i + 1 and x[0] == i + 1
         assert st[kshard.CHANGED] == st[kshard.TICKET] == 0
+    assert x.tolist() == [3, -1, -1]
     assert st[kshard.DONE] == kshard.CAPPED
     prop[1] = 9
     kshard.scc_apply(plan, first=False)
-    assert x.tolist() == [3, 0, 0] and prop[1] == 9
+    assert x.tolist() == [3, -1, -1] and prop[1] == 9
     assert st[kshard.SWEEPS] == 3 and st[kshard.DONE] == kshard.CAPPED
     kshard.scc_apply(plan, first=True)  # the next fixpoint starts over
-    assert x.tolist() == [3, 9, 0]
+    assert x.tolist() == [0, 9, -1]
     assert st[kshard.SWEEPS] == 1 and st[kshard.DONE] == kshard.RUNNING
     kshard.scc_apply(plan, first=False)
     assert st[kshard.SWEEPS] == 2 and st[kshard.DONE] == kshard.CONVERGED
-    assert kshard.read_state(st, None) == (2, kshard.CONVERGED)
+    assert kshard.read_state(st, None) == (2, kshard.CONVERGED, 0)
 
 
 def test_wrappers_refuse_events_on_the_cpu():
@@ -776,13 +902,13 @@ def test_a_chunk_is_its_sweeps_one_by_one():
             torch.zeros(2, dtype=torch.int32), st, False)
             for lo, hi in ((0, half), (half, len(src)))]
         chunk = kshard.ChunkPlan(kshard.SweepGroup(sweeps),
-                                  kshard.apply_plan(x, prop, st,
-                                                    kscc.SWEEP_CAP))
+                                  kshard.apply_plan(x, prop, st, act, x,
+                                                    kscc.SWEEP_CAP, False))
         first = True
         while True:
             kshard.scc_chunk(chunk, k, first)
             first = False
-            sweeps_done, done = kshard.read_state(st, None)
+            sweeps_done, done, _left = kshard.read_state(st, None)
             if done:
                 return x.tolist(), sweeps_done, done, prop.tolist()
 
@@ -866,6 +992,134 @@ def test_the_combine_across_devices():
     finally:
         monkey.undo()
     assert seen and all(k == 1 and c is None for k, c in seen)
+
+
+def _jax_sharded(n, src, dst, emask=None):
+    """The JAX mesh program, `_jitted_scc_sharded` on conftest's 8 CPU
+    devices, over the edges laid out as scc_device lays them out (no
+    DEVICE_MIN_EDGES: the program itself, at any size): its labels
+    (-1 where no round retired the node) and ok."""
+    import jax
+    from jax.sharding import NamedSharding
+
+    n_dev = 8
+    n_pad = jscc._next_pow2(n + 1)
+    e_pad = jscc._edge_pad(len(src))
+    e_pad += -e_pad % n_dev
+    psrc = np.full(e_pad, n, dtype=np.int32)
+    pdst = np.full(e_pad, n, dtype=np.int32)
+    psrc[:len(src)], pdst[:len(dst)] = src, dst
+    pmask = np.zeros(e_pad, dtype=bool)
+    pmask[:len(src)] = True if emask is None else emask
+    active = np.zeros(n_pad, dtype=bool)
+    active[:n] = True
+    mesh = jspmd.mesh_for(n_dev)
+    fn = jscc._jitted_scc_sharded(mesh, n_pad, e_pad, jscc.SWEEP_CAP,
+                                  jscc.ROUND_CAP)
+    specs = jspmd.match_partition_rules(jspmd.SCC_RULES, jscc.SCC_ARGS)
+    out = np.asarray(fn(*(jax.device_put(a, NamedSharding(mesh, sp))
+                          for a, sp in zip((active, psrc, pdst, pmask),
+                                           specs))))
+    return out[:n].tolist(), int(out[-1])
+
+
+def _chain(k):
+    """A decreasing chain of k nodes: each round retires its root."""
+    return k, np.arange(k - 1, 0, -1), np.arange(k - 2, -1, -1)
+
+
+def _ending_graph(end):
+    """A graph whose solve ends `end`'s way, and its edge mask."""
+    if end == "all-retired":
+        return (*_graph(5, n=400, e=3_000), None)
+    if end == "sweep-cap":  # the forward fixpoint hits SWEEP_CAP
+        return (*_chain(3 * kscc.SWEEP_CAP), None)
+    if end == "round-cap":  # ROUND_CAP rounds, each retiring one node
+        return (*_chain(100), None)
+    if end == "cycle-600":  # SWEEP_CAP inside the one round
+        k = 600
+        return k, np.arange(k), (np.arange(k) + 1) % k, None
+    n, src, dst = _graph(5, n=400, e=3_000)
+    return n, src, dst, np.zeros(len(src), bool)  # "empty-mask"
+
+
+_JAX_SHARDED: dict = {}
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+@pytest.mark.parametrize("end", ["all-retired", "sweep-cap", "round-cap",
+                                 "cycle-600", "empty-mask"])
+def test_sharded_solve_equals_the_jax_mesh(devices8, end, k):
+    """The sharded solve over k CPU shards, its rounds' steps folded into
+    the fixpoints' launches: labels and ok equal to the JAX mesh
+    program's on 8 devices, rounds and sweeps to the one-device plain
+    version's, on graphs that end with every node retired, at SWEEP_CAP
+    (forward, or inside the one round of a 600-node cycle), at ROUND_CAP
+    and with no edge on."""
+    n, src, dst, emask = _ending_graph(end)
+    if end not in _JAX_SHARDED:
+        _JAX_SHARDED[end] = _jax_sharded(n, src, dst, emask)
+    labels, ok = _JAX_SHARDED[end]
+    one = _plain(n, src, dst, emask)
+    out = pscc.Edges(n, src, dst, mesh=["cpu"] * k).solve_sharded(emask)
+    assert out[:n].tolist() == labels and out[n] == ok
+    assert out[n + 1:].tolist() == one[n + 1:].tolist()
+    assert ok == {"all-retired": 1, "empty-mask": 1}.get(end, 0)
+    if end == "round-cap":
+        assert out[n + 1] == kscc.ROUND_CAP
+    if end == "empty-mask":  # one round: each node its own component
+        assert labels == list(range(n)) and out[n + 1] == 1
+
+
+@pytest.mark.parametrize("mesh", [["cpu"] * 4, ["cpu", "cpu:0"]],
+                         ids=["one-device", "launch-by-launch"])
+@pytest.mark.parametrize("chunk", [None, 1])
+def test_a_solve_retires_once_a_round_and_reads_once_a_chunk(
+        monkeypatch, mesh, chunk):
+    """Every backward chunk ends in the retire, on one device inside
+    scc_chunk and launch by launch as one scc_retire; only the chunk
+    that ends its fixpoint retires, once a round. The solve reads the
+    state back once a chunk and nothing else: no read of its own a
+    round."""
+    if chunk is not None:
+        monkeypatch.setattr(pscc, "_schedule",
+                            lambda head: iter(lambda: chunk, None))
+    calls = {"chunks": 0, "reads": 0, "retires": 0, "retired": 0}
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    retire = kshard.retire_reference
+
+    def counted_retire(plan):
+        calls["retires"] += 1
+        calls["retired"] += int(plan.outputs["st"][kshard.DONE]) != \
+            kshard.RUNNING
+        retire(plan)
+    monkeypatch.setattr(kshard, "retire_reference", counted_retire)
+    monkeypatch.setattr(kshard, "scc_chunk",
+                        count("chunks", kshard.scc_chunk))
+    monkeypatch.setattr(pscc._ShardedSolve, "_launches",
+                        count("chunks", pscc._ShardedSolve._launches))
+    monkeypatch.setattr(kshard, "read_state",
+                        count("reads", kshard.read_state))
+    n, src, dst = _graph(7, n=400, e=1_200)  # 4 rounds
+    emask = np.random.default_rng(2).random(len(src)) < 0.7
+    graph = pscc.Edges(n, src, dst, mesh=mesh)
+    out = graph.solve_sharded(emask)
+    assert out.tolist() == _plain(n, src, dst, emask).tolist()
+    rounds = int(out[n + 1])
+    assert rounds >= 2
+    assert calls["retired"] == rounds
+    assert calls["reads"] == calls["chunks"]
+    # one retire a backward chunk, and a backward chunk a round at least
+    assert rounds <= calls["retires"] < calls["chunks"]
+    if chunk == 1:  # one sweep a chunk: every later one is a no-op
+        assert calls["retires"] > rounds
+    assert not hasattr(graph._solver, "ctl")
 
 
 # ---------------------------------------------------------------------------
