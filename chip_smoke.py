@@ -436,12 +436,31 @@ from the root of a checkout, on a machine with a CUDA card, nvcc under
      (c) a 2-rank gloo group, each rank a process of its own sharing
      the card, equal to the in-process 2-shard mesh, each rank counting
      the shared card once (spmd.spmd_devices() 1); prints that NCCL
-     across cards was not run, and why; then prints one
-     `{"kernels": [...]}` line, whose wgl_search launches include those
-     of phases 16-28, whose scc and bank_reduce launches include those
-     of phases 19-28, and which lists the mesh form's wgl_search and
-     the three scc_shard kernels (sweep, apply, retire) with phase 30's
-     launches.
+     across cards was not run, and why;
+ 31. the run-time switches, its seconds printed against
+     SWITCHES_BUDGET_S (60 s): (a) a
+     process of its own with JEPSEN_TPU_COMPILE_CACHE set to a fresh
+     temporary directory runs build.build_all(), and every library must
+     land there; (b) another, with that cache and no nvcc on PATH, must
+     find every library in the cache before it loads, load each from
+     there, leave the cache's files untouched and launch wgl_search,
+     scc_kernel, bank_reduce and a compacting and a later scc_shard
+     sweep on small seeded inputs, each against its plain version on
+     the card with 0 mismatches; (c) phase 4's headline check with its
+     certificate attached (certify.attach_wgl, as analysis(certify=True)
+     attaches it), certificates on and with JEPSEN_TPU_CERTIFY=0: the
+     same verdict and result, the same wgl_search launches, the
+     certificate extracted and then the absent marker; prints both
+     checks' wall seconds, the certificate's cost; (d) phase 4's
+     85%-corrupted twin through check_segmented with early exit on and
+     with JEPSEN_TPU_EARLY_EXIT=0: the same result (verdict, failed
+     segment, witness), no early exit when off; prints both launch
+     counts. Then the script prints one `{"kernels": [...]}` line,
+     whose wgl_search launches include those of phases 16-28, whose scc
+     and bank_reduce launches include those of phases 19-28, and which
+     lists the mesh form's wgl_search and the three scc_shard kernels
+     (sweep, apply, retire) with phase 30's launches; phase 31's
+     launches are printed in its own lines.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises, and
 the script exits non-zero without that line; it also exits non-zero
@@ -450,6 +469,7 @@ when no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import logging
@@ -8292,6 +8312,250 @@ def mesh_path(dev, on_card: bool, hists, ext_ops: int, elle_hists: dict,
     return {"kernels": entries, "seconds": wall}
 
 
+# ---------------------------------------------------------------------------
+# 31. the run-time switches: the kernel build cache, certificates off,
+# early exit off
+# ---------------------------------------------------------------------------
+
+SWITCHES_BUDGET_S = 60.0
+CERT_ABSENT = {"v": 1, "absent": "extraction disabled (JEPSEN_TPU_CERTIFY=0)"}
+
+
+@contextlib.contextmanager
+def _env(name: str, value: str | None):
+    """`name` set to `value` (None: unset) while the block runs."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def cache_launches(dev) -> dict:
+    """Phase 31 (b)'s launches on small seeded inputs: wgl_search,
+    scc_kernel, bank_reduce and one compacting and one later scc_shard
+    sweep, each against its plain version on the same tensors.
+    {kernel: {"mismatches", "launches"}}."""
+    rng = np.random.default_rng(31)
+    m = models.cas_register()
+    encs = [encode(m, synth.register_history(300, n_procs=4, seed=s,
+                                             crash_p=0.1))
+            for s in range(4)]
+    pb = wgl.PackedBatch(encs)
+    packed, rs, s0 = pb.tensors(*pb.rows(
+        [(i, e.init_state) for i, e in enumerate(encs)]), dev)
+    kw = dict(W=32, F=64, max_iters=pb.M + 4, reach=False,
+              crash_free=not pb.has_crashed)
+    before = {"wgl_search": ws.launches, "scc": kscc.launches,
+              "bank_reduce": kbank.launches,
+              "scc_shard": kshard.sweep_launches}
+    mism = {"wgl_search": sum(_mismatches(
+        ws.wgl_search(packed, rs, s0, **kw),
+        ws.wgl_search_reference(packed, rs, s0, **kw)))}
+    n, E = 2000, 6000
+    src = rng.integers(0, n, E)
+    dst = rng.integers(0, n, E)
+    args = _scc_tensors(src, dst, rng.random(E) < 0.8, dev)
+    mism["scc"] = int((kscc.scc_labels(*args, n)
+                       != kscc.scc_labels_reference(*args, n)).sum())
+    mat = torch.from_numpy(rng.integers(-2 ** 40, 2 ** 40, (1000, 32))).to(
+        dev)
+    mism["bank_reduce"] = sum(_mismatches(kbank.bank_reduce(mat),
+                                          kbank.bank_reduce_reference(mat)))
+    i32 = dict(dtype=torch.int32, device=dev)
+    edges = [args[0], args[1], args[2],
+             torch.ones(n, dtype=torch.bool, device=dev)]
+    state = {"x": torch.from_numpy(rng.integers(0, n, n)).to(**i32),
+             "col": torch.zeros(n, **i32),
+             "prop": torch.full((n,), kshard.NEUTRAL, **i32),
+             "live": torch.zeros((E, 2), **i32),
+             "cnt": torch.zeros(2, **i32),
+             "st": torch.zeros(kshard.STATE, **i32)}
+    plain = {k: v.clone() for k, v in state.items()}
+    groups = [kshard.SweepGroup([kshard.sweep_plan(
+        *edges, t["x"], t["col"], t["prop"], t["live"], t["cnt"], t["st"],
+        False)]) for t in (state, plain)]
+    mism["scc_shard"] = 0
+    for compact in (True, False):
+        kshard.scc_sweep(groups[0], compact)
+        kshard.sweep_reference(groups[1], compact)
+        # the live pairs agree up to their order
+        k = int(plain["cnt"][0])
+        pairs = [sorted(map(tuple, t["live"][:k].tolist()))
+                 for t in (state, plain)]
+        mism["scc_shard"] += int((state["prop"] != plain["prop"]).sum()) \
+            + int((state["cnt"] != plain["cnt"]).sum()) \
+            + int(pairs[0] != pairs[1])
+    after = {"wgl_search": ws.launches, "scc": kscc.launches,
+             "bank_reduce": kbank.launches,
+             "scc_shard": kshard.sweep_launches}
+    return {k: {"mismatches": mism[k], "launches": after[k] - before[k]}
+            for k in mism}
+
+
+def _cache_files(d: Path) -> dict:
+    return {p.name: p.stat().st_mtime_ns for p in sorted(d.iterdir())}
+
+
+def cache_build_child() -> None:
+    """Phase 31 (a), in a process of its own: build_all() into the cache
+    JEPSEN_TPU_COMPILE_CACHE names."""
+    info = build.build_all()
+    print("CACHE-BUILD " + json.dumps({
+        "seconds": info["seconds"], "libraries": info["libraries"],
+        "build_dir": str(build.build_dir()),
+        "nvcc": build.nvcc_version().strip().splitlines()[-1:]}),
+        flush=True)
+
+
+def cache_load_child() -> None:
+    """Phase 31 (b), in a process of its own with no nvcc on PATH: every
+    library is in the cache before it loads, each loads from there, the
+    cache's files are untouched, and cache_launches() runs on the card."""
+    d = build.build_dir()
+    before = _cache_files(d)
+    missing = [n for n in build.sources()
+               if not build.library_path(n).exists()]
+    if missing:
+        raise AssertionError(f"not in the cache {d}: {missing}")
+    loaded = {}
+    for n in build.sources():
+        build.load(n)
+        loaded[n] = str(build.library_path(n))
+    out = cache_launches(torch.device("cuda"))
+    print("CACHE-LOAD " + json.dumps({
+        "nvcc_on_path": shutil.which("nvcc"), "build_dir": str(d),
+        "libraries": loaded, "files_unchanged": _cache_files(d) == before,
+        "launches": out}), flush=True)
+
+
+def _cache_child(fn: str, tag: str, cache: Path,
+                 path: str) -> tuple[dict, float]:
+    """Runs chip_smoke.<fn>() in a process of its own with the kernel
+    build cache at `cache` and `path` as PATH; (the line it prints after
+    `tag`, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import chip_smoke as cs; cs.{fn}()"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PATH=path,
+                              JEPSEN_TPU_COMPILE_CACHE=str(cache)))
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(tag)]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"{fn} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(lines[0][len(tag):]), time.perf_counter() - t0
+
+
+def _build_cache(on_card: bool, card: str) -> None:
+    """(a) a cold build into a fresh cache; (b) the libraries loaded from
+    it by a process without nvcc on PATH and launched against their plain
+    versions. The card's alone: off it, there is no nvcc to build with."""
+    if not on_card:
+        return
+    cache = Path(tempfile.mkdtemp(prefix="chip-smoke-cache-"))
+    try:
+        cold, cold_s = _cache_child("cache_build_child", "CACHE-BUILD ",
+                                    cache, os.environ.get("PATH", ""))
+        names = sorted(cold["libraries"])
+        if names != build.sources() or any(
+                Path(p).parent != cache for p in cold["libraries"].values()):
+            raise AssertionError(f"the cold build did not land in {cache}: "
+                                 f"{cold['libraries']}")
+        emit({"phase": "switches", "part": "cold-build", "wall_s": cold_s,
+              "build_s": cold["seconds"], "build_dir": cold["build_dir"],
+              "libraries": [Path(p).name
+                            for p in cold["libraries"].values()],
+              "nvcc": cold["nvcc"], "card": card})
+        no_nvcc = os.pathsep.join(
+            d for d in os.environ.get("PATH", "").split(os.pathsep)
+            if d and not (Path(d) / "nvcc").exists())
+        warm, warm_s = _cache_child("cache_load_child", "CACHE-LOAD ",
+                                    cache, no_nvcc)
+        bad = {k: v for k, v in warm["launches"].items()
+               if v["mismatches"] or v["launches"] < 1}
+        if (warm["nvcc_on_path"] is not None or not warm["files_unchanged"]
+                or warm["libraries"] != cold["libraries"] or bad):
+            raise AssertionError(f"loading from the cache: {warm}")
+        emit({"phase": "switches", "part": "cached-load", "wall_s": warm_s,
+              "nvcc_on_path": warm["nvcc_on_path"],
+              "files_unchanged": warm["files_unchanged"],
+              "launches": warm["launches"], "card": card})
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def _certified_check(dev, model, hist, enc, target_len: int):
+    """Phase 4's headline check with its certificate attached, as
+    wgl.analysis(certify=True) attaches it: (result, wall s, launches)."""
+    ws.launches = 0
+    t0 = time.perf_counter()
+    res = wgl.check_segmented(enc, target_len=target_len, device=dev)
+    certify.attach_wgl(model, hist, enc, res)
+    return res, time.perf_counter() - t0, ws.launches
+
+
+def switches_path(dev, on_card: bool, hist, enc, benc,
+                  target_len: int) -> dict:
+    """Phase 31: the kernel build cache (the card only), then phase 4's
+    headline check with certificates on and JEPSEN_TPU_CERTIFY=0, and its
+    85%-corrupted twin through check_segmented with early exit on and
+    JEPSEN_TPU_EARLY_EXIT=0."""
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line() if on_card else "cpu"
+    _build_cache(on_card, card)
+    model = models.cas_register()
+    with _env("JEPSEN_TPU_CERTIFY", None):
+        on, on_s, on_n = _certified_check(dev, model, hist, enc, target_len)
+    with _env("JEPSEN_TPU_CERTIFY", "0"):
+        off, off_s, off_n = _certified_check(dev, model, hist, enc,
+                                             target_len)
+    cert_on = on.pop("certificate")
+    cert_off = off.pop("certificate")
+    if (on["valid?"] is not True or _norm(on) != _norm(off)
+            or cert_off != CERT_ABSENT or "absent" in cert_on
+            or on_n != off_n or (on_card and on_n == 0)):
+        raise AssertionError(f"certificates off: {off} {cert_off} "
+                             f"({off_n} launches) against {on} "
+                             f"({on_n} launches)")
+    emit({"phase": "switches", "part": "certify", "events": len(hist),
+          "valid": on["valid?"], "certified_s": on_s, "uncertified_s": off_s,
+          "certificate_s": on_s - off_s, "wgl_search_launches": [on_n, off_n],
+          "certificate_off": cert_off, "card": card})
+    twin = {}
+    for name, value in (("on", None), ("off", "0")):
+        with _env("JEPSEN_TPU_EARLY_EXIT", value):
+            ws.launches = 0
+            telemetry.reset()
+            t0 = time.perf_counter()
+            res = wgl.check_segmented(benc, target_len=target_len,
+                                      device=dev)
+            twin[name] = (res, time.perf_counter() - t0, ws.launches,
+                          telemetry.get().counters().get(
+                              "wgl.segmented.early-exit", 0))
+    (a, a_s, a_n, a_e), (b, b_s, b_n, b_e) = twin["on"], twin["off"]
+    if (a["valid?"] is not False or _norm(a) != _norm(b) or b_e
+            or (on_card and not (a_n and b_n))):
+        raise AssertionError(f"early exit off: {b} ({b_n} launches) "
+                             f"against {a} ({a_n} launches)")
+    emit({"phase": "switches", "part": "early-exit", "valid": a["valid?"],
+          "failed_segment": a["failed-segment"],
+          "wgl_search_launches": {"on": a_n, "off": b_n},
+          "early_exits": {"on": a_e, "off": b_e},
+          "check_s": {"on": a_s, "off": b_s}, "card": card})
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "switches-total", "seconds": wall,
+          "budget_s": SWITCHES_BUDGET_S, "card": card})
+    return {"seconds": wall}
+
+
 def run(dev: torch.device, n_headline: int = 500_000,
         target_len: int = 8192, min_segments: int = 40,
         n_cross: int = 10_000, n_elle: int = ELLE_TXNS,
@@ -8686,6 +8950,9 @@ def run(dev: torch.device, n_headline: int = 500_000,
     mesh = mesh_path(dev, on_card, hists, min(EXTEND_OPS, n_headline),
                      elle_direct["histories"], **(mesh_sizes or {}))
     mark("30 mesh")
+    # 31. the kernel build cache, certificates off, early exit off
+    switches_path(dev, on_card, hist, enc, benc, target_len)
+    mark("31 switches")
 
     by_path = {k: (sum(v) if isinstance(v, list) else v)
                for k, v in per_path.items() if k != "ensemble-sharded (B2)"}

@@ -17,10 +17,10 @@ runs every kernel's plain PyTorch version) on `test`, `test-all`,
 `analyze` and `fleet serve`. Each of them resolves the device before
 anything of the run starts, so without a card and without
 `--device cpu` the command exits 255 with device.resolve_device's
-message and writes no run directory. `--compile-cache` names the JAX
-package's XLA compilation cache: the port's kernels are cached by a hash
-of their sources in the build directory (gpu/kernels/build.py), so the
-option is parsed, logs one warning and has no effect. `lint` runs the
+message and writes no run directory. `--compile-cache DIR` sets
+JEPSEN_TPU_COMPILE_CACHE as in the JAX package; in the port it names the
+kernel build cache (gpu/kernels/build.py: the CUDA libraries are built
+into and loaded from DIR; "0" turns the cache off). `lint` runs the
 port's static analysis (jepsen_tpu_torch.analysis) under the JAX
 package's options and exit codes.
 """
@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 from typing import Callable
@@ -84,9 +85,10 @@ def add_test_opts(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--time-limit", type=int, default=60,
                    help="Test duration excluding setup/teardown, secs.")
     p.add_argument("--compile-cache", default=None, metavar="DIR",
-                   help="The JAX package's XLA compilation cache; no "
-                        "effect in the port, whose kernels are cached "
-                        "by source hash in their build directory.")
+                   help="Kernel build cache directory (or 0 to "
+                        "disable). Defaults to jepsen_tpu_torch/gpu/"
+                        "kernels/build; also settable via "
+                        "JEPSEN_TPU_COMPILE_CACHE.")
     return _device_opt(p)
 
 
@@ -124,10 +126,11 @@ def test_opt_fn(options: argparse.Namespace) -> dict:
         "dummy": o.pop("no_ssh", False),
     }
     o["leave_db_running?"] = o.pop("leave_db_running", False)
-    if o.pop("compile_cache", None) is not None:
-        logger.warning("--compile-cache has no effect in the port: its "
-                       "kernels are cached by source hash in "
-                       "jepsen_tpu_torch/gpu/kernels/build/")
+    cache = o.pop("compile_cache", None)
+    if cache is not None:
+        # gpu/kernels/build.py reads the variable at each load, so
+        # setting it here covers every kernel this process builds
+        os.environ["JEPSEN_TPU_COMPILE_CACHE"] = cache
     o.pop("node", None)
     o.pop("nodes_file", None)
     return o

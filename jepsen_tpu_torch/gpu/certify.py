@@ -1,6 +1,6 @@
 """Verdict certificates: self-proving checker results
 (jepsen_tpu/tpu/certify.py, copied for the port: the wgl and elle
-halves, without the JEPSEN_TPU_CERTIFY switch).
+halves and the JEPSEN_TPU_CERTIFY switch).
 
 A device-kernel verdict is only as trustworthy as the kernel. This
 module makes wgl/elle verdicts carry a machine-checkable proof, so any
@@ -36,12 +36,19 @@ can't be extracted say so honestly (`{"absent": reason}`) — an absent
 certificate is allowed, a validating-but-wrong one never is.
 
 Extraction cost is bounded (a node budget on the order search).
+JEPSEN_TPU_CERTIFY=0 disables extraction entirely: attach_wgl and
+attach_elle then leave the honest marker
+absent("extraction disabled (JEPSEN_TPU_CERTIFY=0)") and record no
+`certify.attach` span, so a run prices the check without its
+certificate, and result walks (stamp_results, the independent
+checker's key stamping) count the marker as any other absence.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import zlib
 from typing import Any, Iterable
 
@@ -64,6 +71,11 @@ BIG = 1 << 60
 class CertificateError(Exception):
     """The certificate does not prove its verdict against this
     history."""
+
+
+def enabled() -> bool:
+    """False when JEPSEN_TPU_CERTIFY is "0" (read at each call)."""
+    return os.environ.get("JEPSEN_TPU_CERTIFY", "1") != "0"
 
 
 def absent(reason: str) -> dict:
@@ -1086,8 +1098,14 @@ def _wgl_certificate(model, hist, enc, result) -> dict:
 
 def attach_wgl(model, hist, enc, result) -> dict:
     """Attaches a certificate to a wgl analysis result (checker entry
-    points call this; raw kernel paths don't)."""
+    points call this; raw kernel paths don't). Disabled extraction
+    still leaves an honest absent marker so result walks stay
+    uniform."""
     if not isinstance(result, dict):
+        return result
+    if not enabled():
+        result["certificate"] = absent("extraction disabled "
+                                       "(JEPSEN_TPU_CERTIFY=0)")
         return result
     # spanned so certification is priced apart from device compute
     with telemetry.span("certify.attach"):
@@ -1358,6 +1376,10 @@ def attach_elle(hist, result, family: str) -> dict:
     """Attaches a certificate to an elle check result (the checker
     wrappers opt in via opts['certify']; raw bench calls don't)."""
     if not isinstance(result, dict):
+        return result
+    if not enabled():
+        result["certificate"] = absent("extraction disabled "
+                                       "(JEPSEN_TPU_CERTIFY=0)")
         return result
     with telemetry.span("certify.attach"):
         cert = elle_certificate(hist, result, family)

@@ -3,30 +3,43 @@
 Each `csrc/<name>.cu` compiles on its own with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <dir>/lib<name>-<hash>.so csrc/<name>.cu
 
-into `jepsen_tpu_torch/gpu/kernels/build/` (listed in .gitignore). The
-file name carries a hash of the sources, so an edited source rebuilds and
-an unchanged one loads the library already there. The libraries have a
-plain C interface (no PyTorch headers), which keeps a build to seconds.
-Nothing is built when the module is imported: the first load() of a
-kernel builds it, and build_all() builds every source at once, one nvcc
-process each.
+into build_dir(), the kernel build cache: the port's counterpart of the
+JAX package's persistent compilation cache, set the same way
+(`--compile-cache DIR` or JEPSEN_TPU_COMPILE_CACHE, read through
+gpu/spmd.py compile_cache_dir() at each load() and build_all(), never at
+import). A path there is the cache: libraries are built into it and
+loaded from it, so processes sharing it build each library once. "0" or
+an empty value turns the cache off: each process builds into a private
+directory under the system's temporary directory, removed when it exits.
+Unset, the cache is `jepsen_tpu_torch/gpu/kernels/build/` (listed in
+.gitignore, where chip_smoke.py's build lands), not the JAX package's
+store/.xla-cache. The file name carries a hash of the sources, the flags
+and `nvcc --version`'s output, so an edited source or another toolchain
+rebuilds and an unchanged one loads the library already there. A build
+writes a file named for its process and renames it into place, so
+processes building into one directory never load a half-written
+library. The libraries have a plain C interface (no PyTorch headers),
+which keeps a build to seconds. Nothing is built when the module is
+imported: the first load() of a kernel builds it, and build_all() builds
+every source at once, one nvcc process each.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -36,6 +49,11 @@ _loaded: dict[str, ctypes.CDLL] = {}
 # ns each library took to build (if its sources changed) and load, until
 # the profiler takes it as the compile_ns of that kernel's first launch
 _load_ns: dict[str, int] = {}
+# `nvcc --version` by nvcc path, read once a process
+_nvcc_versions: dict[str, str] = {}
+# the private build directory of a process whose cache is off
+_private: Path | None = None
+_private_lock = threading.Lock()
 
 
 class BuildError(RuntimeError):
@@ -52,6 +70,39 @@ def nvcc_path() -> str:
     raise BuildError("nvcc not found on PATH or in /usr/local/cuda/bin")
 
 
+def nvcc_version() -> str:
+    """What `nvcc --version` prints for nvcc_path(); "" without nvcc."""
+    try:
+        nvcc = nvcc_path()
+    except BuildError:
+        return ""
+    if nvcc not in _nvcc_versions:
+        try:
+            _nvcc_versions[nvcc] = subprocess.run(
+                [nvcc, "--version"], capture_output=True, text=True,
+                timeout=60).stdout
+        except (OSError, subprocess.SubprocessError):
+            return ""
+    return _nvcc_versions[nvcc]
+
+
+def build_dir() -> Path:
+    """The directory libraries are built into and loaded from: the
+    cache gpu/spmd.py compile_cache_dir() names, or the process's
+    private directory when it names none (the cache is off)."""
+    from .. import spmd
+
+    global _private
+    d = spmd.compile_cache_dir()
+    if d is not None:
+        return Path(d)
+    with _private_lock:
+        if _private is None:
+            _private = Path(tempfile.mkdtemp(prefix="jepsen-tpu-kernels-"))
+            atexit.register(shutil.rmtree, _private, True)
+        return _private
+
+
 def sources() -> list[str]:
     """Names of the kernels in csrc/ (one shared library each)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -63,11 +114,12 @@ def _digest() -> str:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
     return h.hexdigest()[:16]
 
 
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest()}.so"
+    return build_dir() / f"lib{name}-{_digest()}.so"
 
 
 def _start(name: str):
@@ -77,7 +129,7 @@ def _start(name: str):
     log = out.with_suffix(".log")
     if out.exists():
         return name, None, out, log
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
@@ -96,7 +148,9 @@ def _finish(started) -> Path:
         tmp.unlink(missing_ok=True)
         raise BuildError(f"nvcc failed for {name}.cu "
                          f"(exit {proc.returncode}):\n{stderr}{stdout}")
-    log.write_text(stderr + stdout)
+    tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    tmp_log.write_text(stderr + stdout)
+    os.replace(tmp_log, log)
     os.replace(tmp, out)
     return out
 

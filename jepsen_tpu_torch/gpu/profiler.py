@@ -31,8 +31,9 @@ shard-layout stages that feed them) reports a per-launch record:
     as `compile.miss` (later sights `compile.hit`), and the gauge
     `bucket_cardinality` is the number of distinct shapes seen, as in
     the JAX package. `compile_ns` is the time to build or load the
-    kernel's library (gpu/kernels/build.py), recorded on the process's
-    first recorded launch of that kernel;
+    kernel's library (gpu/kernels/build.py, in its build_dir(): a warm
+    kernel build cache makes it the load alone), recorded on the
+    process's first recorded launch of that kernel;
   - for the ensemble layout over a mesh: the per-device work
     attribution (entries of search work per device) and its balance
     figure.

@@ -19,10 +19,10 @@ One place answers the questions every sharded launch site asks:
     partition-rule table (SNIPPETS.md [1]): argument names match rules,
     rules name the axes an argument shards over. The lint registry
     reads the same table, so R4 prices the layout the launch sites use.
-
-The JAX package's persistent compilation cache has no counterpart: the
-kernels are built once into libraries named by a hash of their sources
-(gpu/kernels/build.py), and `--compile-cache` only warns (cli.py).
+  - *Where do compiled kernels persist?* `compile_cache_dir()`, the
+    counterpart of the JAX package's persistent compilation cache
+    directory: the port's kernel build cache (gpu/kernels/build.py),
+    set by `--compile-cache` (cli.py) or JEPSEN_TPU_COMPILE_CACHE.
 """
 
 from __future__ import annotations
@@ -114,6 +114,19 @@ def spmd_devices() -> int:
         except ValueError:
             pass
     return n
+
+
+def compile_cache_dir() -> str | None:
+    """The kernel build cache's directory: JEPSEN_TPU_COMPILE_CACHE (a
+    path, or "0" / "" to turn the cache off: None), read at each call.
+    Unset, the gitignored jepsen_tpu_torch/gpu/kernels/build/, which
+    .gitignore and chip_smoke.py name (the JAX package defaults to
+    store/.xla-cache)."""
+    env = os.environ.get("JEPSEN_TPU_COMPILE_CACHE")
+    if env is None:
+        return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "kernels", "build")
+    return None if env in ("0", "") else env
 
 
 def mesh_for(n_devices: int) -> Mesh:

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import threading as _threading
 import time as _time
 import zlib
@@ -950,7 +951,8 @@ def _resolve_wave(enc: Encoded, segs, cuts, vcuts, lo: int, hi: int,
 
 def check_segmented(enc: Encoded, target_len: int | None = None,
                     W: int = 24, F: int = 48, witness: bool = False,
-                    prefix_screen: int = 96, early_exit: bool = True,
+                    prefix_screen: int = 96,
+                    early_exit: bool | None = None,
                     device=None, checkpoint_path=None,
                     checkpoint_dir=None) -> dict | None:
     """Checks one long history by cutting it into segments, computing
@@ -965,10 +967,12 @@ def check_segmented(enc: Encoded, target_len: int | None = None,
     reach(prefix) == 0 soundly proves reach(segment) == 0. Wrong start
     states die in the prefix, so the main launch runs ~half the rows.
 
-    early_exit: segments resolve in geometric waves composed as they
-    land, so an invalid history witnessed at fraction p of the search
-    costs ~p of the check. Verdicts, masks, witnesses and certificates
-    are identical either way.
+    early_exit (None reads JEPSEN_TPU_EARLY_EXIT: on unless it is "0";
+    an explicit argument wins): segments resolve in geometric waves
+    composed as they land, so an invalid history witnessed at fraction
+    p of the search costs ~p of the check; off, one wave resolves every
+    segment. Verdicts, masks, witnesses and certificates are identical
+    either way.
 
     checkpoint_path / checkpoint_dir: persists every resolved
     (segment, start-state) reach mask to a CRC-framed log as it lands
@@ -1021,6 +1025,8 @@ def check_segmented(enc: Encoded, target_len: int | None = None,
             enc, cuts)
     if ckpt is not None:
         resolved.update(ckpt.load())
+    if early_exit is None:
+        early_exit = os.environ.get("JEPSEN_TPU_EARLY_EXIT", "1") != "0"
     waves = _wave_bounds(K, early_exit)
     reach = 1 << enc.init_state
     reaches = [reach]  # reachable-state mask entering each segment

@@ -10,6 +10,14 @@ this file (listed in .gitignore), named by a hash of its contents, and
 loaded over ctypes. Each has a pure Python fallback: a missing
 toolchain raises RuntimeError here, and the callers then take the
 Python path, which computes the same bytes and arrays.
+
+JEPSEN_TPU_NATIVE_DIR, when set (and not empty), names the build
+directory instead, as in the JAX package, whose default differs
+(~/.cache/jepsen_tpu). A build prunes the older builds of its stem in
+that directory, so a directory shared with the JAX package has each
+package prune the other's `jlog` and `elleflat` libraries (other
+hashes, never a wrong load: the file names carry the sources' hash);
+the next process of that package builds them again.
 """
 
 from __future__ import annotations
@@ -26,23 +34,29 @@ from pathlib import Path
 logger = logging.getLogger(__name__)
 
 _HERE = Path(__file__).resolve().parent
-BUILD_DIR = _HERE / "build"
 _LOCK = threading.Lock()
 _libs: dict = {}
 
 
+def build_dir() -> Path:
+    """Where the helpers are built: JEPSEN_TPU_NATIVE_DIR, else build/
+    beside this file (read at each helper's first load in a process)."""
+    return Path(os.environ.get("JEPSEN_TPU_NATIVE_DIR") or _HERE / "build")
+
+
 def _compile_src(src: Path, stem: str, extra_args=()) -> Path | None:
     """Compiles one C source into a content-hash-named .so under
-    BUILD_DIR; None if no compiler accepts it. A compile writes a private
-    temporary file and renames it into place, so a killed build never
-    leaves a half-written library at the trusted path."""
+    build_dir(); None if no compiler accepts it. A compile writes a
+    private temporary file and renames it into place, so a killed build
+    never leaves a half-written library at the trusted path."""
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"{stem}-{digest}.so"
+    build = build_dir()
+    build.mkdir(parents=True, exist_ok=True)
+    out = build / f"{stem}-{digest}.so"
     if out.exists():
         return out
     for cc in ("cc", "gcc", "g++"):
-        tmp = BUILD_DIR / f".{stem}-{os.getpid()}.so.tmp"
+        tmp = build / f".{stem}-{os.getpid()}.so.tmp"
         try:
             proc = subprocess.run(
                 [cc, "-O2", "-shared", "-fPIC", str(src), "-o", str(tmp),
@@ -53,7 +67,7 @@ def _compile_src(src: Path, stem: str, extra_args=()) -> Path | None:
             continue
         if proc.returncode == 0:
             os.replace(tmp, out)
-            for old in BUILD_DIR.glob(f"{stem}-*.so"):
+            for old in build.glob(f"{stem}-*.so"):
                 if old != out:
                     old.unlink(missing_ok=True)
             return out

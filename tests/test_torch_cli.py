@@ -219,21 +219,33 @@ def test_ssh_options():
                         "private_key_path": "/id", "dummy": True}
 
 
-def test_compile_cache_parses_warns_and_has_no_effect(monkeypatch,
-                                                      caplog):
-    monkeypatch.delenv("JEPSEN_TPU_COMPILE_CACHE", raising=False)
-    with caplog.at_level("WARNING"):
-        o = parse(PORT, ["--compile-cache", "/tmp/x"])
-    assert "compile_cache" not in o
-    assert "JEPSEN_TPU_COMPILE_CACHE" not in os.environ
-    warned = [r for r in caplog.records
-              if "--compile-cache has no effect" in r.getMessage()]
-    assert len(warned) == 1
-    # the JAX package sets its cache's environment knob instead
-    want = parse("jepsen_tpu", ["--compile-cache", "/tmp/x"])
-    o.pop("device")
-    assert o == want
-    assert os.environ["JEPSEN_TPU_COMPILE_CACHE"] == "/tmp/x"
+@pytest.mark.parametrize("value", ["dir", "0"])
+def test_compile_cache_sets_the_variable_as_in_jax(value, monkeypatch,
+                                                   caplog, tmp_path):
+    """`--compile-cache` parses as in the JAX package and sets the same
+    variable, which the port reads as its kernel build cache."""
+    from jepsen_tpu_torch.gpu.kernels import build
+
+    cache = str(tmp_path / "cache") if value == "dir" else value
+    env = {}
+    # recorded, so that the variable both parses set is undone after
+    monkeypatch.setenv("JEPSEN_TPU_COMPILE_CACHE", "")
+    for root in ROOTS:
+        monkeypatch.delenv("JEPSEN_TPU_COMPILE_CACHE")
+        with caplog.at_level("WARNING"):
+            env[root] = parse(root, ["--compile-cache", cache]), \
+                os.environ["JEPSEN_TPU_COMPILE_CACHE"]
+    (want, jenv), (got, penv) = env["jepsen_tpu"], env[PORT]
+    assert got.pop("device") == "cuda"
+    assert got == want
+    assert "compile_cache" not in got
+    assert penv == jenv == cache
+    assert not [r for r in caplog.records
+                if "compile-cache" in r.getMessage()]
+    if value == "dir":
+        assert build.build_dir() == tmp_path / "cache"
+    else:
+        assert build.build_dir().name.startswith("jepsen-tpu-kernels-")
 
 
 # ---------------------------------------------------------------------------

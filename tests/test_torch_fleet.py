@@ -748,11 +748,20 @@ def test_streaming_run_masks_equal(corrupt):
     assert t[-1][0] == ("tentative-invalid" if corrupt else "streaming")
 
 
+def _quiesce(name: str, timeout_s: float = 60.0) -> None:
+    """Waits until no thread named `name` is alive."""
+    deadline = time.monotonic() + timeout_s
+    while any(t.name == name for t in threading.enumerate()):
+        assert time.monotonic() < deadline, f"{name} still running"
+        time.sleep(0.01)
+
+
 def test_stream_checkpoint_records_equal(tmp_path):
     """The stream-wgl checkpoint a streamed run leaves is the JAX
     package's byte for byte."""
     for p in PKGS:
         srv = p.server(tmp_path / p.root).start()
+        path = p.g("ckpt").fleet_path(tmp_path / p.root, "t", "r")
         try:
             c = p.m("fleet.client").FleetClient(srv.addr, "t", "r",
                                                 io_timeout_s=3)
@@ -760,16 +769,25 @@ def test_stream_checkpoint_records_equal(tmp_path):
             for i in range(0, len(ops), 150):
                 c.send_chunk(ops[i:i + 150])
                 # each chunk's stream step ends before the next chunk
-                # arrives, so both packages check the same prefixes
+                # arrives, so both packages check the same prefixes and
+                # leave the same last record. The step's thread clears
+                # _inflight before it writes the record through the
+                # sink and re-kicks for ops that came meanwhile (a
+                # re-kick starts the next step's thread first), so the
+                # wait is for the thread, not for the flag: a record
+                # written late would overwrite the next step's.
+                _quiesce("fleet-stream-t-r")
                 sr = srv._runs[("t", "r")].stream
-                deadline = time.monotonic() + 60
-                while time.monotonic() < deadline:
-                    with sr._lock:
-                        if not sr._inflight:
-                            break
-                    time.sleep(0.01)
+                with sr._lock:
+                    assert not sr._inflight
+                    checked = sr._checked
+                if checked:
+                    assert p.g("ckpt").load(path, "stream-wgl")[
+                        "checked"] == checked
             c.finish()
             c.close()
+            # the verdict thread compacts the WAL after finish() returns
+            _quiesce("fleet-verdict-t-r")
         finally:
             srv.stop()
     want = JAX.g("ckpt").fleet_path(tmp_path / "jepsen_tpu", "t", "r")
